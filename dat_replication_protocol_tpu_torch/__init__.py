@@ -1,0 +1,59 @@
+"""dat_replication_protocol_tpu_torch — the PyTorch/CUDA port.
+
+The port of ``dat_replication_protocol_tpu`` (JAX on a TPU) to PyTorch
+with hand-written CUDA kernels for an NVIDIA H100.  This package imports
+``torch`` and never ``jax``, and nothing of the JAX package: it keeps its
+own copies of the wire and session code it needs.
+
+Entry points mirror the reference's two factories (reference:
+index.js:1-2)::
+
+    import dat_replication_protocol_tpu_torch as protocol
+    enc = protocol.encode()
+    dec = protocol.decode(backend="cuda")          # digests on the card
+    dec = protocol.decode(backend="cuda", device="cpu")  # plain versions
+    protocol.pipe(enc, dec)
+
+``backend="cuda"`` content-hashes every change payload and blob with
+batched BLAKE2b-256 on ``device`` (default ``"cuda"``; without a card
+that raises).
+"""
+
+from __future__ import annotations
+
+from .session import (BlobLengthError, BlobReader, BlobWriter, Decoder,
+                      Encoder, Pipe, pipe)
+from .wire import Change, ProtocolError, decode_change, encode_change
+
+__version__ = "0.1.0"
+
+
+def encode(backend: str = "host", device="cuda", **kwargs) -> Encoder:
+    """The producing end of a session (reference: index.js:1).
+
+    ``backend='cuda'`` hashes outgoing payloads on ``device``."""
+    if backend == "host":
+        return Encoder(**kwargs)
+    if backend == "cuda":
+        from .backend.cuda_backend import CudaEncoder
+
+        return CudaEncoder(device=device, **kwargs)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+def decode(backend: str = "host", device="cuda", **kwargs) -> Decoder:
+    """The consuming end of a session (reference: index.js:2).
+
+    ``backend='cuda'`` hashes incoming payloads on ``device``."""
+    if backend == "host":
+        return Decoder(**kwargs)
+    if backend == "cuda":
+        from .backend.cuda_backend import CudaDecoder
+
+        return CudaDecoder(device=device, **kwargs)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+__all__ = ["BlobLengthError", "BlobReader", "BlobWriter", "Change",
+           "Decoder", "Encoder", "Pipe", "ProtocolError", "decode",
+           "decode_change", "encode", "encode_change", "pipe"]

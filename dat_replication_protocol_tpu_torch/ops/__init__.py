@@ -1,0 +1,11 @@
+"""Device ops: batched BLAKE2b (kernel B1) and Merkle levels (kernel B2).
+
+Importing this package builds nothing: the CUDA kernels are compiled at
+their first launch (:mod:`._build`).
+"""
+
+from .blake2b import blake2b_batch, blake2b_batch_begin, blake2b_packed
+from .merkle import build_tree, merkle_level, root
+
+__all__ = ["blake2b_batch", "blake2b_batch_begin", "blake2b_packed",
+           "build_tree", "merkle_level", "root"]

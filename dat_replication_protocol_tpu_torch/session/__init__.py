@@ -1,0 +1,9 @@
+"""Session layer: Encoder / Decoder and the loopback pipe."""
+
+from .decoder import BlobReader, Decoder, DecoderDestroyedError
+from .encoder import BlobLengthError, BlobWriter, Encoder, EncoderDestroyedError
+from .pipe import Pipe, pipe
+
+__all__ = ["BlobLengthError", "BlobReader", "BlobWriter", "Decoder",
+           "DecoderDestroyedError", "Encoder", "EncoderDestroyedError",
+           "Pipe", "pipe"]

@@ -1,0 +1,367 @@
+"""Encoder — the producing end of a replication session.
+
+A trimmed copy of ``dat_replication_protocol_tpu/session/encoder.py``
+(reference semantics: encode.js:46-151), pull-based:
+
+* ``change(change, on_flush)`` frames a protobuf Change (type id 1).
+* ``blob(length, on_flush)`` opens a streamed blob (type id 2) and
+  returns a :class:`BlobWriter`; the length is declared up front because
+  the wire header precedes the data.
+* Blob FIFO: any number of blobs may be open, but their bytes reach the
+  wire in creation order — later blobs are corked until the head ends.
+* A change submitted while any blob is open is parked and replayed once
+  the blob queue drains.
+* Backpressure: the consumer pulls with :meth:`read`; ``on_flush``
+  callbacks fire when their bytes have been pulled, and ``write``/
+  ``change`` return False above the high-water mark.
+* ``finalize()`` marks EOF; :meth:`read` returns ``None`` once drained.
+
+Telemetry, capability negotiation, batch framing and journals are not
+carried in this slice.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Callable, Optional
+
+from ..wire.change_codec import Change, encode_change
+from ..wire.framing import TYPE_BLOB, TYPE_CHANGE, frame_header
+
+OnDone = Optional[Callable[[], None]]
+
+DEFAULT_HIGH_WATER = 64 * 1024
+
+
+class EncoderDestroyedError(Exception):
+    pass
+
+
+class BlobLengthError(Exception):
+    """Writes did not match the declared blob length."""
+
+
+class BlobWriter:
+    """Write side of one streamed blob (reference: encode.js:11-44).
+
+    While corked (not head of the blob FIFO) writes are parked and
+    flushed on uncork.  Overflow or a short ``end()`` raises
+    :class:`BlobLengthError` and destroys the encoder, because a length
+    mismatch silently desyncs the wire.
+    """
+
+    def __init__(self, encoder: "Encoder", length: int, on_flush: OnDone = None):
+        self._encoder = encoder
+        self.length = length
+        self._on_flush = on_flush
+        self._written = 0
+        self._corked = False
+        self._parked: list[tuple[bytes, OnDone]] = []
+        self._ended = False
+        self._finished = False
+        self.destroyed = False
+
+    def write(self, data, on_flush: OnDone = None) -> bool:
+        """Append blob bytes; False when the encoder is above its
+        high-water mark (wait for :meth:`Encoder.on_drain`)."""
+        if self.destroyed or self._encoder.destroyed:
+            raise EncoderDestroyedError("write after destroy")
+        if self._ended:
+            raise BlobLengthError("write after end()")
+        if isinstance(data, str):
+            data = data.encode("utf-8")
+        elif not isinstance(data, (bytes, bytearray, memoryview)):
+            data = bytes(data)
+        if self._written + len(data) > self.length:
+            err = BlobLengthError(
+                f"blob overflow: declared {self.length}, writing past it "
+                f"({self._written} + {len(data)})")
+            self._encoder.destroy(err)
+            raise err
+        self._written += len(data)
+        if self._corked:
+            self._park(bytes(data), on_flush)
+            return not self._encoder._above_high_water()
+        return self._encoder._push(data, on_flush)
+
+    def end(self, data=None, on_flush: OnDone = None) -> None:
+        """Finish the blob (optionally writing a final chunk)."""
+        if data is not None:
+            self.write(data, on_flush)
+        elif on_flush is not None:
+            prev = self._on_flush
+            if prev is None:
+                self._on_flush = on_flush
+            else:
+                def both(a=prev, b=on_flush):
+                    a()
+                    b()
+                self._on_flush = both
+        if self._ended:
+            return
+        self._ended = True
+        if self._written != self.length:
+            err = BlobLengthError(
+                f"blob ended short: declared {self.length}, "
+                f"wrote {self._written}")
+            self._encoder.destroy(err)
+            raise err
+        if not self._corked:
+            self._finish()
+
+    def destroy(self, err: Exception | None = None) -> None:
+        """Destroying either side of a blob destroys its session."""
+        if self.destroyed:
+            return
+        self.destroyed = True
+        self._encoder.destroy(err)
+
+    def _park(self, data: bytes, cb: OnDone) -> None:
+        # parked bytes count toward the high-water mark
+        self._parked.append((data, cb))
+        self._encoder._parked_bytes += len(data)
+
+    def _uncork(self) -> None:
+        if not self._corked:
+            return
+        self._corked = False
+        for data, cb in self._parked:
+            self._encoder._parked_bytes -= len(data)
+            self._encoder._push(data, cb)
+        self._parked.clear()
+        if self._ended:
+            self._finish()
+
+    def _finish(self) -> None:
+        if self._finished:
+            return
+        self._finished = True
+        if self._on_flush is not None:
+            self._encoder._after_flush(self._on_flush)
+        self._encoder._blob_finished(self)
+
+
+class Encoder:
+    """Pull-based frame producer.  See module docstring for semantics."""
+
+    def __init__(self, high_water: int = DEFAULT_HIGH_WATER):
+        self.bytes = 0
+        self.changes = 0
+        self.blobs = 0
+        self.destroyed = False
+        self.finalized = False
+        self.finished = False  # terminal: drained past finalize, or destroyed
+        self._high_water = high_water
+        # (wire bytes, on_consumed) in wire order
+        self._queue: deque[tuple[bytes | memoryview, OnDone]] = deque()
+        self._queued_bytes = 0
+        self._parked_bytes = 0
+        self._open_blobs: deque[BlobWriter] = deque()
+        # parked changes are encoded at submit time, framed on replay
+        self._parked_changes: list[tuple[bytes, OnDone]] = []
+        self._drain_cbs: list[Callable[[], None]] = []
+        self._error_cbs: list[Callable[[Exception | None], None]] = []
+        self._finish_cbs: list[Callable[[], None]] = []
+        self._finalize_cb: OnDone = None
+        # single consumer hook (the pipe / a transport pump): called when
+        # new wire bytes become readable
+        self._on_readable: Optional[Callable[[], None]] = None
+
+    def _attach_readable(self, cb: Callable[[], None]) -> None:
+        if self._on_readable is not None:
+            raise RuntimeError(
+                "encoder is already attached to a pump/pipe; detach it first")
+        self._on_readable = cb
+
+    def _detach_readable(self) -> None:
+        self._on_readable = None
+
+    def change(self, change: Change | dict, on_flush: OnDone = None) -> bool:
+        """Frame a Change; parked behind any open blob."""
+        if self.destroyed:
+            raise EncoderDestroyedError("change after destroy")
+        if self.finalized:
+            raise EncoderDestroyedError("change after finalize")
+        payload = encode_change(change)
+        if self._open_blobs:
+            self._parked_changes.append((payload, on_flush))
+            self._parked_bytes += len(payload)
+            return not self._above_high_water()
+        return self._frame_change(payload, on_flush)
+
+    def _frame_change(self, payload: bytes, on_flush: OnDone) -> bool:
+        self.changes += 1
+        self._push(frame_header(len(payload), TYPE_CHANGE), None)
+        return self._push(payload, on_flush)
+
+    def blob(self, length: int, on_flush: OnDone = None) -> BlobWriter:
+        """Open a streamed blob of exactly ``length`` bytes."""
+        if self.destroyed:
+            raise EncoderDestroyedError("blob after destroy")
+        if self.finalized:
+            raise EncoderDestroyedError("blob after finalize")
+        if not isinstance(length, int) or length <= 0:
+            raise ValueError("blob length is required and must be > 0")
+        ws = BlobWriter(self, length, on_flush)
+        self.blobs += 1
+        header = frame_header(length, TYPE_BLOB)
+        if self._open_blobs:
+            ws._corked = True
+            ws._park(header, None)
+        else:
+            self._push(header, None)
+        self._open_blobs.append(ws)
+        return ws
+
+    def finalize(self, on_flush: OnDone = None) -> None:
+        """Graceful end: after the queue drains, :meth:`read` gives EOF."""
+        if self.destroyed:
+            raise EncoderDestroyedError("finalize after destroy")
+        if self._open_blobs:
+            raise EncoderDestroyedError(
+                f"finalize with {len(self._open_blobs)} blob(s) still open")
+        self.finalized = True
+        self._finalize_cb = on_flush
+        if not self._queue:
+            if on_flush is not None:
+                cb, self._finalize_cb = self._finalize_cb, None
+                cb()
+            self._fire_finish()
+        if self._on_readable is not None:
+            self._on_readable()  # let a connected pump observe EOF
+
+    def read(self, max_bytes: int = -1) -> bytes | None:
+        """Pull up to ``max_bytes`` of wire data (all buffered if -1).
+
+        ``b''`` when nothing is buffered yet, ``None`` at EOF.  A frame
+        larger than ``max_bytes`` is handed out in memoryview slices, so
+        reading a large blob costs one copy, not one per chunk.
+        """
+        if self.destroyed:
+            raise EncoderDestroyedError("read after destroy")
+        if not self._queue:
+            return None if self.finalized else b""
+        out = bytearray()
+        fired: list[Callable[[], None]] = []
+        while self._queue and (max_bytes < 0 or len(out) < max_bytes):
+            payload, cb = self._queue[0]
+            room = len(payload) if max_bytes < 0 else max_bytes - len(out)
+            if len(payload) <= room:
+                out += payload
+                self._queue.popleft()
+                self._queued_bytes -= len(payload)
+                if cb is not None:
+                    fired.append(cb)
+            else:
+                view = memoryview(payload)
+                out += view[:room]
+                self._queue[0] = (view[room:], cb)
+                self._queued_bytes -= room
+                break
+        data = bytes(out)
+        below = not self._above_high_water()
+        for cb in fired:
+            cb()
+        if below and self._drain_cbs:
+            cbs, self._drain_cbs = self._drain_cbs, []
+            for cb in cbs:
+                cb()
+        if self.finalized and not self._queue:
+            if self._finalize_cb is not None:
+                cb, self._finalize_cb = self._finalize_cb, None
+                cb()
+            self._fire_finish()
+        return data
+
+    def writable(self) -> bool:
+        return not self._above_high_water()
+
+    def on_drain(self, cb: Callable[[], None]) -> None:
+        """One-shot callback when the buffer falls below the high-water mark."""
+        if self._above_high_water():
+            self._drain_cbs.append(cb)
+        else:
+            cb()
+
+    def on_error(self, cb: Callable[[Exception | None], None]) -> None:
+        self._error_cbs.append(cb)
+
+    def on_finish(self, cb: Callable[[], None]) -> None:
+        """Fires once: after the finalized session drained, or after
+        destroy (error callbacks first)."""
+        if self.finished:
+            cb()
+        else:
+            self._finish_cbs.append(cb)
+
+    def _fire_finish(self) -> None:
+        if self.finished:
+            return
+        self.finished = True
+        cbs, self._finish_cbs = self._finish_cbs, []
+        for cb in cbs:
+            cb()
+
+    def destroy(self, err: Exception | None = None) -> None:
+        """Fail-fast teardown, destroying every open blob writer."""
+        if self.destroyed:
+            return
+        self.destroyed = True
+        for ws in list(self._open_blobs):
+            ws.destroyed = True
+        self._open_blobs.clear()
+        self._queue.clear()
+        self._queued_bytes = 0
+        self._parked_bytes = 0
+        self._parked_changes.clear()
+        for cb in self._error_cbs:
+            cb(err)
+        # wake a producer gated on the drain signal so it sees the destroy
+        cbs, self._drain_cbs = self._drain_cbs, []
+        for cb in cbs:
+            cb()
+        self._fire_finish()
+
+    def _above_high_water(self) -> bool:
+        return self._queued_bytes + self._parked_bytes >= self._high_water
+
+    def _push(self, data, on_consumed: OnDone) -> bool:
+        data = bytes(data)
+        self.bytes += len(data)
+        self._queue.append((data, on_consumed))
+        self._queued_bytes += len(data)
+        if self._on_readable is not None:
+            self._on_readable()
+        return not self._above_high_water()
+
+    def _after_flush(self, cb: Callable[[], None]) -> None:
+        """Run ``cb`` once everything currently queued has been read."""
+        if not self._queue:
+            cb()
+            return
+        payload, prev = self._queue[-1]
+        if prev is None:
+            self._queue[-1] = (payload, cb)
+        else:
+            def both(a=prev, b=cb):
+                a()
+                b()
+            self._queue[-1] = (payload, both)
+
+    def _blob_finished(self, ws: BlobWriter) -> None:
+        """Head-of-line blob completed: uncork the next and replay parked
+        changes (which re-park while blobs remain open)."""
+        if not self._open_blobs or self._open_blobs[0] is not ws:
+            err = AssertionError("blob FIFO assertion failed")
+            self.destroy(err)
+            raise err
+        self._open_blobs.popleft()
+        if self._open_blobs:
+            self._open_blobs[0]._uncork()
+        parked, self._parked_changes = self._parked_changes, []
+        for payload, cb in parked:
+            if self._open_blobs:
+                self._parked_changes.append((payload, cb))
+            else:
+                self._parked_bytes -= len(payload)
+                self._frame_change(payload, cb)

@@ -1,0 +1,5 @@
+"""Utilities: device resolution."""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,150 @@
+"""The port stands alone: no JAX, nothing of the JAX package, no silent CPU.
+
+The image preloads the ``jax`` module into every interpreter, so "the
+port never imports JAX" is proven on the source (an AST scan of every
+file of the port and of ``chip_smoke.py``) and, at run time, by the
+absence of every module of the JAX *package* after a port session.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import dat_replication_protocol_tpu_torch as protocol
+from dat_replication_protocol_tpu_torch.backend.cuda_backend import (
+    DigestPipeline,
+)
+from dat_replication_protocol_tpu_torch.utils.device import resolve_device
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "dat_replication_protocol_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "dat_replication_protocol_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    assert len(_port_files()) > 15
+    bad = [f"{p.relative_to(REPO)}:{line} imports {name}"
+           for p in _port_files() for line, name in _imports(p)
+           if name.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_triton_is_never_imported_at_module_level():
+    # kernels are built and imported at first launch: a module-level
+    # import of triton would break every host without it
+    for p in _port_files():
+        tree = ast.parse(p.read_text())
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else [node.module])
+                assert not any(n and n.startswith("triton") for n in names), p
+
+
+def test_port_session_loads_no_jax_package_module():
+    code = (
+        "import sys\n"
+        "import dat_replication_protocol_tpu_torch as protocol\n"
+        "from dat_replication_protocol_tpu_torch import entry, sidecar, weights\n"
+        "from dat_replication_protocol_tpu_torch.ops import merkle\n"
+        "e = protocol.encode()\n"
+        "d = protocol.decode(backend='cuda', device='cpu')\n"
+        "got = []\n"
+        "d.on_digest(lambda k, s, x: got.append(x))\n"
+        "protocol.pipe(e, d)\n"
+        "e.change({'key': 'k', 'change': 1, 'from': 0, 'to': 1})\n"
+        "e.blob(3).end(b'abc')\n"
+        "e.finalize()\n"
+        "fn, args = entry.entry(device='cpu')\n"
+        "fn(*args)\n"
+        "assert len(got) == 2 and d.finished\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] == 'dat_replication_protocol_tpu')\n"
+        "print(loaded)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+
+
+@pytest.mark.parametrize("make", [
+    lambda: protocol.decode(backend="cuda"),
+    lambda: protocol.encode(backend="cuda"),
+    lambda: DigestPipeline(),
+    lambda: resolve_device(),
+    lambda: resolve_device("cuda:0"),
+], ids=["decode", "encode", "pipeline", "resolve", "resolve-index"])
+def test_cuda_without_a_card_raises(make):
+    _no_card()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        make()
+
+
+def test_resolve_device_names_cpu_and_refuses_others():
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")) == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device type"):
+        resolve_device("meta")
+
+
+def test_unknown_backend_is_refused():
+    with pytest.raises(ValueError, match="unknown backend"):
+        protocol.decode(backend="tpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        protocol.encode(backend="gpu")
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
+        blake2b_packed_kernel)
+    from dat_replication_protocol_tpu_torch.ops.merkle_cuda import (
+        merkle_level_kernel)
+
+    words = torch.zeros((2, 1, 16), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        blake2b_packed_kernel(words, words, torch.zeros(
+            2, dtype=torch.int32, device="meta"))
+    digests = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        merkle_level_kernel(digests, digests)
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["no-card", "alone"])
+def test_chip_smoke_fails_without_card_or_repo(alone, tmp_path):
+    _no_card()
+    script = REPO / "chip_smoke.py"
+    cwd = REPO
+    if alone:
+        (tmp_path / "chip_smoke.py").write_bytes(script.read_bytes())
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=300, cwd=cwd, env=env)
+    assert out.returncode != 0
+    assert out.stdout == ""
