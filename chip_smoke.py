@@ -23,13 +23,30 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    over an in-memory byte pair;
 4. ``entry()`` at BASELINE.json configs[4]'s width: 2^20 payloads hashed
    and folded to a Merkle root, held against ``root_host``;
-5. times: each kernel at the main path's shapes beside its plain version
-   and its bound.
+5. times: B1 and B2 at the main path's shapes beside their plain
+   versions and their bounds;
+6. the gear kernels B3-B6 against their plain versions on the card,
+   byte-exact, at 64 rows of 128 KiB + 256 B (avg_bits 13, thin_bits 11)
+   and at the tests' shape (2,048 B rows, avg_bits 8, thin_bits 9), for a
+   stream head, a ragged last tile, a slab with real context and an
+   all-zero row; B5 must equal B3's window reduction, B6 B5, viol 0;
+7. ``content_address`` at the reference's chunk parameters (avg_bits
+   13, chunks of 2-32 KiB, 128 KiB tiles) over a 1.5 GiB blob made from
+   the seed, on each of the four extraction routes: single residency,
+   digests held against ``hashlib``, the root against ``root_host``,
+   every chosen cut against a numpy window hash, chunk sizes against
+   [min, max], identical cuts on all routes and no ``fused1p``
+   refusal; then ``delta``/``reassemble`` of an edited copy;
+8. ``chunk_stream`` over BASELINE.json configs[3]'s 10 GiB blob (phase
+   7's blob is its first 1.5 GiB) in 1 GiB slabs: the same cut checks,
+   and its cuts below 1.5 GiB - 32 KiB equal phase 7's;
+9. times: B1 at phase 7's largest chunk bucket, and B3-B6 on a 1 GiB
+   slab, beside their plain versions and bounds.
 
-Every launch counter is set to 0 just before each main-path phase (3, 4)
-and read just after; a kernel that the phases did not launch fails the
-run.  The lines before the last carry the card, the per-kernel JSON and
-the times; the last line is ``{"ok": true, "device": {...}}``.  Without a
+Every launch counter is set to 0 just before each main-path phase (3, 4,
+7, 8) and read just after; a kernel that the phases did not launch fails
+the run.  The lines before the last carry the card, the per-kernel JSON
+and the times; the last line is ``{"ok": true, "device": {...}}``.  Without a
 card it exits 2 and prints no result.
 """
 
@@ -82,24 +99,33 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def reset_counters() -> None:
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port, by the name its launch count is
+    reported under."""
     from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
         blake2b_packed_kernel)
+    from dat_replication_protocol_tpu_torch.ops.fused_cdc_hash import (
+        gear_window_first_checked_kernel)
     from dat_replication_protocol_tpu_torch.ops.merkle_cuda import (
         merkle_level_kernel)
+    from dat_replication_protocol_tpu_torch.ops.rabin_cuda import (
+        gear_candidates_kernel, gear_first_kernel, gear_window_first_kernel)
 
-    blake2b_packed_kernel.launches = 0
-    merkle_level_kernel.launches = 0
+    return {"blake2b": blake2b_packed_kernel,
+            "merkle_level": merkle_level_kernel,
+            "gear_candidates": gear_candidates_kernel,
+            "gear_first": gear_first_kernel,
+            "gear_window_first": gear_window_first_kernel,
+            "gear_window_first_checked": gear_window_first_checked_kernel}
+
+
+def reset_counters() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_counters() -> dict:
-    from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
-        blake2b_packed_kernel)
-    from dat_replication_protocol_tpu_torch.ops.merkle_cuda import (
-        merkle_level_kernel)
-
-    return {"blake2b": blake2b_packed_kernel.launches,
-            "merkle_level": merkle_level_kernel.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def sync(device) -> None:
@@ -492,6 +518,362 @@ def time_kernels(device, launches: dict, entry_step) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 6: gear kernels B3-B6 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def gear_rows(device, case: str, T: int, stride: int, seed: int):
+    """Rows for one phase-6 case, built as ``candidates_begin`` builds
+    them: ``head`` is a stream head (zero-seeded prefix), ``ragged`` a
+    head whose last tile is cut short (nbytes a multiple of neither the
+    tile nor 4, zero-padded), ``context`` a slab with 64 real bytes of
+    preceding stream, ``zero-row`` a slab with one all-zero tile."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch.ops import rabin
+
+    rng = np.random.default_rng(seed)
+    nbytes = T * stride - (stride // 3 + 1 if case == "ragged" else 0)
+    data = np.zeros(T * stride, dtype=np.uint8)
+    data[:nbytes] = np.frombuffer(rng.bytes(nbytes), dtype=np.uint8)
+    if case == "zero-row":
+        data[stride:2 * stride] = 0
+    pre = np.zeros(rabin._PREFIX, dtype=np.uint8)
+    if case == "context":
+        pre[-rabin.WINDOW:] = np.frombuffer(rng.bytes(rabin.WINDOW), np.uint8)
+    words = torch.from_numpy(data.view(np.int32)).to(device)
+    pre_row = torch.from_numpy(pre.view(np.int32)).to(device)
+    return rabin._build_rows(words, pre_row, T, stride)
+
+
+# (rows, stride, avg_bits, thin_bits): the chunking shape, then the tests'
+GEAR_SHAPES = ((64, 1 << 17, 13, 11), (64, 2048, 8, 9))
+GEAR_CASES = ("head", "ragged", "context", "zero-row")
+
+
+def check_gear_kernels(device) -> None:
+    import torch
+
+    from dat_replication_protocol_tpu_torch.ops import rabin
+    from dat_replication_protocol_tpu_torch.ops.fused_cdc_hash import (
+        gear_window_first_checked_kernel)
+    from dat_replication_protocol_tpu_torch.ops.rabin_cuda import (
+        gear_candidates_kernel, gear_first_kernel, gear_window_first_kernel)
+
+    for T, stride, avg_bits, thin_bits in GEAR_SHAPES:
+        for i, case in enumerate(GEAR_CASES):
+            rows = gear_rows(device, case, T, stride, SEED + 10 + i)
+            bits = gear_candidates_kernel(rows, avg_bits)
+            first = gear_first_kernel(rows, avg_bits)
+            wfirst = gear_window_first_kernel(rows, avg_bits, thin_bits)
+            cfirst, viol = gear_window_first_checked_kernel(
+                rows, avg_bits, thin_bits)
+            pairs = {
+                "B3": (bits, rabin.gear_candidates_tiled(rows, avg_bits)),
+                "B4": (first, rabin.gear_first_tiled(rows, avg_bits)),
+                "B5": (wfirst, rabin.gear_window_first(rows, avg_bits,
+                                                       thin_bits)),
+                "B6": (cfirst, rabin.gear_window_first_checked(
+                    rows, avg_bits, thin_bits)[0]),
+            }
+            sync(device)
+            for name, (got, plain) in pairs.items():
+                if not torch.equal(got, plain):
+                    bad = int((got != plain).sum())
+                    raise AssertionError(
+                        f"{name} differs from its plain version in {bad} "
+                        f"words ({case}, T={T}, stride={stride}, avg_bits="
+                        f"{avg_bits}, thin_bits={thin_bits})")
+            wpw = (1 << thin_bits) // rabin.PACK
+            from_b3 = rabin._first_bit_per_window(
+                bits[:, rabin._PREFIX // rabin.PACK:].reshape(-1, wpw))
+            if not torch.equal(wfirst, from_b3):
+                raise AssertionError(f"B5 differs from B3's window "
+                                     f"reduction ({case})")
+            if not torch.equal(cfirst, wfirst) or int(viol) != 0:
+                raise AssertionError(f"B6 differs from B5 or viol "
+                                     f"{int(viol)} ({case})")
+            if not bool((wfirst < (1 << 30)).any()):
+                raise AssertionError(f"weak phase-6 input: no candidates "
+                                     f"({case})")
+        log(f"phase 6: B3-B6 byte-exact vs plain at {T} rows x {stride} B + "
+            f"256 B, avg_bits {avg_bits}, thin_bits {thin_bits}, cases "
+            f"{list(GEAR_CASES)}; B5 == B3's window reduction, B6 == B5, "
+            f"viol 0")
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: content addressing and chunk_stream
+# ---------------------------------------------------------------------------
+
+CDC_AVG_BITS = 13
+CDC_MIN = 2 << 10
+CDC_MAX = 32 << 10
+CONTENT_BYTES = 3 << 29  # 1.5 GiB: under RESIDENCY_CAP
+STREAM_BYTES = 10 << 30  # BASELINE.json configs[3]'s 10 GiB blob
+TILE_BYTES = 1 << 17
+SLAB_TILES = 8192
+
+
+def make_blob(nbytes: int, seed: int = SEED + 20) -> np.ndarray:
+    """``nbytes`` random bytes from ``seed``, made in 256 MiB pieces."""
+    rng = np.random.default_rng(seed)
+    out = np.empty(nbytes, dtype=np.uint8)
+    piece = 256 << 20
+    for at in range(0, nbytes, piece):
+        n = min(piece, nbytes - at)
+        out[at:at + n] = np.frombuffer(rng.bytes(n), dtype=np.uint8)
+    return out
+
+
+class GreedyTimer:
+    """Adds up the seconds spent in the Python greedy pass while active
+    (``_greedy_select`` is looked up by name at each call)."""
+
+    def __enter__(self):
+        from dat_replication_protocol_tpu_torch.ops import (fused_cdc_hash,
+                                                            rabin)
+
+        self.modules = (rabin, fused_cdc_hash)
+        self.seconds = 0.0
+        fn = self.saved = rabin._greedy_select
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        for m in self.modules:
+            m._greedy_select = timed
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m._greedy_select = self.saved
+
+
+def window_hashes(buf: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """The gear state at each position from its 64-byte window, in numpy
+    uint64 by the closed form h = sum_k g(b[p-k]) << k: a formulation
+    independent of the kernels' chains."""
+    from dat_replication_protocol_tpu_torch.ops import rabin
+
+    table = np.array([rabin._gear_g(b) for b in range(256)], dtype=np.uint64)
+    shifts = np.arange(rabin.WINDOW - 1, -1, -1, dtype=np.uint64)
+    out = np.empty(len(pos), dtype=np.uint64)
+    for at in range(0, len(pos), 1 << 18):
+        p = pos[at:at + (1 << 18)]
+        idx = p[:, None] + np.arange(-rabin.WINDOW + 1, 1)[None, :]
+        out[at:at + len(p)] = np.sum(table[buf[idx]] << shifts, axis=1,
+                                     dtype=np.uint64)
+    return out
+
+
+def check_cuts(buf: np.ndarray, cuts, what: str) -> int:
+    """Chunk lengths within [min, max] (the last may be short), and every
+    cut that is neither forced nor the end a candidate by the window
+    hash.  Returns how many candidate cuts were checked."""
+    ends = np.asarray(cuts, dtype=np.int64)
+    sizes = np.diff(np.concatenate([[0], ends]))
+    if ends[-1] != len(buf) or (sizes > CDC_MAX).any() or (
+            sizes[:-1] < CDC_MIN).any():
+        raise AssertionError(f"{what}: chunk sizes outside "
+                             f"[{CDC_MIN}, {CDC_MAX}]")
+    chosen = ends[:-1][sizes[:-1] != CDC_MAX]
+    h = window_hashes(buf, chosen)
+    if ((h >> np.uint64(32)) & np.uint64((1 << CDC_AVG_BITS) - 1)).any():
+        raise AssertionError(f"{what}: a cut is not a candidate")
+    return len(chosen)
+
+
+def run_content(device, blob: np.ndarray) -> dict:
+    """Phase 7: content_address over ``blob`` on each route, held against
+    hashlib, root_host and the window hash; then delta and reassemble of
+    an edited copy."""
+    import dat_replication_protocol_tpu_torch as protocol
+    from dat_replication_protocol_tpu_torch.ops import merkle, rabin
+
+    results = {}
+    refusals0 = rabin.candidates_begin.refusals
+    with GreedyTimer() as greedy:
+        for route in rabin.ROUTES:
+            sync(device)
+            t0 = time.perf_counter()
+            s = protocol.content_address(blob, CDC_AVG_BITS, CDC_MIN,
+                                         CDC_MAX, route=route, device=device)
+            results[route] = (s, time.perf_counter() - t0)
+    refusals = rabin.candidates_begin.refusals - refusals0
+    s = results["bitmask"][0]
+    for route, (other, _) in results.items():
+        if other != s or not np.array_equal(other.digests, s.digests):
+            raise AssertionError(f"route {route} differs from bitmask")
+    if refusals:
+        raise AssertionError(f"{refusals} fused1p extractions refused")
+    offs, lens = s.extents()
+    for i in range(s.nchunks):
+        o = int(offs[i])
+        if s.digests[i].tobytes() != blake(blob[o:o + int(lens[i])]):
+            raise AssertionError(f"chunk {i} digest differs from hashlib")
+    if s.root != merkle.root_host(s.digests):
+        raise AssertionError("content_address root differs from root_host")
+    checked = check_cuts(blob, s.cuts, "phase 7")
+
+    # three 100-byte inserts and one 1 KiB delete
+    rng = np.random.default_rng(SEED + 21)
+    at = np.sort(rng.integers(1 << 20, len(blob) - (1 << 20), 4))
+    ins = [np.frombuffer(rng.bytes(100), np.uint8) for _ in range(3)]
+    edited = np.concatenate([blob[:at[0]], ins[0], blob[at[0]:at[1]], ins[1],
+                             blob[at[1]:at[2]], ins[2], blob[at[2]:at[3]],
+                             blob[at[3] + 1024:]])
+    new = protocol.content_address(edited, CDC_AVG_BITS, CDC_MIN, CDC_MAX,
+                                   device=device)
+    need = protocol.delta(s, new)
+    # thinning keeps the first candidate of each window aligned to the
+    # stream start, so past a shift a window holding two candidates can
+    # keep the other one and move a cut: the delta stays a small share
+    # of the chunks, not a fixed few
+    if not 1 <= len(need) <= max(32, new.nchunks // 50):
+        raise AssertionError(f"delta lists {len(need)} of {new.nchunks} "
+                             "chunks after four small edits")
+    noffs, nlens = new.extents()
+    sent = {i: edited[int(noffs[i]):int(noffs[i] + nlens[i])].tobytes()
+            for i in need}
+    if protocol.reassemble(new, blob, s, sent) != edited.tobytes():
+        raise AssertionError("reassemble did not rebuild the edited bytes")
+    return {"summary": s, "seconds": {r: t for r, (_, t) in results.items()},
+            "greedy_s": greedy.seconds / len(results), "checked": checked,
+            "delta": len(need), "nchunks_new": new.nchunks}
+
+
+def run_chunk_stream(device, blob: np.ndarray, content_cuts) -> dict:
+    """Phase 8: chunk_stream over the whole blob in 1 GiB slabs; its cuts
+    below phase 7's blob end, less one max chunk, must be phase 7's."""
+    import dat_replication_protocol_tpu_torch as protocol
+
+    with GreedyTimer() as greedy:
+        sync(device)
+        t0 = time.perf_counter()
+        cuts = protocol.chunk_stream(blob, CDC_AVG_BITS, CDC_MIN, CDC_MAX,
+                                     TILE_BYTES, SLAB_TILES, route="bitmask",
+                                     device=device)
+        seconds = time.perf_counter() - t0
+    checked = check_cuts(blob, cuts, "phase 8")
+    limit = CONTENT_BYTES - CDC_MAX
+    head = [c for c in cuts if c < limit]
+    if head != [c for c in content_cuts if c < limit]:
+        raise AssertionError("chunk_stream cuts differ from phase 7's")
+    return {"cuts": len(cuts), "seconds": seconds, "greedy_s":
+            greedy.seconds, "checked": checked, "shared": len(head),
+            "gib_per_s": len(blob) / seconds / (1 << 30)}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: gear and chunk-hash times
+# ---------------------------------------------------------------------------
+
+# 32-bit integer operations per byte of the gear scan, counted from
+# csrc/gear.cuh (not from the SASS): byte extract 1, g's two multiplies
+# (the +1 folded in) 2, the 64-bit shift-by-one and add 3, hit test 2,
+# reduction 2, loop and load share 2
+GEAR_OPS_PER_BYTE = 12
+
+
+def time_gear_kernels(device, launches: dict) -> list[dict]:
+    """B3-B6 on one 1 GiB slab of random rows (8,192 x 128 KiB + 256 B),
+    beside the plain versions at the same shape and the bounds."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch.ops import rabin
+    from dat_replication_protocol_tpu_torch.ops.fused_cdc_hash import (
+        gear_window_first_checked_kernel)
+    from dat_replication_protocol_tpu_torch.ops.rabin_cuda import (
+        gear_candidates_kernel, gear_first_kernel, gear_window_first_kernel)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 30)
+    S = TILE_BYTES + rabin._PREFIX
+    rows = torch.randint(-(1 << 31), 1 << 31, (SLAB_TILES, S // 4),
+                         dtype=torch.int32, device=device, generator=gen)
+    a, t = CDC_AVG_BITS, 11
+    nbytes = rows.numel() * 4
+    nwin = SLAB_TILES * (TILE_BYTES >> t)
+    specs = [
+        ("gear_candidates", "gear_candidates.cu", "ops/rabin_pallas.py:112",
+         lambda: gear_candidates_kernel(rows, a),
+         lambda: rabin.gear_candidates_tiled(rows, a), nbytes // 8),
+        ("gear_first", "gear_first.cu", "ops/rabin_pallas.py:407",
+         lambda: gear_first_kernel(rows, a),
+         lambda: rabin.gear_first_tiled(rows, a), nbytes // 64),
+        ("gear_window_first", "gear_window_first.cu",
+         "ops/rabin_pallas.py:284",
+         lambda: gear_window_first_kernel(rows, a, t),
+         lambda: rabin.gear_window_first(rows, a, t), 4 * nwin),
+        ("gear_window_first_checked", "gear_window_first_checked.cu",
+         "ops/fused_cdc_hash_pallas.py:163",
+         lambda: gear_window_first_checked_kernel(rows, a, t)[0],
+         lambda: rabin.gear_window_first_checked(rows, a, t)[0], 8 * nwin),
+    ]
+    out = []
+    for name, src, replaces, kernel, plain, out_bytes in specs:
+        ms = time_ms(kernel, reps=10)
+        torch.cuda.empty_cache()
+        plain_ms = time_ms(plain, reps=1)
+        want = plain()
+        err = int((kernel().to(torch.int64) - want.to(torch.int64))
+                  .abs().max())
+        del want
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = bound(nbytes + out_bytes,
+                                   nbytes * GEAR_OPS_PER_BYTE)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"dat_replication_protocol_tpu_torch/csrc/{src}",
+            "replaces": f"dat_replication_protocol_tpu/{replaces}",
+            "launches": launches[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shape": list(rows.shape)})
+    return out
+
+
+def time_chunk_bucket(device, blob: np.ndarray, cuts) -> dict:
+    """B1 at the chunk bucket with the most bytes in phase 7's cuts: one
+    launch of it as ``hash_cuts_device`` packs it (at most 64 MiB of
+    padded messages), beside the plain version and the bound."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch.batch.feed import (
+        bucketed_extents)
+    from dat_replication_protocol_tpu_torch.ops import blake2b as b2b
+    from dat_replication_protocol_tpu_torch.ops import rabin
+    from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
+        blake2b_packed_kernel)
+    from dat_replication_protocol_tpu_torch.ops.fused_cdc_hash import (
+        pack_extents_device)
+
+    ends = np.asarray(cuts, dtype=np.int64)
+    offs = np.concatenate([[0], ends[:-1]])
+    lens = ends - offs
+    buckets = bucketed_extents(lens)
+    nb = max(buckets, key=lambda b: len(buckets[b]) * b)
+    idx = buckets[nb][:max(1, (64 << 20) // (nb * 128))]
+    T = -(-len(blob) // TILE_BYTES)
+    words = rabin.stage_words(blob, T * TILE_BYTES // 4, torch.device(device))
+    args = pack_extents_device(words.view(torch.uint8), offs[idx], lens[idx],
+                               nb)
+    ms = time_ms(lambda: blake2b_packed_kernel(*args), reps=10)
+    plain_ms = time_ms(lambda: b2b.blake2b_packed(*args), reps=1)
+    if max_abs_err(blake2b_packed_kernel(*args), b2b.blake2b_packed(*args)):
+        raise AssertionError("B1 differs from its plain version at the "
+                             "chunk bucket")
+    bound_ms, bound_by = b1_bound(lens[idx])
+    return {"shape": [len(idx), nb], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "buckets": {int(b): len(v) for b, v in sorted(buckets.items())}}
+
+
 def main() -> int:
     import torch
 
@@ -541,16 +923,62 @@ def main() -> int:
     log(f"phase 4: entry() over {ent['leaves']} leaves in {ent['seconds']} s,"
         f" root {ent['root']}, launches {ent['launches']}")
 
+    t0 = time.perf_counter()
+    check_gear_kernels(device)
+    log(f"phase 6: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    blob = make_blob(STREAM_BYTES)
+    log(f"phase 7: made a {STREAM_BYTES} B blob from the seed in "
+        f"{time.perf_counter() - t0:.2f} s; phase 7 takes its first "
+        f"{CONTENT_BYTES} B")
+    reset_counters()
+    content = run_content(device, blob[:CONTENT_BYTES])
+    cdc = read_counters()
+    s = content["summary"]
+    log(f"phase 7: content_address over {CONTENT_BYTES} B: {s.nchunks} "
+        f"chunks, root {s.root.hex()}; seconds by route "
+        f"{content['seconds']} = {CONTENT_BYTES / (1 << 30) / content['seconds']['bitmask']} "
+        f"GiB/s on bitmask; greedy pass {content['greedy_s']} s a route; "
+        f"digests == hashlib, root == root_host, {content['checked']} "
+        f"candidate cuts checked by window hash, identical on all four "
+        f"routes, 0 fused1p refusals; delta after 3 inserts + 1 delete: "
+        f"{content['delta']} of {content['nchunks_new']} chunks, reassembled "
+        f"exactly; launches {cdc}")
+    for name, n in cdc.items():
+        if n == 0:
+            raise AssertionError(f"phase 7 never launched {name}")
+
+    reset_counters()
+    stream = run_chunk_stream(device, blob, s.cuts)
+    streamed = read_counters()
+    log(f"phase 8: chunk_stream over {STREAM_BYTES} B (BASELINE configs[3], "
+        f"uncut) in 1 GiB slabs, route bitmask: {stream['cuts']} cuts in "
+        f"{stream['seconds']} s = {stream['gib_per_s']} GiB/s end to end; "
+        f"greedy pass {stream['greedy_s']} s; {stream['checked']} candidate "
+        f"cuts checked; first {stream['shared']} cuts == phase 7's; "
+        f"launches {streamed}")
+    if streamed["gear_candidates"] == 0:
+        raise AssertionError("phase 8 never launched B3")
+
     launches = {k: session["launches"][k] + side["launches"][k]
-                + ent["launches"][k] for k in session["launches"]}
+                + ent["launches"][k] + cdc[k] + streamed[k]
+                for k in session["launches"]}
     rows = time_kernels(device, launches, ent["step"])
+    chunk = time_chunk_bucket(device, blob[:CONTENT_BYTES], s.cuts)
+    del blob
+    log(f"phase 9: B1 at phase 7's largest chunk bucket {chunk['shape']} "
+        f"(items x blocks): {chunk['ms']} ms, plain {chunk['plain_ms']} ms, "
+        f"bound {chunk['bound_ms']} ms ({chunk['bound_by']}); chunks per "
+        f"bucket {chunk['buckets']}")
+    rows += time_gear_kernels(device, launches)
     for r in rows:
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']} was not launched on the "
                                  "main path")
-        log(f"phase 5: {r['name']} at {r['shape']}: {r['ms']} ms, plain "
+        log(f"phase 9: {r['name']} at {r['shape']}: {r['ms']} ms, plain "
             f"{r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']}),"
-            f" {r['launches']} launches on the main path")
+            f" {r['launches']} launches on the main path, library none")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k != "shape"} for r in rows]}))

@@ -17,10 +17,19 @@ index.js:1-2)::
 ``backend="cuda"`` content-hashes every change payload and blob with
 batched BLAKE2b-256 on ``device`` (default ``"cuda"``; without a card
 that raises).
+
+Content addressing (dat's chunked dedup exchange)::
+
+    s = protocol.content_address(blob)            # cuts, digests, root
+    need = protocol.delta(old_summary, s)         # chunks to ship
+    cuts = protocol.chunk_stream(blob, route="bitmask")
 """
 
 from __future__ import annotations
 
+from .ops.rabin import chunk_stream
+from .runtime.content import (content_address, content_digests, delta,
+                              reassemble)
 from .session import (BlobLengthError, BlobReader, BlobWriter, Decoder,
                       Encoder, Pipe, pipe)
 from .wire import Change, ProtocolError, decode_change, encode_change
@@ -55,5 +64,6 @@ def decode(backend: str = "host", device="cuda", **kwargs) -> Decoder:
 
 
 __all__ = ["BlobLengthError", "BlobReader", "BlobWriter", "Change",
-           "Decoder", "Encoder", "Pipe", "ProtocolError", "decode",
-           "decode_change", "encode", "encode_change", "pipe"]
+           "Decoder", "Encoder", "Pipe", "ProtocolError", "chunk_stream",
+           "content_address", "content_digests", "decode", "decode_change",
+           "delta", "encode", "encode_change", "pipe", "reassemble"]

@@ -36,6 +36,12 @@ _I = ctypes.c_int
 SIGNATURES = {
     "blake2b": ("dat_blake2b_packed", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
     "merkle_level": ("dat_merkle_level", (_P, _P, _P, _P, _I, _P)),
+    "gear_candidates": ("dat_gear_candidates", (_P, _P, _I, _I, _I, _P)),
+    "gear_first": ("dat_gear_first", (_P, _P, _I, _I, _I, _P)),
+    "gear_window_first": ("dat_gear_window_first",
+                          (_P, _P, _I, _I, _I, _I, _P)),
+    "gear_window_first_checked": ("dat_gear_window_first_checked",
+                                  (_P, _P, _P, _I, _I, _I, _I, _P)),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -80,6 +80,24 @@ def root(leaf_hh, leaf_hl):
     return hhs[-1], hls[-1]
 
 
+def pad_leaves(hh, hl):
+    """Zero-pad the leaf axis up to the next power of two: zero digests
+    are the empty-subtree sentinel, as in :func:`root_host`."""
+    n = hh.shape[0]
+    p = 1 << max(0, n - 1).bit_length()
+    if p == n:
+        return hh, hl
+    pad = (0, 0, 0, p - n)
+    return (torch.nn.functional.pad(hh, pad),
+            torch.nn.functional.pad(hl, pad))
+
+
+def unpack_mask(bits, n: int) -> np.ndarray:
+    """Packed u32 words (LSB first; any 32-bit dtype) -> (n,) 0/1 uint8."""
+    words = np.ascontiguousarray(bits).view(np.uint32)
+    return np.unpackbits(words.view(np.uint8), bitorder="little")[:n]
+
+
 def digests_to_device(digests: list[bytes], device="cuda"):
     """32-byte digests -> (N, 4) hi/lo int32 tensors on ``device``
     (little-endian 64-bit words; u32 word 2k is word k's low half)."""

@@ -1,0 +1,111 @@
+"""Wrappers of kernels B3, B4 and B5: the gear scans on the card.
+
+The counterparts of ``dat_replication_protocol_tpu/ops/rabin_pallas.py``
+``gear_candidates_pallas`` (B3, kernel ``gear_candidates_native`` :112),
+``gear_first_pallas`` (B4, ``gear_first_native`` :407) and
+``gear_window_first_pallas`` (B5, ``gear_window_first_native`` :284).
+The kernels are ``csrc/gear_candidates.cu``, ``csrc/gear_first.cu`` and
+``csrc/gear_window_first.cu`` over the shared step in ``csrc/gear.cuh``;
+their source notes say what bounds them.  Each wrapper keeps the
+reference wrapper's public shapes: (T, S/4) int32 rows of u32 words in.
+The TPU's ``(ng, 64, 8, T/8)`` layout is not carried over.
+
+CPU tensors take the plain versions in :mod:`.rabin`; a CUDA tensor
+launches the kernel or raises.  Each wrapper counts its launches in its
+``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .rabin import (GROUP, gear_candidates_tiled, gear_first_tiled,
+                    gear_window_first)
+
+
+def check_rows(rows: torch.Tensor, avg_bits: int,
+               thin_bits: int | None = None) -> None:
+    """Raise on rows the gear kernels do not take."""
+    if rows.dtype != torch.int32:
+        raise TypeError(f"rows must be int32, got {rows.dtype}")
+    if rows.dim() != 2 or (rows.shape[1] * 4) % GROUP:
+        raise ValueError(f"expected (T, S/4) rows with S a multiple of "
+                         f"{GROUP}, got {tuple(rows.shape)}")
+    if not rows.is_contiguous() or rows.data_ptr() % 16:
+        raise ValueError("rows must be contiguous and 16-byte aligned")
+    if not 1 <= avg_bits <= 31:
+        raise ValueError(f"avg_bits must be in [1, 31], got {avg_bits}")
+    if rows.numel() * 4 >= 1 << 31:
+        raise ValueError("rows hold 2 GiB or more; slab the stream")
+    if thin_bits is not None:
+        payload = rows.shape[1] * 4 - GROUP
+        if not 8 <= thin_bits <= 16 or payload % (1 << thin_bits):
+            raise ValueError(f"window of 2**{thin_bits} B must be 256 B to "
+                             f"64 KiB and divide the payload ({payload} B)")
+
+
+def _launch(name: str, rows: torch.Tensor, outs, *ints) -> None:
+    lib = _build.load(name)
+    fn = getattr(lib, _build.SIGNATURES[name][0])
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        rc = fn(rows.data_ptr(), *(o.data_ptr() for o in outs),
+                rows.shape[0], rows.shape[1] * 4, *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _device_of(rows: torch.Tensor) -> str:
+    if rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {rows.device}")
+    return rows.device.type
+
+
+def gear_candidates_kernel(rows: torch.Tensor, avg_bits: int = 13):
+    """(T, S/4) rows -> (T, S/32) int32 packed candidate bitmask: kernel
+    B3 on CUDA, :func:`.rabin.gear_candidates_tiled` on CPU."""
+    if _device_of(rows) == "cpu":
+        return gear_candidates_tiled(rows, avg_bits)
+    check_rows(rows, avg_bits)
+    T, nwords = rows.shape
+    bits = torch.empty((T, nwords // 8), dtype=torch.int32,
+                       device=rows.device)
+    _launch("gear_candidates", rows, (bits,), avg_bits)
+    gear_candidates_kernel.launches += 1
+    return bits
+
+
+def gear_first_kernel(rows: torch.Tensor, avg_bits: int = 13):
+    """(T, S/4) rows -> (T, S/256) int32 first-hit offsets or ``NO_HIT``:
+    kernel B4 on CUDA, :func:`.rabin.gear_first_tiled` on CPU."""
+    if _device_of(rows) == "cpu":
+        return gear_first_tiled(rows, avg_bits)
+    check_rows(rows, avg_bits)
+    T, nwords = rows.shape
+    first = torch.empty((T, nwords * 4 // GROUP), dtype=torch.int32,
+                        device=rows.device)
+    _launch("gear_first", rows, (first,), avg_bits)
+    gear_first_kernel.launches += 1
+    return first
+
+
+def gear_window_first_kernel(rows: torch.Tensor, avg_bits: int,
+                             thin_bits: int):
+    """(T, S/4) rows -> (T * nwin,) int32 first candidate per window or
+    ``1 << 30``: kernel B5 on CUDA, :func:`.rabin.gear_window_first` on
+    CPU."""
+    if _device_of(rows) == "cpu":
+        return gear_window_first(rows, avg_bits, thin_bits)
+    check_rows(rows, avg_bits, thin_bits)
+    T, nwords = rows.shape
+    nwin = (nwords * 4 - GROUP) >> thin_bits
+    first = torch.empty((T * nwin,), dtype=torch.int32, device=rows.device)
+    _launch("gear_window_first", rows, (first,), avg_bits, thin_bits)
+    gear_window_first_kernel.launches += 1
+    return first
+
+
+gear_candidates_kernel.launches = 0
+gear_first_kernel.launches = 0
+gear_window_first_kernel.launches = 0

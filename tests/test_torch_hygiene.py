@@ -19,6 +19,7 @@ import dat_replication_protocol_tpu_torch as protocol
 from dat_replication_protocol_tpu_torch.backend.cuda_backend import (
     DigestPipeline,
 )
+from dat_replication_protocol_tpu_torch.ops import fused_cdc_hash, rabin_cuda
 from dat_replication_protocol_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
@@ -99,7 +100,11 @@ def _no_card():
     lambda: DigestPipeline(),
     lambda: resolve_device(),
     lambda: resolve_device("cuda:0"),
-], ids=["decode", "encode", "pipeline", "resolve", "resolve-index"])
+    lambda: protocol.content_address(b"abc"),
+    lambda: protocol.content_digests(b"abc"),
+    lambda: protocol.chunk_stream(b"abc"),
+], ids=["decode", "encode", "pipeline", "resolve", "resolve-index",
+        "content-address", "content-digests", "chunk-stream"])
 def test_cuda_without_a_card_raises(make):
     _no_card()
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -133,6 +138,34 @@ def test_kernel_wrappers_refuse_other_devices():
     digests = torch.zeros((2, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         merkle_level_kernel(digests, digests)
+
+
+@pytest.mark.parametrize("call", [
+    lambda rows: rabin_cuda.gear_candidates_kernel(rows, 13),
+    lambda rows: rabin_cuda.gear_first_kernel(rows, 13),
+    lambda rows: rabin_cuda.gear_window_first_kernel(rows, 13, 8),
+    lambda rows: fused_cdc_hash.gear_window_first_checked_kernel(rows, 13, 8),
+], ids=["B3", "B4", "B5", "B6"])
+def test_gear_wrappers_refuse_other_devices(call):
+    rows = torch.zeros((2, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        call(rows)
+
+
+def test_new_modules_are_in_the_scan():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"ops/rabin.py", "ops/rabin_cuda.py", "ops/fused_cdc_hash.py",
+            "batch/feed.py", "runtime/content.py"} <= names
+
+
+def test_port_reads_no_cdc_environment_switch():
+    # the reference's DAT_CDC_ROUTE / DAT_CDC_FIRST_KERNEL / DAT_DEVICE_CDC
+    # are arguments in the port
+    for p in sorted(PORT.rglob("*.py")):
+        text = p.read_text()
+        assert "DAT_CDC" not in text and "DAT_DEVICE_CDC" not in text, p
+        assert "os.environ" not in text and "getenv" not in text, p
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["no-card", "alone"])
