@@ -36,12 +36,17 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    digests held against ``hashlib``, the root against ``root_host``,
    every chosen cut against a numpy window hash, chunk sizes against
    [min, max], identical cuts on all routes and no ``fused1p``
-   refusal; then ``delta``/``reassemble`` of an edited copy;
+   refusal; then ``delta``/``reassemble`` of an edited copy; the chunk
+   counts, both roots and the delta must equal the JAX package's
+   (``REFERENCE``, from ``cdc_reference_witness.py``);
 8. ``chunk_stream`` over BASELINE.json configs[3]'s 10 GiB blob (phase
    7's blob is its first 1.5 GiB) in 1 GiB slabs: the same cut checks,
    and its cuts below 1.5 GiB - 32 KiB equal phase 7's;
 9. times: B1 at phase 7's largest chunk bucket, and B3-B6 on a 1 GiB
-   slab, beside their plain versions and bounds.
+   slab, each held byte-exact against its plain version there (B6 with
+   viol 0), beside the plain versions' times and the bounds; B3-B6's
+   operation bound walks the SASS of their built libraries
+   (``cuobjdump -sass``) and counts what each pipe issues.
 
 Every launch counter is set to 0 just before each main-path phase (3, 4,
 7, 8) and read just after; a kernel that the phases did not launch fails
@@ -55,6 +60,8 @@ from __future__ import annotations
 import hashlib
 import io
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -68,7 +75,9 @@ MIB = 1 << 20
 # paper): HBM3 at 3.35 TB/s; 32-bit integer ALU at 132 SMs x 64 INT32
 # lanes x 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SM_COUNT = 132
+SM_HZ = 1.98e9
+INT32_OPS_PER_S = SM_COUNT * 64 * SM_HZ
 
 # 32-bit integer operations of one BLAKE2b compression that only the
 # INT32 lanes execute, on 64-bit words split into 32-bit halves: a G mix
@@ -614,6 +623,13 @@ CONTENT_BYTES = 3 << 29  # 1.5 GiB: under RESIDENCY_CAP
 STREAM_BYTES = 10 << 30  # BASELINE.json configs[3]'s 10 GiB blob
 TILE_BYTES = 1 << 17
 SLAB_TILES = 8192
+# the JAX package's content_address of phase 7's blob and of its edited
+# copy, and their delta, as cdc_reference_witness.py prints them
+REFERENCE = {
+    "chunks": 158774, "edited_chunks": 158737, "delta": 1606,
+    "root": "8bac71ee56542810f42720553bd595879dfd731a0aed4982aaeb8f4cd1fc5fb5",
+    "edited_root":
+        "c3fbd6825a46ce84df6dbf0951ff60192acfd972fa8d9546319baf399addc021"}
 
 
 def make_blob(nbytes: int, seed: int = SEED + 20) -> np.ndarray:
@@ -625,6 +641,17 @@ def make_blob(nbytes: int, seed: int = SEED + 20) -> np.ndarray:
         n = min(piece, nbytes - at)
         out[at:at + n] = np.frombuffer(rng.bytes(n), dtype=np.uint8)
     return out
+
+
+def edit_blob(blob: np.ndarray, seed: int = SEED + 21) -> np.ndarray:
+    """A copy of ``blob`` with three 100-byte inserts and one 1 KiB
+    delete at places drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    at = np.sort(rng.integers(1 << 20, len(blob) - (1 << 20), 4))
+    ins = [np.frombuffer(rng.bytes(100), np.uint8) for _ in range(3)]
+    return np.concatenate([blob[:at[0]], ins[0], blob[at[0]:at[1]], ins[1],
+                           blob[at[1]:at[2]], ins[2], blob[at[2]:at[3]],
+                           blob[at[3] + 1024:]])
 
 
 class GreedyTimer:
@@ -721,23 +748,22 @@ def run_content(device, blob: np.ndarray) -> dict:
         raise AssertionError("content_address root differs from root_host")
     checked = check_cuts(blob, s.cuts, "phase 7")
 
-    # three 100-byte inserts and one 1 KiB delete
-    rng = np.random.default_rng(SEED + 21)
-    at = np.sort(rng.integers(1 << 20, len(blob) - (1 << 20), 4))
-    ins = [np.frombuffer(rng.bytes(100), np.uint8) for _ in range(3)]
-    edited = np.concatenate([blob[:at[0]], ins[0], blob[at[0]:at[1]], ins[1],
-                             blob[at[1]:at[2]], ins[2], blob[at[2]:at[3]],
-                             blob[at[3] + 1024:]])
+    # the JAX package's figures for this blob and edit
+    # (cdc_reference_witness.py)
+    if s.root.hex() != REFERENCE["root"]:
+        raise AssertionError("content_address root differs from the "
+                             "reference's")
+    edited = edit_blob(blob)
     new = protocol.content_address(edited, CDC_AVG_BITS, CDC_MIN, CDC_MAX,
                                    device=device)
     need = protocol.delta(s, new)
-    # thinning keeps the first candidate of each window aligned to the
-    # stream start, so past a shift a window holding two candidates can
-    # keep the other one and move a cut: the delta stays a small share
-    # of the chunks, not a fixed few
-    if not 1 <= len(need) <= max(32, new.nchunks // 50):
-        raise AssertionError(f"delta lists {len(need)} of {new.nchunks} "
-                             "chunks after four small edits")
+    if new.root.hex() != REFERENCE["edited_root"] or (
+            s.nchunks, new.nchunks, len(need)) != (
+            REFERENCE["chunks"], REFERENCE["edited_chunks"],
+            REFERENCE["delta"]):
+        raise AssertionError(
+            f"after the edit: {new.nchunks} chunks, delta {len(need)}, root "
+            f"{new.root.hex()}; the reference's: {REFERENCE}")
     noffs, nlens = new.extents()
     sent = {i: edited[int(noffs[i]):int(noffs[i] + nlens[i])].tobytes()
             for i in need}
@@ -774,16 +800,104 @@ def run_chunk_stream(device, blob: np.ndarray, content_cuts) -> dict:
 # phase 9: gear and chunk-hash times
 # ---------------------------------------------------------------------------
 
-# 32-bit integer operations per byte of the gear scan, counted from
-# csrc/gear.cuh (not from the SASS): byte extract 1, g's two multiplies
-# (the +1 folded in) 2, the 64-bit shift-by-one and add 3, hit test 2,
-# reduction 2, loop and load share 2
-GEAR_OPS_PER_BYTE = 12
+# Per SM and clock of an H100 (compute capability 9.0; the CUDA C++
+# programming guide's table of arithmetic instruction throughput): 64
+# lanes of 32-bit integer ALU (add, logic, shift, compare, select, LEA),
+# 64 of integer multiply-add on the FMA pipe (IMAD in all its forms), and
+# four schedulers that each issue one warp instruction = 128 thread
+# instructions.  Opcodes in neither set (loads, stores, branches, the
+# uniform datapath, VIADD, whose pipe is not documented) count against the
+# issue rate only, so the bound stays at or below the least time.
+SASS_ALU = frozenset({"IADD3", "LOP3", "LEA", "SEL", "SHF", "ISETP", "PLOP3",
+                      "MOV", "PRMT", "IMNMX", "IABS"})
+SASS_FMA = frozenset({"IMAD"})
+LANES = {"alu": 64, "fma": 64, "issued": 128}
+_SASS_LINE = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def parse_sass(text: str, kernel: str) -> list[tuple]:
+    """``(address, predicated, opcode, operands)`` of every instruction of
+    the one function in a ``cuobjdump -sass`` listing named ``kernel``."""
+    funcs = [f for f in text.split("Function : ")[1:]
+             if kernel in f.split("\n", 1)[0]]
+    if len(funcs) != 1:
+        raise AssertionError(f"{len(funcs)} SASS functions match {kernel}")
+    return [(int(a, 16), bool(p), op, args.strip())
+            for a, p, op, args in _SASS_LINE.findall(funcs[0])]
+
+
+def sass_path(insts, trips: int | None = None,
+              skip_warm: bool = False) -> dict:
+    """Instructions one thread issues, by pipe, walking the kernel's
+    control flow from its entry: a guarded EXIT falls through (the thread
+    is in range); a forward branch over a CALL is taken (the 64-bit
+    division's slow path, which only 2^32 threads or more need); another
+    forward branch falls through, but ``skip_warm`` takes the first of
+    them (a group-0 thread skipping its warm-up); a backward branch runs
+    its loop ``trips`` times, and there must be one exactly when
+    ``trips`` is given."""
+    at = {ins[0]: i for i, ins in enumerate(insts)}
+    counts = {"alu": 0, "fma": 0, "issued": 0}
+    seen: dict[int, int] = {}
+    i = 0
+    while True:
+        addr, guarded, op, args = insts[i]
+        base = op.split(".")[0]
+        counts["issued"] += 1
+        counts["alu"] += base in SASS_ALU
+        counts["fma"] += base in SASS_FMA
+        if base == "EXIT" and not guarded:
+            break
+        if base in ("CALL", "RET"):
+            raise AssertionError(f"SASS walk reached {op} at {addr:#x}")
+        if base == "BRA":
+            target = int(args.split()[0], 16)
+            jump = not guarded
+            if guarded and target <= addr:
+                if trips is None:
+                    raise AssertionError(f"unexpected loop at {addr:#x}")
+                seen[addr] = seen.get(addr, 0) + 1
+                jump = seen[addr] < trips
+            elif guarded and any(ins[2].startswith("CALL")
+                                 for ins in insts[i + 1:at[target]]):
+                jump = True
+            elif guarded and skip_warm:
+                jump, skip_warm = True, False
+            if jump:
+                i = at[target]
+                continue
+        i += 1
+    if trips is not None and len(seen) != 1:
+        raise AssertionError(f"{len(seen)} loops where one was expected")
+    return counts
+
+
+def sass_bound(name: str, nthreads: int, warm_skips: int = 0,
+               trips: int | None = None) -> tuple[float, dict]:
+    """Least ms for the instructions that kernel ``name`` issues over
+    ``nthreads`` threads, ``warm_skips`` of them skipping the warm-up,
+    from ``cuobjdump -sass`` of its built library: each pipe's count
+    over its rate, the largest of them.  Also returns one thread's counts
+    by pipe."""
+    from dat_replication_protocol_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    insts = parse_sass(text, f"{name}_kernel")
+    one = sass_path(insts, trips)
+    short = sass_path(insts, trips, skip_warm=True)
+    cycles = max(((nthreads - warm_skips) * one[k] + warm_skips * short[k])
+                 / LANES[k] for k in LANES)
+    return cycles / (SM_COUNT * SM_HZ) * 1e3, one
 
 
 def time_gear_kernels(device, launches: dict) -> list[dict]:
     """B3-B6 on one 1 GiB slab of random rows (8,192 x 128 KiB + 256 B),
-    beside the plain versions at the same shape and the bounds."""
+    held byte-exact against the plain versions at the same shape and
+    timed beside them and the bounds."""
     import torch
 
     from dat_replication_protocol_tpu_torch.ops import rabin
@@ -799,42 +913,60 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
                          dtype=torch.int32, device=device, generator=gen)
     a, t = CDC_AVG_BITS, 11
     nbytes = rows.numel() * 4
+    ngroups = SLAB_TILES * (S // rabin.GROUP)
     nwin = SLAB_TILES * (TILE_BYTES >> t)
+    gpw = (1 << t) // rabin.GROUP
+    # (name, source, TPU kernel, kernel, plain version, output bytes,
+    #  threads, threads that skip the warm-up, loop trips)
     specs = [
         ("gear_candidates", "gear_candidates.cu", "ops/rabin_pallas.py:112",
-         lambda: gear_candidates_kernel(rows, a),
-         lambda: rabin.gear_candidates_tiled(rows, a), nbytes // 8),
+         lambda: (gear_candidates_kernel(rows, a),),
+         lambda: (rabin.gear_candidates_tiled(rows, a),), nbytes // 8,
+         ngroups, SLAB_TILES, None),
         ("gear_first", "gear_first.cu", "ops/rabin_pallas.py:407",
-         lambda: gear_first_kernel(rows, a),
-         lambda: rabin.gear_first_tiled(rows, a), nbytes // 64),
+         lambda: (gear_first_kernel(rows, a),),
+         lambda: (rabin.gear_first_tiled(rows, a),), nbytes // 64,
+         ngroups, SLAB_TILES, None),
         ("gear_window_first", "gear_window_first.cu",
          "ops/rabin_pallas.py:284",
-         lambda: gear_window_first_kernel(rows, a, t),
-         lambda: rabin.gear_window_first(rows, a, t), 4 * nwin),
+         lambda: (gear_window_first_kernel(rows, a, t),),
+         lambda: (rabin.gear_window_first(rows, a, t),), 4 * nwin,
+         nwin, 0, gpw),
         ("gear_window_first_checked", "gear_window_first_checked.cu",
          "ops/fused_cdc_hash_pallas.py:163",
-         lambda: gear_window_first_checked_kernel(rows, a, t)[0],
-         lambda: rabin.gear_window_first_checked(rows, a, t)[0], 8 * nwin),
+         lambda: gear_window_first_checked_kernel(rows, a, t),
+         lambda: rabin.gear_window_first_checked(rows, a, t), 8 * nwin,
+         nwin, 0, gpw),
     ]
     out = []
-    for name, src, replaces, kernel, plain, out_bytes in specs:
+    for (name, src, replaces, kernel, plain, out_bytes, nthreads, skips,
+         trips) in specs:
         ms = time_ms(kernel, reps=10)
         torch.cuda.empty_cache()
         plain_ms = time_ms(plain, reps=1)
         want = plain()
-        err = int((kernel().to(torch.int64) - want.to(torch.int64))
-                  .abs().max())
-        del want
+        got = kernel()
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        if err:
+            raise AssertionError(f"{name} differs from its plain version on "
+                                 f"the 1 GiB slab: max_abs_err {err}")
+        if name == "gear_window_first_checked" and int(got[1]) != 0:
+            raise AssertionError(f"B6 viol {int(got[1])} on the 1 GiB slab")
+        del want, got
         torch.cuda.empty_cache()
-        bound_ms, bound_by = bound(nbytes + out_bytes,
-                                   nbytes * GEAR_OPS_PER_BYTE)
+        ops_ms, per_thread = sass_bound(name, nthreads, skips, trips)
+        bytes_ms = (nbytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = ((ops_ms, "operations") if ops_ms >= bytes_ms
+                              else (bytes_ms, "bytes"))
         out.append({
             "name": name, "route": "cuda",
             "source": f"dat_replication_protocol_tpu_torch/csrc/{src}",
             "replaces": f"dat_replication_protocol_tpu/{replaces}",
             "launches": launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "shape": list(rows.shape)})
+            "library_ms": None, "shape": list(rows.shape),
+            "sass_per_thread": per_thread, "bytes_ms": bytes_ms})
     return out
 
 
@@ -944,7 +1076,8 @@ def main() -> int:
         f"candidate cuts checked by window hash, identical on all four "
         f"routes, 0 fused1p refusals; delta after 3 inserts + 1 delete: "
         f"{content['delta']} of {content['nchunks_new']} chunks, reassembled "
-        f"exactly; launches {cdc}")
+        f"exactly; chunk counts, delta and roots == the JAX package's; "
+        f"launches {cdc}")
     for name, n in cdc.items():
         if n == 0:
             raise AssertionError(f"phase 7 never launched {name}")
@@ -979,9 +1112,13 @@ def main() -> int:
         log(f"phase 9: {r['name']} at {r['shape']}: {r['ms']} ms, plain "
             f"{r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']}),"
             f" {r['launches']} launches on the main path, library none")
+        if "sass_per_thread" in r:
+            log(f"  SASS walk, one thread: {r['sass_per_thread']}; bytes "
+                f"alone {r['bytes_ms']} ms")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
-    print(json.dumps({"kernels": [{k: v for k, v in r.items()
-                                   if k != "shape"} for r in rows]}))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

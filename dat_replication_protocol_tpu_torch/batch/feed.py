@@ -16,6 +16,7 @@ from ..ops import blake2b
 from ..utils.device import resolve_device
 
 BLOCK_BYTES = blake2b.BLOCK_BYTES
+PIPELINE_BYTES = 64 << 20  # padded message bytes per B1 launch, at most
 
 
 def pack_ragged(buf: np.ndarray, offs, lens, nblocks: int | None = None):
@@ -59,7 +60,7 @@ def bucketed_extents(lens) -> dict[int, np.ndarray]:
 
 
 def hash_extents_device(buf: np.ndarray, offs, lens, device="cuda",
-                        pipeline_bytes: int = 64 << 20):
+                        pipeline_bytes: int = PIPELINE_BYTES):
     """BLAKE2b-256 of extents of a host buffer, as ``(hh, hl)`` tensors
     on ``device``, each (N, 4) int32, in extent order.
 
@@ -109,7 +110,7 @@ def _hash_buckets(lens: np.ndarray, dev: torch.device, pipeline_bytes: int,
 
 
 def hash_extents(buf: np.ndarray, offs, lens, device="cuda",
-                 pipeline_bytes: int = 64 << 20) -> np.ndarray:
+                 pipeline_bytes: int = PIPELINE_BYTES) -> np.ndarray:
     """BLAKE2b-256 digests of extents of ``buf``, (N, 32) uint8 numpy."""
     from ..ops.merkle import digest_matrix
 

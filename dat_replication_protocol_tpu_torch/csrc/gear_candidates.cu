@@ -17,14 +17,16 @@
 // Output: bits (T, S/32) uint32, bit j%32 of word j/32 set iff byte j of
 // the row is a candidate.  dat_gear_candidates returns cudaGetLastError().
 //
-// What bounds it: about 12 32-bit integer operations per byte, counted
-// from the source (byte extract, two multiplies for g, the 64-bit shift
-// and add as a funnel shift and an add pair, the hit test, the bit pack,
-// loop and load share), against 1 byte read and 1/8 byte written: over a
-// 1 GiB slab about 0.77 ms of INT32 work at 132 SMs x 64 lanes x 1.98 GHz
-// against 0.36 ms of bytes at 3.35 TB/s, so operations bound it.  The
-// design adds the 64-byte warm-up per 256-byte group (25% more steps) to
-// buy 64x more threads than a row each; nothing else is tuned yet.
+// What bounds it: the instructions it issues, read from the SASS
+// (chip_smoke.py sass_bound walks `cuobjdump -sass` of the built library).
+// With nvcc 12.9 one thread issues 2,662 instructions for its 320 bytes
+// (64 warm-up, 256 scanned): 1,814 on the 32-bit integer ALU pipe (LEA,
+// LOP3, SEL, SHF: about 5.7 a byte), 789 IMAD on the FMA pipe and the
+// rest loads, stores and control.  The ALU pipe, 64 lanes per SM, bounds
+// it: about 0.46 ms over a 1 GiB slab at 132 SMs x 1.98 GHz, against 0.36
+// ms of bytes at 3.35 TB/s.  The design adds the 64-byte warm-up per
+// 256-byte group (25% more steps) to buy 64x more threads than a row
+// each; nothing else is tuned yet.
 #include "gear.cuh"
 
 namespace {

@@ -15,10 +15,11 @@
 // first candidate or 256 (NO_HIT).  dat_gear_first returns
 // cudaGetLastError().
 //
-// What bounds it: the same scan as B3, about 12 integer operations per
-// byte against 1 byte read and 1/64 byte written, so operations (about
-// 0.77 ms per 1 GiB slab on an H100 at 1.98 GHz) and not bytes (0.33 ms).
-// The design pays the 25% warm-up for 64x more threads than a row each.
+// What bounds it: the same scan as B3, with B3's instruction count in the
+// SASS to within 1% (chip_smoke.py sass_bound): the 32-bit integer ALU
+// pipe, about 0.46 ms per 1 GiB slab on an H100 at 1.98 GHz, against 0.33
+// ms of bytes (1 byte read, 1/64 byte written).  The design pays the 25%
+// warm-up for 64x more threads than a row each.
 #include "gear.cuh"
 
 namespace {

@@ -16,10 +16,11 @@
 // stream order (row-major), the in-window offset of the first candidate or
 // 1 << 30.  dat_gear_window_first returns cudaGetLastError().
 //
-// What bounds it: about 12 integer operations per byte (B3's scan with a
-// cheaper reduction) against 1 byte read and 4 bytes written per window:
-// operations, about 0.77 ms per 1 GiB slab on an H100 at 1.98 GHz, against
-// 0.32 ms of bytes.  At 2 KiB windows the warm-up adds 3% more steps; a
+// What bounds it: the instructions it issues, read from the SASS
+// (chip_smoke.py sass_bound): about 6.1 on the 32-bit integer ALU pipe per
+// byte stepped at 2 KiB windows, so that pipe bounds it, about 0.41 ms
+// per 1 GiB slab on an H100 at 1.98 GHz, against 0.32 ms of bytes (1 byte
+// read, 4 bytes written per window).  At 2 KiB windows the warm-up adds 3% more steps; a
 // 1 GiB slab still gives 512k threads.  Each thread reads 2 KiB apart from
 // its neighbour, so loads coalesce only through L1: not tuned yet.
 #include "gear.cuh"

@@ -17,8 +17,9 @@
 // order.  dat_gear_window_first_checked returns cudaGetLastError().
 //
 // What bounds it: as B5 plus one OR per 32 bytes and 4 more bytes written
-// per window: operations, about 0.77 ms per 1 GiB slab on an H100 at
-// 1.98 GHz, against 0.32 ms of bytes.
+// per window: the 32-bit integer ALU pipe, about 0.41 ms per 1 GiB slab on
+// an H100 at 1.98 GHz by the SASS (chip_smoke.py sass_bound), against 0.32
+// ms of bytes.
 #include "gear.cuh"
 
 namespace {

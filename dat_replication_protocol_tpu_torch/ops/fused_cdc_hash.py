@@ -24,9 +24,9 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .rabin import (GROUP, _SENT_OFF, _clamp_thin_bits, _greedy_select,
-                    candidates_begin, check_route, gear_window_first_checked,
-                    stage_words)
+from .rabin import (GROUP, TILE_BYTES, _SENT_OFF, _clamp_thin_bits,
+                    _greedy_select, candidates_begin, check_route,
+                    default_sizes, gear_window_first_checked, stage_words)
 from .rabin_cuda import _device_of, _launch, check_rows
 
 # per-call residency cap: the reference computes extent-pack positions
@@ -87,50 +87,47 @@ def pack_extents_device(data: torch.Tensor, offs, lens, nblocks: int):
             lens_d.to(torch.int32))
 
 
-def hash_cuts_device(words: torch.Tensor, cuts, pipeline_bytes: int = 64 << 20):
+def hash_cuts_device(words: torch.Tensor, cuts):
     """Chunk digests for ``cuts`` over a resident word buffer, as
     ``(hh, hl)`` tensors on its device, each (nchunks, 4) int32, in cut
     order.  Extents are bucketed by power-of-two block count, packed on
-    the device in chunks of at most ``pipeline_bytes`` and hashed by B1.
+    the device in chunks of at most ``feed.PIPELINE_BYTES`` and hashed by
+    B1.
     """
-    from ..batch.feed import _hash_buckets
+    from ..batch.feed import PIPELINE_BYTES, _hash_buckets
 
     ends = np.asarray(cuts, dtype=np.int64)
     offs = np.concatenate([np.zeros(1, np.int64), ends[:-1]])
     lens = ends - offs
     data = words.view(torch.uint8)
     return _hash_buckets(
-        lens, words.device, pipeline_bytes,
+        lens, words.device, PIPELINE_BYTES,
         lambda idx, nb: pack_extents_device(data, offs[idx], lens[idx], nb))
 
 
 def content_begin(buf: np.ndarray, avg_bits: int = 13,
                   min_size: int | None = None, max_size: int | None = None,
-                  tile_bytes: int = 1 << 17, route: str = "bitmask",
-                  device: torch.device | str = "cuda"):
+                  route: str = "bitmask", device: torch.device | str = "cuda"):
     """Single-residency content addressing of one host buffer.
 
-    Uploads the blob's words once (pinned staging, no blocking copy);
-    the candidate scan (``route``'s kernel) and the chunk hash read the
-    same resident buffer.  Returns ``collect()`` -> ``(cuts, hh, hl)``:
+    Uploads the blob's words once (pinned staging, no blocking copy) in
+    tiles of ``TILE_BYTES``; the candidate scan (``route``'s kernel) and
+    the chunk hash read the same resident buffer.  Returns ``collect()`` -> ``(cuts, hh, hl)``:
     cut end-offsets (list) and the chunk digests as (nchunks, 4) int32
     tensors on ``device``, ready for a Merkle fold there.
     """
     check_route(route)
     dev = resolve_device(device)
-    if min_size is None:
-        min_size = 1 << (avg_bits - 2)
-    if max_size is None:
-        max_size = 1 << (avg_bits + 2)
+    min_size, max_size = default_sizes(avg_bits, min_size, max_size)
     nbytes = len(buf)
     if nbytes >= RESIDENCY_CAP:
         raise ValueError(f"{nbytes} bytes reach RESIDENCY_CAP; use the "
                          "slabbed route")
     thin_bits = _clamp_thin_bits(max(min_size, 1).bit_length() - 1,
-                                 tile_bytes)
-    T = -(-nbytes // tile_bytes)
-    words = stage_words(buf, T * tile_bytes // 4, dev)  # the one upload
-    cand = candidates_begin(words, nbytes, avg_bits, tile_bytes,
+                                 TILE_BYTES)
+    T = -(-nbytes // TILE_BYTES)
+    words = stage_words(buf, T * TILE_BYTES // 4, dev)  # the one upload
+    cand = candidates_begin(words, nbytes, avg_bits, TILE_BYTES,
                             thin_bits=thin_bits, route=route)
 
     def collect():

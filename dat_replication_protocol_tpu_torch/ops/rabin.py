@@ -46,6 +46,7 @@ _PREFIX_WORDS = _PREFIX // 4
 NO_HIT = GROUP  # first-hit-per-group sentinel: no candidate in the group
 _SENT_OFF = 1 << 30  # first-hit-per-window sentinel: an empty window
 ROUTES = ("bitmask", "first", "fused", "fused1p")
+TILE_BYTES = 1 << 17  # payload bytes per scan row
 
 _M32 = 0xFFFFFFFF
 
@@ -67,6 +68,14 @@ def check_route(route: str) -> None:
     if route not in ROUTES:
         raise ValueError(f"unknown CDC route {route!r}; expected one of "
                          f"{ROUTES}")
+
+
+def default_sizes(avg_bits: int, min_size: int | None,
+                  max_size: int | None) -> tuple[int, int]:
+    """Chunk size limits, by default a quarter and four times the
+    average chunk of ``2^avg_bits`` bytes."""
+    return (1 << (avg_bits - 2) if min_size is None else min_size,
+            1 << (avg_bits + 2) if max_size is None else max_size)
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +338,7 @@ def _start_d2h(tensors):
 
 
 def candidates_begin(words: torch.Tensor, nbytes: int, avg_bits: int = 13,
-                     tile_bytes: int = 1 << 17, prefix=None,
+                     tile_bytes: int = TILE_BYTES, prefix=None,
                      thin_bits: int | None = None, route: str = "bitmask"):
     """Start the candidate scan of a word buffer; returns ``collect()``.
 
@@ -431,7 +440,7 @@ candidates_begin.refusals = 0
 
 
 def candidates_words(words, nbytes: int, avg_bits: int = 13,
-                     tile_bytes: int = 1 << 17, prefix=None,
+                     tile_bytes: int = TILE_BYTES, prefix=None,
                      thin_bits: int | None = None,
                      route: str = "bitmask") -> np.ndarray:
     """Synchronous :func:`candidates_begin`."""
@@ -520,7 +529,7 @@ def stage_words(buf: np.ndarray, nwords: int, dev: torch.device):
 
 
 def chunk_stream(data, avg_bits: int = 13, min_size: int | None = None,
-                 max_size: int | None = None, tile_bytes: int = 1 << 17,
+                 max_size: int | None = None, tile_bytes: int = TILE_BYTES,
                  slab_tiles: int = 8192, route: str = "bitmask",
                  device="cuda") -> list[int]:
     """Content-defined chunk end-offsets for a byte stream.
@@ -533,10 +542,7 @@ def chunk_stream(data, avg_bits: int = 13, min_size: int | None = None,
     """
     check_route(route)
     dev = resolve_device(device)
-    if min_size is None:
-        min_size = 1 << (avg_bits - 2)
-    if max_size is None:
-        max_size = 1 << (avg_bits + 2)
+    min_size, max_size = default_sizes(avg_bits, min_size, max_size)
     buf = _as_u8(data)
     length = len(buf)
     if length == 0:

@@ -19,7 +19,7 @@ import hashlib
 
 import numpy as np
 
-from ..ops.rabin import _as_u8
+from ..ops.rabin import _as_u8, default_sizes
 
 
 def _extents_from_cuts(cuts) -> tuple[np.ndarray, np.ndarray]:
@@ -63,11 +63,6 @@ class ContentSummary:
         return _extents_from_cuts(self.cuts)
 
 
-def _sizes(avg_bits, min_size, max_size):
-    return (1 << (avg_bits - 2) if min_size is None else min_size,
-            1 << (avg_bits + 2) if max_size is None else max_size)
-
-
 def content_digests(data, avg_bits: int = 13, min_size: int | None = None,
                     max_size: int | None = None, route: str = "fused1p",
                     device="cuda"):
@@ -93,7 +88,7 @@ def content_digests(data, avg_bits: int = 13, min_size: int | None = None,
     buf = _as_u8(data)
     if buf.size == 0:
         return [], np.empty((0, 32), np.uint8)
-    min_size, max_size = _sizes(avg_bits, min_size, max_size)
+    min_size, max_size = default_sizes(avg_bits, min_size, max_size)
     if route == "fused1p" and buf.size < RESIDENCY_CAP:
         cuts, hh, hl = content_begin(buf, avg_bits, min_size, max_size,
                                      route="fused1p", device=dev)()
@@ -128,7 +123,7 @@ def content_address(data, avg_bits: int = 13, min_size: int | None = None,
     if n == 0:
         return ContentSummary(0, [], np.empty((0, 32), np.uint8),
                               b"\0" * 32)
-    min_size, max_size = _sizes(avg_bits, min_size, max_size)
+    min_size, max_size = default_sizes(avg_bits, min_size, max_size)
     if n < RESIDENCY_CAP:
         cuts, hh, hl = content_begin(buf, avg_bits, min_size, max_size,
                                      route=route, device=dev)()
