@@ -11,8 +11,10 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    from ``csrc/`` with ``nvcc`` (one process per source, all started
    together) and print the card's name and power limit;
 2. kernels against their plain PyTorch versions on the card, byte-exact:
-   B1 (batched BLAKE2b) at edge lengths across four buckets, also against
-   ``hashlib``; B2 (Merkle level) on 2^16 random leaves;
+   both variants of B1 (batched BLAKE2b: one thread or four lanes per
+   item) at edge lengths across four buckets and on buckets of 1, 31, 32
+   and 33 items, also against ``hashlib``, and against ``hashlib`` on an
+   item of 8,192 blocks; B2 (Merkle level) on 2^16 random leaves;
 3. the digest session at BASELINE.json configs[2]'s item width (1 MiB
    blobs): the port's Encoder writes 2,048 blobs of 1 MiB and 65,536
    changes with 40-200-byte values (the blob count is cut from 10k to fit
@@ -23,8 +25,15 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    over an in-memory byte pair;
 4. ``entry()`` at BASELINE.json configs[4]'s width: 2^20 payloads hashed
    and folded to a Merkle root, held against ``root_host``;
-5. times: B1 and B2 at the main path's shapes beside their plain
-   versions and their bounds;
+5. times on the device alone (a CUDA graph of the launches): B1
+   at the session's blob and change buckets and at ``entry()``'s launch,
+   each variant, the blob bucket also under a cold L2, and B2 at
+   ``entry()``'s first level, beside their plain versions and their
+   bounds.  B1's bound is the largest of bytes, operations (walked from
+   its SASS) and the chain: the longest item's blocks x the dependent
+   path of one compression (from its SASS) x the dependent-issue latency
+   of the integer pipes, which the probe ``csrc/chain_latency.cu``
+   measures on the card; B2's operation bound is walked from its SASS;
 6. the gear kernels B3-B6 against their plain versions on the card,
    byte-exact, at 64 rows of 128 KiB + 256 B (avg_bits 13, thin_bits 11)
    and at the tests' shape (2,048 B rows, avg_bits 8, thin_bits 9), for a
@@ -42,15 +51,17 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
 8. ``chunk_stream`` over BASELINE.json configs[3]'s 10 GiB blob (phase
    7's blob is its first 1.5 GiB) in 1 GiB slabs: the same cut checks,
    and its cuts below 1.5 GiB - 32 KiB equal phase 7's;
-9. times: B1 at phase 7's largest chunk bucket, and B3-B6 on a 1 GiB
+9. times: B1 at phase 7's largest chunk bucket (each variant, as in
+   phase 5), and B3-B6 on a 1 GiB
    slab, each held byte-exact against its plain version there (B6 with
    viol 0), beside the plain versions' times and the bounds; B3-B6's
    operation bound walks the SASS of their built libraries
    (``cuobjdump -sass``) and counts what each pipe issues.
 
-Every launch counter is set to 0 just before each main-path phase (3, 4,
-7, 8) and read just after; a kernel that the phases did not launch fails
-the run.  The lines before the last carry the card, the per-kernel JSON
+Every launch counter (B1's per variant too) is set to 0 just before
+each main-path phase (3, 4, 7, 8) and read just after; a kernel or B1
+variant that the phases did not launch fails the run.  The lines before
+the last carry the card, the per-kernel JSON
 and the times; the last line is ``{"ok": true, "device": {...}}``.  Without a
 card it exits 2 and prints no result.
 """
@@ -72,22 +83,14 @@ SEED = 20261016
 MIB = 1 << 20
 
 # H100 SXM rates for the bounds (NVIDIA's data sheet and Hopper white
-# paper): HBM3 at 3.35 TB/s; 32-bit integer ALU at 132 SMs x 64 INT32
-# lanes x 1.98 GHz boost clock
+# paper): HBM3 at 3.35 TB/s; 132 SMs at the 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
 SM_COUNT = 132
 SM_HZ = 1.98e9
-INT32_OPS_PER_S = SM_COUNT * 64 * SM_HZ
 
-# 32-bit integer operations of one BLAKE2b compression that only the
-# INT32 lanes execute, on 64-bit words split into 32-bit halves: a G mix
-# has 4 64-bit xors (2 ops each) and 3 rotates by 24/16/63 (2 funnel
-# shifts each; the rotate by 32 is a register swap) = 14 ops; 12 rounds
-# of 8 mixes, plus 4 to set up v12 and v14 and 16 three-input xors of the
-# feed-forward.  The 64-bit adds (8 ops a mix) are left out: the compiler
-# can issue them as IMAD on the FP32 pipe beside the INT32 lanes, so
-# counting them would put the bound above what the card can reach.
-OPS_PER_COMPRESSION = 12 * 8 * 14 + 4 + 16
+# the two variants of kernel B1 (csrc/blake2b.cu), by the name their
+# launch counts are reported under, and their lanes per item
+B1_VARIANTS = {"blake2b_thread": 1, "blake2b_quad": 4}
 
 # phase 3 shape: 32 changes, then one blob, 2,048 times
 N_BLOBS = 2048
@@ -129,12 +132,20 @@ def _wrappers() -> dict:
 
 
 def reset_counters() -> None:
-    for fn in _wrappers().values():
+    wrappers = _wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    b1 = wrappers["blake2b"]
+    b1.launches_by_lanes = dict.fromkeys(b1.launches_by_lanes, 0)
 
 
 def read_counters() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Launches of every kernel wrapper, and of each B1 variant."""
+    wrappers = _wrappers()
+    out = {name: fn.launches for name, fn in wrappers.items()}
+    by_lanes = wrappers["blake2b"].launches_by_lanes
+    out.update({name: by_lanes[lanes] for name, lanes in B1_VARIANTS.items()})
+    return out
 
 
 def sync(device) -> None:
@@ -172,34 +183,54 @@ def check_kernels(device, b1_lengths=(0, 1, 127, 128, 129, 255, 256, 1000,
     from dat_replication_protocol_tpu_torch.ops import blake2b as b2b
     from dat_replication_protocol_tpu_torch.ops import merkle
     from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
-        blake2b_packed_kernel)
+        LANES, launch)
     from dat_replication_protocol_tpu_torch.ops.merkle_cuda import (
         merkle_level_kernel)
 
     rng = np.random.default_rng(SEED)
     payloads = [rng.bytes(n) for n in b1_lengths]
-    want = [blake(p) for p in payloads]
-    if b2b.blake2b_batch(payloads, device=device) != want:
+    if b2b.blake2b_batch(payloads, device=device) != [
+            blake(p) for p in payloads]:
         raise AssertionError("B1 batch digests differ from hashlib")
-    buckets: dict[int, list[bytes]] = {}
+    # every variant on the edge lengths' power-of-two buckets and on
+    # buckets of 1, 31, 32 and 33 items (a warp of the one-thread variant
+    # holds 32 items, of the four-lane variant 8), against the plain
+    # version and hashlib
+    cases: dict[str, list[bytes]] = {}
     for p in payloads:
         nb = b2b._bucket_nblocks(b2b._need_blocks(len(p)))
-        buckets.setdefault(nb, []).append(p)
-    if len(buckets) < 3:
-        raise AssertionError(f"B1 edge lengths span {len(buckets)} buckets")
-    for nb, items in sorted(buckets.items()):
-        mh, ml, lengths = (t.to(device) for t in b2b.pack_payloads(items, nb))
-        got = blake2b_packed_kernel(mh, ml, lengths)
+        cases.setdefault(f"edge lengths, nblocks {nb}", []).append(p)
+    if len(cases) < 3:
+        raise AssertionError(f"B1 edge lengths span {len(cases)} buckets")
+    for n in (1, 31, 32, 33):
+        cases[f"{n} items"] = [rng.bytes(int(k))
+                               for k in rng.integers(0, 3000, n)]
+    for case, items in cases.items():
+        mh, ml, lengths = (t.to(device) for t in b2b.pack_payloads(items))
         plain = b2b.blake2b_packed(mh, ml, lengths)
-        sync(device)
-        if not all(torch.equal(a, b) for a, b in zip(got, plain)):
-            raise AssertionError(f"B1 differs from its plain version at "
-                                 f"nblocks={nb}")
+        for lanes in LANES:
+            got = launch(mh, ml, lengths, b2b.DIGEST_SIZE, lanes)
+            sync(device)
+            if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+                raise AssertionError(f"B1 ({lanes} lanes per item) differs "
+                                     f"from its plain version ({case})")
+            if b2b.digests_to_bytes(got[0].cpu(), got[1].cpu()) != [
+                    blake(p) for p in items]:
+                raise AssertionError(f"B1 ({lanes} lanes per item) differs "
+                                     f"from hashlib ({case})")
+    # an item of 8,192 blocks, the blob bucket's width, among ragged ones:
+    # against hashlib only (the plain version takes a minute at this width)
+    items = [rng.bytes(n) for n in (8192 * 128, 8192 * 128 - 77, 0, 5, 300)]
+    mh, ml, lengths = (t.to(device) for t in b2b.pack_payloads(items))
+    for lanes in LANES:
+        got = launch(mh, ml, lengths, b2b.DIGEST_SIZE, lanes)
         if b2b.digests_to_bytes(got[0].cpu(), got[1].cpu()) != [
                 blake(p) for p in items]:
-            raise AssertionError(f"B1 differs from hashlib at nblocks={nb}")
-    log(f"phase 2: B1 byte-exact vs plain and hashlib at lengths "
-        f"{list(b1_lengths)}, buckets {sorted(buckets)}")
+            raise AssertionError(f"B1 ({lanes} lanes per item) differs from "
+                                 f"hashlib on an item of 8,192 blocks")
+    log(f"phase 2: B1 byte-exact with {list(LANES)} lanes per item vs plain "
+        f"and hashlib on {list(cases)}, and vs hashlib on an item of 8,192 "
+        f"blocks")
 
     words = rng.integers(0, 1 << 32, (2, b2_leaves, 4), dtype=np.uint64)
     hh, hl = (torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
@@ -418,21 +449,71 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def b1_bound(lengths) -> tuple[float, str]:
+def largest(**times_ms) -> tuple[float, str]:
+    """The largest of named least times, and its name."""
+    by, ms = max(times_ms.items(), key=lambda kv: kv[1])
+    return ms, by
+
+
+def b1_bound(lengths, sass: dict, latency: float) -> dict:
+    """Least ms for B1 over items of ``lengths`` bytes: the largest of
+    bytes (messages read once, lengths read, digests written), operations
+    (one thread per item as B1's SASS issues them, each pipe over its
+    rate) and the chain (the longest item's blocks, one after another,
+    each the dependent path of one compression at ``latency`` cycles a
+    step).  ``bound_by`` says which."""
     blocks = np.maximum(1, -(-np.asarray(lengths, dtype=np.int64) // 128))
-    nbytes = int(blocks.sum()) * 128 + 4 * len(lengths) + 64 * len(lengths)
-    ops = int(blocks.sum()) * OPS_PER_COMPRESSION
-    return bound(nbytes, ops)
+    nbytes = int(blocks.sum()) * 128 + 4 * len(blocks) + 64 * len(blocks)
+    cycles = max((len(blocks) * sass["per_item"][k]
+                  + int(blocks.sum()) * sass["per_block"][k]) / LANES[k]
+                 for k in LANES)
+    out = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "ops_ms": cycles / (SM_COUNT * SM_HZ) * 1e3,
+           "chain_ms": int(blocks.max()) * sass["chain"] * latency / SM_HZ
+           * 1e3}
+    out["bound_ms"], out["bound_by"] = largest(
+        bytes=out["bytes_ms"], operations=out["ops_ms"], chain=out["chain_ms"])
+    return out
 
 
-def b2_bound(parents: int) -> tuple[float, str]:
-    return bound(64 * parents + 32 * parents, parents * OPS_PER_COMPRESSION)
+def b2_bound(parents: int) -> dict:
+    """Least ms for one B2 level of ``parents`` parents: bytes (two child
+    digests in, one parent out) or the operations one thread issues in
+    B2's SASS, each pipe over its rate."""
+    one = sass_path(parse_sass(sass_listing("merkle_level"),
+                               "merkle_level_kernel"))
+    cycles = max(parents * one[k] / LANES[k] for k in LANES)
+    out = {"bytes_ms": 96 * parents / HBM_BYTES_PER_S * 1e3,
+           "ops_ms": cycles / (SM_COUNT * SM_HZ) * 1e3, "sass": one}
+    out["bound_ms"], out["bound_by"] = largest(bytes=out["bytes_ms"],
+                                               operations=out["ops_ms"])
+    return out
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of one ``fn()`` from a CUDA graph of ``reps``
+    calls, timed by CUDA events around one replay after a warm-up: the
+    card launches the calls back to back, without the host's launch
+    gaps.  (``torch.profiler``'s kernel records, as ``profile_session``
+    reads them, came back empty here after the CDC phases.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
 
 
 def b1_inputs(device, payloads):
@@ -449,7 +530,49 @@ def b1_inputs(device, payloads):
     return (mh, ml, lengths), [len(p) for p in batch]
 
 
-def time_kernels(device, launches: dict, entry_step) -> list[dict]:
+def time_b1(label: str, args, lengths, sass: dict, latency: float,
+            reps: int) -> dict:
+    """B1 at one main-path shape: device ms of each variant, the bounds,
+    and the variant the wrapper's rule picks there."""
+    from dat_replication_protocol_tpu_torch.ops.blake2b import DIGEST_SIZE
+    from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
+        LANES, launch, lanes_per_item)
+
+    B, nblocks = args[0].shape[:2]
+    ms = {lanes: device_ms(lambda: launch(*args, DIGEST_SIZE, lanes), reps)
+          for lanes in LANES}
+    out = {"label": label, "shape": [B, nblocks], "ms_by_lanes": ms,
+           "lanes": lanes_per_item(B), **b1_bound(lengths, sass, latency)}
+    out["ms"] = ms[out["lanes"]]
+    log(f"phase 5: B1 at {label} {out['shape']} (items x blocks): device ms "
+        f"by lanes per item {ms}; the rule picks {out['lanes']}; bound "
+        f"{out['bound_ms']} ms ({out['bound_by']}): bytes {out['bytes_ms']},"
+        f" operations {out['ops_ms']}, chain {out['chain_ms']} ms; the "
+        f"picked variant at {out['ms'] / out['chain_ms']} x the chain bound")
+    return out
+
+
+def b1_row(name: str, timed: dict, launches: int, plain_ms: float,
+           err: int) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": "dat_replication_protocol_tpu_torch/csrc/blake2b.cu",
+            "replaces":
+                "dat_replication_protocol_tpu/ops/blake2b_pallas.py:228",
+            "launches": launches, "max_abs_err": err, "ms": timed["ms"],
+            "plain_ms": plain_ms, "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"], "library_ms": None,
+            "shape": timed["shape"]}
+
+
+def time_kernels(device, launches: dict, entry_step, sass: dict,
+                 latency: float) -> list[dict]:
+    """Phase 5: B1 at the session's blob and change buckets and at
+    entry()'s launch, each variant on the device alone beside the bounds,
+    the blob bucket also under a cold L2; B2 at entry()'s first level;
+    build_tree and entry()'s whole step."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch import encode_change
     from dat_replication_protocol_tpu_torch.ops import blake2b as b2b
     from dat_replication_protocol_tpu_torch.ops import merkle
     from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
@@ -457,73 +580,86 @@ def time_kernels(device, launches: dict, entry_step) -> list[dict]:
     from dat_replication_protocol_tpu_torch.ops.merkle_cuda import (
         merkle_level_kernel)
 
-    rows = []
-    # B1 at the session's blob bucket: each batch of 1,024 items holds 31
-    # blobs (32 changes per blob), padded to a batch of 32 x 8,192 blocks
-    blobs, changes = make_session(31, BLOB_BYTES, 0, seed=SEED + 3)
+    # the session's blob bucket: each batch of 1,024 items holds 31 blobs
+    # (32 changes per blob), padded to a batch of 32 x 8,192 blocks
+    blobs, _ = make_session(31, BLOB_BYTES, 0, seed=SEED + 3)
     args, lens = b1_inputs(device, [blobs[i * BLOB_BYTES:(i + 1) * BLOB_BYTES]
                                     for i in range(31)])
-    ms = time_ms(lambda: blake2b_packed_kernel(*args), reps=5)
+    blob = time_b1("the blob bucket", args, lens, sass, latency, reps=3)
+    # under a cold L2: 256 MiB written before each launch, its own time
+    # taken off
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    cold = (device_ms(lambda: (flush.zero_(), blake2b_packed_kernel(*args)),
+                      3) - device_ms(flush.zero_, 3))
+    del flush
+    log(f"phase 5: B1 at the blob bucket under a cold L2: {cold} ms "
+        f"(warm {blob['ms']} ms)")
     t0 = time.perf_counter()
     plain = b2b.blake2b_packed(*args)
     sync(device)
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max_abs_err(blake2b_packed_kernel(*args), plain)
-    bound_ms, bound_by = b1_bound(lens)
-    rows.append({
-        "name": "blake2b_packed", "route": "cuda",
-        "source": "dat_replication_protocol_tpu_torch/csrc/blake2b.cu",
-        "replaces": "dat_replication_protocol_tpu/ops/blake2b_pallas.py:228",
-        "launches": launches["blake2b"], "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "shape": list(args[0].shape)})
 
-    # B1 at the session's change bucket: 1,024 payloads of 2 blocks
+    # the session's change bucket: 1,024 payloads of 2 blocks
     _, recs = make_session(1, 0, 1024, seed=SEED + 4)
-    from dat_replication_protocol_tpu_torch import encode_change
-
     args_c, lens_c = b1_inputs(device, [encode_change(c) for c in recs])
-    ms_c = time_ms(lambda: blake2b_packed_kernel(*args_c), reps=50)
+    change = time_b1("the change bucket", args_c, lens_c, sass, latency,
+                     reps=50)
     plain_c = time_ms(lambda: b2b.blake2b_packed(*args_c), reps=3)
     err_c = max_abs_err(blake2b_packed_kernel(*args_c),
                         b2b.blake2b_packed(*args_c))
-    bc, bc_by = b1_bound(lens_c)
-    log(f"phase 5: B1 at change bucket {list(args_c[0].shape)}: {ms_c} ms, "
-        f"plain {plain_c} ms, bound {bc} ms ({bc_by}), max_abs_err {err_c}")
-    if err or err_c:
+    log(f"phase 5: B1 at the change bucket: plain {plain_c} ms, max_abs_err "
+        f"{err_c}")
+
+    # entry()'s launch: 2^20 payloads of 2 blocks
+    fn, step_args = entry_step
+    args_e = step_args[:3]
+    ent = time_b1("entry()'s launch", args_e, args_e[2].cpu().numpy(), sass,
+                  latency, reps=10)
+    plain_e = time_ms(lambda: b2b.blake2b_packed(*args_e), reps=1)
+    err_e = max_abs_err(blake2b_packed_kernel(*args_e),
+                        b2b.blake2b_packed(*args_e))
+    if err or err_c or err_e:
         raise AssertionError("B1 differs from its plain version in phase 5")
+    rows = [b1_row(name, timed, launches[name], p_ms, e)
+            for name, timed, p_ms, e in (("blake2b_quad", blob, plain_ms, err),
+                                         ("blake2b_thread", ent, plain_e,
+                                          err_e))]
+    for name, timed in (("blake2b_quad", blob), ("blake2b_thread", ent)):
+        if timed["lanes"] != B1_VARIANTS[name]:
+            raise AssertionError(f"the rule picks {timed['lanes']} lanes per "
+                                 f"item at {timed['label']}, not {name}'s")
 
     # B2 at the first level of entry()'s 2^20-leaf tree
     rng = np.random.default_rng(SEED + 5)
     words = rng.integers(0, 1 << 32, (2, ENTRY_LEAVES, 4), dtype=np.uint64)
-    import torch
-
     hh, hl = (torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
               for w in words)
-    ms2 = time_ms(lambda: merkle_level_kernel(hh, hl), reps=20)
+    ms2 = device_ms(lambda: merkle_level_kernel(hh, hl), 20)
     plain2 = time_ms(lambda: merkle.merkle_level(hh, hl), reps=3)
     err2 = max_abs_err(merkle_level_kernel(hh, hl), merkle.merkle_level(hh, hl))
     if err2:
         raise AssertionError("B2 differs from its plain version in phase 5")
-    b2, b2_by = b2_bound(ENTRY_LEAVES // 2)
+    b2 = b2_bound(ENTRY_LEAVES // 2)
+    log(f"phase 5: B2 at {ENTRY_LEAVES} -> {ENTRY_LEAVES // 2}: device "
+        f"{ms2} ms; bound {b2['bound_ms']} ms ({b2['bound_by']}): bytes "
+        f"{b2['bytes_ms']}, operations {b2['ops_ms']} ms; SASS walk, one "
+        f"thread: {b2['sass']}")
     rows.append({
         "name": "merkle_level", "route": "cuda",
         "source": "dat_replication_protocol_tpu_torch/csrc/merkle_level.cu",
         "replaces": "dat_replication_protocol_tpu/ops/merkle_pallas.py:69",
         "launches": launches["merkle_level"], "max_abs_err": err2,
-        "ms": ms2, "plain_ms": plain2, "bound_ms": b2, "bound_by": b2_by,
-        "library_ms": None, "shape": [ENTRY_LEAVES, 4]})
+        "ms": ms2, "plain_ms": plain2, "bound_ms": b2["bound_ms"],
+        "bound_by": b2["bound_by"], "library_ms": None,
+        "shape": [ENTRY_LEAVES, 4]})
 
     # the whole tree, all 20 levels, and entry()'s whole step warm
     tree_ms = time_ms(lambda: merkle.build_tree(hh, hl), reps=5)
     log(f"phase 5: build_tree over {ENTRY_LEAVES} leaves: {tree_ms} ms")
-    fn, args = entry_step
-    step_ms = time_ms(lambda: fn(*args), reps=5)
-    leaf_ms = time_ms(lambda: blake2b_packed_kernel(*args), reps=5)
-    lb, lb_by = b1_bound(args[2].cpu().numpy())
+    step_ms = time_ms(lambda: fn(*step_args), reps=5)
     log(f"phase 5: entry() step over {ENTRY_LEAVES} leaves warm: {step_ms} "
-        f"ms; its B1 launch at {list(args[0].shape)}: {leaf_ms} ms, bound "
-        f"{lb} ms ({lb_by})")
+        f"ms")
     return rows
 
 
@@ -816,15 +952,152 @@ _SASS_LINE = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
+_SASS_REG = re.compile(r"(?<![A-Za-z0-9_])(U?[RP])([0-9]+)(\.64)?(?![0-9])")
+_SASS_DEST = re.compile(r"U?[RP]([0-9]+|Z|T)(\.64)?")
+_SASS_PRED = re.compile(r"P[0-9T]")
+# opcodes whose first operand is read, not written
+_SASS_NO_DEST = frozenset({"BRA", "EXIT", "WARPSYNC", "BAR", "NOP", "CALL",
+                           "RET", "BSSY", "BSYNC"})
+_SASS_TEXT: dict[str, str] = {}
+
+
+def sass_listing(name: str) -> str:
+    """``cuobjdump -sass`` of the built library ``name``."""
+    from dat_replication_protocol_tpu_torch.ops import _build
+
+    if name not in _SASS_TEXT:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        _SASS_TEXT[name] = subprocess.run(
+            [tool, "-sass", str(_build.library_path(name))],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+    return _SASS_TEXT[name]
+
+
 def parse_sass(text: str, kernel: str) -> list[tuple]:
-    """``(address, predicated, opcode, operands)`` of every instruction of
-    the one function in a ``cuobjdump -sass`` listing named ``kernel``."""
+    """``(address, guard, opcode, operands)`` of every instruction of the
+    one function in a ``cuobjdump -sass`` listing named ``kernel``; the
+    guard is the predicate (``@!P0``), or empty."""
     funcs = [f for f in text.split("Function : ")[1:]
              if kernel in f.split("\n", 1)[0]]
     if len(funcs) != 1:
         raise AssertionError(f"{len(funcs)} SASS functions match {kernel}")
-    return [(int(a, 16), bool(p), op, args.strip())
+    return [(int(a, 16), p.strip(), op, args.strip())
             for a, p, op, args in _SASS_LINE.findall(funcs[0])]
+
+
+def _sass_regs(text: str) -> list[str]:
+    """Registers and predicates named in ``text``; ``R8.64`` is R8 and R9."""
+    out = []
+    for kind, n, wide in _SASS_REG.findall(text):
+        out.append(f"{kind}{n}")
+        if wide:
+            out.append(f"{kind}{int(n) + 1}")
+    return out
+
+
+def _sass_operands(op: str, args: str) -> tuple[list, list]:
+    """(written, read) registers and predicates of one instruction: the
+    first operand is written when it is a register, with the predicates
+    right after it (carry-outs, compare results); SHFL also writes its
+    second operand."""
+    ops = [o.strip() for o in args.split(",")] if args else []
+    if (not ops or op.split(".")[0] in _SASS_NO_DEST
+            or not _SASS_DEST.fullmatch(ops[0])):
+        return [], _sass_regs(args)
+    k = 2 if op.startswith("SHFL") else 1
+    while k < len(ops) and _SASS_PRED.fullmatch(ops[k]):
+        k += 1
+    return ([r for o in ops[:k] for r in _sass_regs(o)],
+            [r for o in ops[k:] for r in _sass_regs(o)])
+
+
+def _branch_target(args: str) -> int:
+    return int(re.findall(r"0x[0-9a-f]+", args)[-1], 16)
+
+
+def sass_loop_body(insts) -> list[tuple]:
+    """The instructions of the function's largest innermost loop, from
+    the target of a guarded backward branch to that branch."""
+    at = {ins[0]: i for i, ins in enumerate(insts)}
+    loops = [(at[_branch_target(args)], i)
+             for i, (addr, guard, op, args) in enumerate(insts)
+             if op.split(".")[0] == "BRA" and guard
+             and _branch_target(args) <= addr]
+    inner = [(h, t) for h, t in loops
+             if not any(h <= t2 < t for _, t2 in loops)]
+    if not inner:
+        raise AssertionError("no loop in the SASS")
+    head, tail = max(inner, key=lambda lo: lo[1] - lo[0])
+    return insts[head:tail + 1]
+
+
+def sass_chain(insts) -> int:
+    """The longest dependent path through one pass of the body of the
+    function's largest innermost loop, in integer ALU and IMAD
+    instructions: each of them is one step past the latest register or
+    predicate it reads; any other instruction (a load, a shuffle) passes
+    its inputs' depth on at no step, so the path is a lower bound on the
+    chain."""
+    depth: dict[str, int] = {}
+    longest = 0
+    for _, guard, op, args in sass_loop_body(insts):
+        written, read = _sass_operands(op, args)
+        base = op.split(".")[0]
+        d = max((depth.get(r, 0) for r in read + _sass_regs(guard)),
+                default=0) + (base in SASS_ALU or base in SASS_FMA)
+        for r in written:
+            depth[r] = d
+        longest = max(longest, d)
+    return longest
+
+
+def b1_sass() -> dict:
+    """B1's one-thread variant from its SASS: what one thread issues, by
+    pipe, as a part per item and a part per block (the walk is linear in
+    the loop's trips), and the dependent path of one compression (the
+    loop body is one block); and the instructions of the four-lane
+    variant's block loop, one lane's share of a compression."""
+    insts = parse_sass(sass_listing("blake2b"), "blake2b_thread_kernel")
+    one, two = sass_path(insts, 1), sass_path(insts, 2)
+    quad = parse_sass(sass_listing("blake2b"), "blake2b_quad_kernel")
+    return {"per_block": {k: two[k] - one[k] for k in LANES},
+            "per_item": {k: 2 * one[k] - two[k] for k in LANES},
+            "chain": sass_chain(insts),
+            "quad_per_block": len(sass_loop_body(quad))}
+
+
+def chain_latency(device) -> dict:
+    """Cycles per dependent step of the G mix's integer instructions,
+    measured on the card: the probe ``csrc/chain_latency.cu`` runs a
+    serial chain of 64-bit xor, rotate and add for 2,048 and 4,096 loop
+    trips and reads the SM clock around them; the difference over 2,048
+    trips (the launch and clock reads cancel) over the dependent path of
+    its loop body, read from its SASS."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch.ops import _build
+
+    lib = _build.load("chain_latency")
+    out = torch.zeros(1, dtype=torch.int32, device=device)
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def run(iters: int) -> int:
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.dat_chain_latency(out.data_ptr(), cycles.data_ptr(), iters,
+                                   SEED, stream)
+        if rc != 0:
+            raise RuntimeError(f"chain probe launch failed: cudaError {rc}")
+        torch.cuda.synchronize()
+        return int(cycles.item())
+
+    run(16)
+    short = min(run(2048) for _ in range(3))
+    long = min(run(4096) for _ in range(3))
+    per_trip = (long - short) / 2048
+    chain = sass_chain(parse_sass(sass_listing("chain_latency"),
+                                  "chain_latency_kernel"))
+    return {"cycles": per_trip / chain, "chain": chain,
+            "cycles_per_trip": per_trip}
 
 
 def sass_path(insts, trips: int | None = None,
@@ -852,7 +1125,7 @@ def sass_path(insts, trips: int | None = None,
         if base in ("CALL", "RET"):
             raise AssertionError(f"SASS walk reached {op} at {addr:#x}")
         if base == "BRA":
-            target = int(args.split()[0], 16)
+            target = _branch_target(args)
             jump = not guarded
             if guarded and target <= addr:
                 if trips is None:
@@ -880,13 +1153,7 @@ def sass_bound(name: str, nthreads: int, warm_skips: int = 0,
     from ``cuobjdump -sass`` of its built library: each pipe's count
     over its rate, the largest of them.  Also returns one thread's counts
     by pipe."""
-    from dat_replication_protocol_tpu_torch.ops import _build
-
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(_build.library_path(name))],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
-    insts = parse_sass(text, f"{name}_kernel")
+    insts = parse_sass(sass_listing(name), f"{name}_kernel")
     one = sass_path(insts, trips)
     short = sass_path(insts, trips, skip_warm=True)
     cycles = max(((nthreads - warm_skips) * one[k] + warm_skips * short[k])
@@ -957,8 +1224,7 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
         torch.cuda.empty_cache()
         ops_ms, per_thread = sass_bound(name, nthreads, skips, trips)
         bytes_ms = (nbytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        bound_ms, bound_by = ((ops_ms, "operations") if ops_ms >= bytes_ms
-                              else (bytes_ms, "bytes"))
+        bound_ms, bound_by = largest(operations=ops_ms, bytes=bytes_ms)
         out.append({
             "name": name, "route": "cuda",
             "source": f"dat_replication_protocol_tpu_torch/csrc/{src}",
@@ -970,10 +1236,12 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
     return out
 
 
-def time_chunk_bucket(device, blob: np.ndarray, cuts) -> dict:
+def time_chunk_bucket(device, blob: np.ndarray, cuts, sass: dict,
+                      latency: float) -> dict:
     """B1 at the chunk bucket with the most bytes in phase 7's cuts: one
     launch of it as ``hash_cuts_device`` packs it (at most 64 MiB of
-    padded messages), beside the plain version and the bound."""
+    padded messages), each variant beside the plain version and the
+    bounds."""
     import torch
 
     from dat_replication_protocol_tpu_torch.batch.feed import (
@@ -995,15 +1263,14 @@ def time_chunk_bucket(device, blob: np.ndarray, cuts) -> dict:
     words = rabin.stage_words(blob, T * TILE_BYTES // 4, torch.device(device))
     args = pack_extents_device(words.view(torch.uint8), offs[idx], lens[idx],
                                nb)
-    ms = time_ms(lambda: blake2b_packed_kernel(*args), reps=10)
-    plain_ms = time_ms(lambda: b2b.blake2b_packed(*args), reps=1)
+    out = time_b1("phase 7's largest chunk bucket", args, lens[idx], sass,
+                  latency, reps=10)
+    out["plain_ms"] = time_ms(lambda: b2b.blake2b_packed(*args), reps=1)
     if max_abs_err(blake2b_packed_kernel(*args), b2b.blake2b_packed(*args)):
         raise AssertionError("B1 differs from its plain version at the "
                              "chunk bucket")
-    bound_ms, bound_by = b1_bound(lens[idx])
-    return {"shape": [len(idx), nb], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "buckets": {int(b): len(v) for b, v in sorted(buckets.items())}}
+    out["buckets"] = {int(b): len(v) for b, v in sorted(buckets.items())}
+    return out
 
 
 def main() -> int:
@@ -1079,7 +1346,7 @@ def main() -> int:
         f"exactly; chunk counts, delta and roots == the JAX package's; "
         f"launches {cdc}")
     for name, n in cdc.items():
-        if n == 0:
+        if n == 0 and name not in B1_VARIANTS:
             raise AssertionError(f"phase 7 never launched {name}")
 
     reset_counters()
@@ -1097,13 +1364,22 @@ def main() -> int:
     launches = {k: session["launches"][k] + side["launches"][k]
                 + ent["launches"][k] + cdc[k] + streamed[k]
                 for k in session["launches"]}
-    rows = time_kernels(device, launches, ent["step"])
-    chunk = time_chunk_bucket(device, blob[:CONTENT_BYTES], s.cuts)
+    sass = b1_sass()
+    latency = chain_latency(device)
+    log(f"phase 5: dependent-issue latency {latency['cycles']} cycles a "
+        f"step ({latency['cycles_per_trip']} cycles per trip of the probe "
+        f"over its {latency['chain']}-step path); B1's SASS, one thread: "
+        f"{sass['per_block']} a block and {sass['per_item']} an item by "
+        f"pipe, a compression's dependent path {sass['chain']} steps; "
+        f"the four-lane variant issues {sass['quad_per_block']} a block "
+        f"per lane")
+    rows = time_kernels(device, launches, ent["step"], sass,
+                        latency["cycles"])
+    chunk = time_chunk_bucket(device, blob[:CONTENT_BYTES], s.cuts, sass,
+                              latency["cycles"])
     del blob
-    log(f"phase 9: B1 at phase 7's largest chunk bucket {chunk['shape']} "
-        f"(items x blocks): {chunk['ms']} ms, plain {chunk['plain_ms']} ms, "
-        f"bound {chunk['bound_ms']} ms ({chunk['bound_by']}); chunks per "
-        f"bucket {chunk['buckets']}")
+    log(f"phase 9: B1 at phase 7's largest chunk bucket: plain "
+        f"{chunk['plain_ms']} ms; chunks per bucket {chunk['buckets']}")
     rows += time_gear_kernels(device, launches)
     for r in rows:
         if r["launches"] == 0:

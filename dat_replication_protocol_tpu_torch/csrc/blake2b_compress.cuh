@@ -32,6 +32,8 @@ __device__ __forceinline__ uint64_t rotr64(uint64_t x, const int n) {
   return (static_cast<uint64_t>(nhi) << 32) | nlo;
 }
 
+// one G mix on one column or diagonal (the four-lanes-per-item kernel runs
+// one of these per lane)
 #define DAT_B2B_G(a, b, c, d, x, y) \
   do {                              \
     a = a + b + (x);                \
@@ -44,19 +46,44 @@ __device__ __forceinline__ uint64_t rotr64(uint64_t x, const int n) {
     b = rotr64(b ^ c, 63);          \
   } while (0)
 
-// one round: the four column mixes, then the four diagonal mixes, with the
-// message schedule of RFC 7693 section 2.7 spelled out as literals
+// The four G mixes of a half-round in lockstep: each step of G is applied
+// to all four columns (or diagonals) before the next step, so the four
+// independent dependence chains sit side by side for ptxas to interleave.
+// One G is a chain of 15 dependent 32-bit instructions (a 64-bit add is
+// two, low word then high word through the carry); the lockstep form
+// leaves four instructions of other mixes beside each of them.
+__device__ __forceinline__ void g4(uint64_t& a0, uint64_t& a1, uint64_t& a2,
+                                   uint64_t& a3, uint64_t& b0, uint64_t& b1,
+                                   uint64_t& b2, uint64_t& b3, uint64_t& c0,
+                                   uint64_t& c1, uint64_t& c2, uint64_t& c3,
+                                   uint64_t& d0, uint64_t& d1, uint64_t& d2,
+                                   uint64_t& d3, uint64_t x0, uint64_t x1,
+                                   uint64_t x2, uint64_t x3, uint64_t y0,
+                                   uint64_t y1, uint64_t y2, uint64_t y3) {
+  a0 = a0 + b0 + x0; a1 = a1 + b1 + x1; a2 = a2 + b2 + x2; a3 = a3 + b3 + x3;
+  d0 = rotr64(d0 ^ a0, 32); d1 = rotr64(d1 ^ a1, 32);
+  d2 = rotr64(d2 ^ a2, 32); d3 = rotr64(d3 ^ a3, 32);
+  c0 = c0 + d0; c1 = c1 + d1; c2 = c2 + d2; c3 = c3 + d3;
+  b0 = rotr64(b0 ^ c0, 24); b1 = rotr64(b1 ^ c1, 24);
+  b2 = rotr64(b2 ^ c2, 24); b3 = rotr64(b3 ^ c3, 24);
+  a0 = a0 + b0 + y0; a1 = a1 + b1 + y1; a2 = a2 + b2 + y2; a3 = a3 + b3 + y3;
+  d0 = rotr64(d0 ^ a0, 16); d1 = rotr64(d1 ^ a1, 16);
+  d2 = rotr64(d2 ^ a2, 16); d3 = rotr64(d3 ^ a3, 16);
+  c0 = c0 + d0; c1 = c1 + d1; c2 = c2 + d2; c3 = c3 + d3;
+  b0 = rotr64(b0 ^ c0, 63); b1 = rotr64(b1 ^ c1, 63);
+  b2 = rotr64(b2 ^ c2, 63); b3 = rotr64(b3 ^ c3, 63);
+}
+
+// one round: the four column mixes in lockstep, then the four diagonal
+// mixes, with the message schedule of RFC 7693 section 2.7 spelled out as
+// literals
 #define DAT_B2B_ROUND(s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11, s12, \
                       s13, s14, s15)                                          \
   do {                                                                        \
-    DAT_B2B_G(v0, v4, v8, v12, m[s0], m[s1]);                                 \
-    DAT_B2B_G(v1, v5, v9, v13, m[s2], m[s3]);                                 \
-    DAT_B2B_G(v2, v6, v10, v14, m[s4], m[s5]);                                \
-    DAT_B2B_G(v3, v7, v11, v15, m[s6], m[s7]);                                \
-    DAT_B2B_G(v0, v5, v10, v15, m[s8], m[s9]);                                \
-    DAT_B2B_G(v1, v6, v11, v12, m[s10], m[s11]);                              \
-    DAT_B2B_G(v2, v7, v8, v13, m[s12], m[s13]);                               \
-    DAT_B2B_G(v3, v4, v9, v14, m[s14], m[s15]);                               \
+    g4(v0, v1, v2, v3, v4, v5, v6, v7, v8, v9, v10, v11, v12, v13, v14, v15,  \
+       m[s0], m[s2], m[s4], m[s6], m[s1], m[s3], m[s5], m[s7]);               \
+    g4(v0, v1, v2, v3, v5, v6, v7, v4, v10, v11, v8, v9, v15, v12, v13, v14,  \
+       m[s8], m[s10], m[s12], m[s14], m[s9], m[s11], m[s13], m[s15]);         \
   } while (0)
 
 // RFC 7693 section 2.6

@@ -34,7 +34,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point and argument types of each kernel library
 SIGNATURES = {
-    "blake2b": ("dat_blake2b_packed", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "blake2b": ("dat_blake2b_packed",
+                (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # a latency probe for chip_smoke.py's chain bound, not a port kernel
+    "chain_latency": ("dat_chain_latency", (_P, _P, _I, _I, _P)),
     "merkle_level": ("dat_merkle_level", (_P, _P, _P, _P, _I, _P)),
     "gear_candidates": ("dat_gear_candidates", (_P, _P, _I, _I, _I, _P)),
     "gear_first": ("dat_gear_first", (_P, _P, _I, _I, _I, _P)),

@@ -2,8 +2,9 @@
 
 The counterpart of ``dat_replication_protocol_tpu/ops/blake2b_pallas.py``
 ``blake2b_packed_pallas`` (kernel ``blake2b_native``, :228).  The kernel
-is ``csrc/blake2b.cu`` (one thread per item, chaining state in
-registers; its source note says what bounds it).  The wrapper keeps the
+is ``csrc/blake2b.cu`` in two variants, one thread per item or four lanes
+per item; :func:`lanes_per_item` picks one from the batch size, and
+the source note says what bounds each.  The wrapper keeps the
 reference's public layout: (B, nblocks, 16) hi/lo message words in,
 (B, 8) hi/lo digest words out, as int32 tensors holding uint32 bits.
 
@@ -17,6 +18,30 @@ import torch
 
 from . import _build
 from .blake2b import DIGEST_SIZE, blake2b_packed
+
+LANES = (1, 4)
+# An H100 has 132 SMs x 4 schedulers: at one warp of 32 items each, 16,896
+# items.  Up to the power of two below it (buckets are powers of two), one
+# thread per item leaves every scheduler one warp at most.
+QUAD_MAX_ITEMS = 16384
+
+
+def lanes_per_item(batch: int) -> int:
+    """Lanes per item for a bucket of ``batch`` items: 4 or 1.
+
+    A warp issues in order, so a scheduler that holds one warp waits out
+    every dependent step of that warp's compressions.  Up to
+    ``QUAD_MAX_ITEMS`` items, one thread per item leaves each scheduler
+    one warp at most, and four lanes per item (a quarter of the
+    instructions per lane, four times the warps) finish sooner: the
+    digest session's blob and change buckets and content addressing's
+    chunk buckets.  Past it the card is full either way, and one thread
+    per item issues fewer instructions per item (shuffles and staged
+    message loads are the quad variant's extra): ``entry()``'s 2^20
+    items.  The block count does not move the choice, since both
+    variants take time in proportion to it (``PERF.md``).
+    """
+    return 4 if batch <= QUAD_MAX_ITEMS else 1
 
 
 def _check(mh, ml, lengths, digest_size):
@@ -35,22 +60,18 @@ def _check(mh, ml, lengths, digest_size):
     if lengths.shape != (mh.shape[0],):
         raise ValueError(f"lengths must be ({mh.shape[0]},), got "
                          f"{tuple(lengths.shape)}")
-    for t in (mh, ml):  # the kernel reads each block as four uint4
+    for t in (mh, ml):  # the kernels read 16-byte pieces of each block
         if t.data_ptr() % 16:
             raise ValueError("message halves must be 16-byte aligned")
 
 
-def blake2b_packed_kernel(mh, ml, lengths, digest_size: int = DIGEST_SIZE):
-    """Hash a padded batch: kernel B1 on CUDA, the plain version on CPU.
-
-    Same contract as :func:`.blake2b.blake2b_packed`: returns ``(hh, hl)``,
-    each (B, 8) int32.  Counts its launches in
-    ``blake2b_packed_kernel.launches``.
-    """
-    if mh.device.type == "cpu":
-        return blake2b_packed(mh, ml, lengths, digest_size)
+def launch(mh, ml, lengths, digest_size: int, lanes: int):
+    """Launch the variant with ``lanes`` lanes per item on CUDA tensors
+    (no plain fallback); counts the launch."""
     if mh.device.type != "cuda":
         raise ValueError(f"unsupported device {mh.device}")
+    if lanes not in LANES:
+        raise ValueError(f"lanes must be one of {LANES}, got {lanes}")
     _check(mh, ml, lengths, digest_size)
     B, nblocks, _ = mh.shape
     hh = torch.empty((B, 8), dtype=torch.int32, device=mh.device)
@@ -62,11 +83,28 @@ def blake2b_packed_kernel(mh, ml, lengths, digest_size: int = DIGEST_SIZE):
         stream = torch.cuda.current_stream(mh.device).cuda_stream
         rc = lib.dat_blake2b_packed(
             mh.data_ptr(), ml.data_ptr(), lengths.data_ptr(),
-            hh.data_ptr(), hl.data_ptr(), B, nblocks, digest_size, stream)
+            hh.data_ptr(), hl.data_ptr(), B, nblocks, digest_size, lanes,
+            stream)
     if rc != 0:
         raise RuntimeError(f"blake2b kernel launch failed: cudaError {rc}")
     blake2b_packed_kernel.launches += 1
+    blake2b_packed_kernel.launches_by_lanes[lanes] += 1
     return hh, hl
 
 
+def blake2b_packed_kernel(mh, ml, lengths, digest_size: int = DIGEST_SIZE):
+    """Hash a padded batch: kernel B1 on CUDA, the plain version on CPU.
+
+    Same contract as :func:`.blake2b.blake2b_packed`: returns ``(hh, hl)``,
+    each (B, 8) int32.  Counts its launches in
+    ``blake2b_packed_kernel.launches`` and, by variant,
+    ``blake2b_packed_kernel.launches_by_lanes``.
+    """
+    if mh.device.type == "cpu":
+        return blake2b_packed(mh, ml, lengths, digest_size)
+    return launch(mh, ml, lengths, digest_size,
+                  lanes_per_item(mh.shape[0]))
+
+
 blake2b_packed_kernel.launches = 0
+blake2b_packed_kernel.launches_by_lanes = dict.fromkeys(LANES, 0)

@@ -19,7 +19,11 @@ from dat_replication_protocol_tpu.ops.blake2b_pallas import (
 )
 from dat_replication_protocol_tpu_torch.ops import blake2b as b2b
 from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
+    LANES,
+    QUAD_MAX_ITEMS,
     blake2b_packed_kernel,
+    lanes_per_item,
+    launch,
 )
 
 EDGE_LENGTHS = (0, 1, 127, 128, 129, 255, 256, 1000)
@@ -126,6 +130,27 @@ def test_wrapper_takes_plain_version_on_cpu_without_launching():
     assert b2b.digests_to_bytes(hh, hl) == _hashlib(payloads)
 
 
+# (bucket batch, lanes): the digest session's blob bucket (31-32 blobs),
+# its change bucket, content addressing's largest chunk bucket, the last
+# batch that leaves one warp a scheduler, and entry()'s 2^20 items
+@pytest.mark.parametrize("batch,want", [
+    (1, 4), (31, 4), (32, 4), (33, 4), (1024, 4), (2048, 4),
+    (QUAD_MAX_ITEMS, 4), (QUAD_MAX_ITEMS + 1, 1), (2 * QUAD_MAX_ITEMS, 1),
+    (1 << 20, 1)])
+def test_lanes_per_item_rule(batch, want):
+    assert lanes_per_item(batch) == want
+    assert lanes_per_item(batch) in LANES
+
+
+def test_launch_refuses_cpu_tensors_and_counts_nothing():
+    mh, ml, lengths = b2b.pack_payloads(_payloads((3, 300)))
+    before = dict(blake2b_packed_kernel.launches_by_lanes)
+    for lanes in LANES:
+        with pytest.raises(ValueError, match="unsupported device"):
+            launch(mh, ml, lengths, 32, lanes)
+    assert blake2b_packed_kernel.launches_by_lanes == before
+
+
 def test_batch_rejects_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -160,3 +185,40 @@ def test_kernel_wrapper_rejects_bad_inputs_on_card(cuda_device):
         blake2b_packed_kernel(mh, ml[:, :, :8].contiguous(), lengths)
     with pytest.raises(ValueError):
         blake2b_packed_kernel(mh, ml, lengths, digest_size=65)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("n_items", [1, 31, 32, 33])
+def test_each_variant_matches_plain_and_hashlib_on_card(cuda_device, lanes,
+                                                        n_items):
+    lengths = (EDGE_LENGTHS * 5)[:n_items]
+    payloads = _payloads(lengths, seed=n_items)
+    mh, ml, lens = (t.to(cuda_device) for t in b2b.pack_payloads(payloads))
+    before = blake2b_packed_kernel.launches_by_lanes[lanes]
+    got = launch(mh, ml, lens, 32, lanes)
+    want = b2b.blake2b_packed(mh, ml, lens)
+    torch.cuda.synchronize()
+    assert blake2b_packed_kernel.launches_by_lanes[lanes] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert b2b.digests_to_bytes(got[0].cpu(), got[1].cpu()) == _hashlib(
+        payloads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", LANES)
+def test_each_variant_matches_hashlib_on_long_items_on_card(cuda_device,
+                                                            lanes):
+    payloads = _payloads((8192 * 128, 8192 * 128 - 77, 0, 129, 5))
+    got = launch(*(t.to(cuda_device) for t in b2b.pack_payloads(payloads)),
+                 20, lanes)
+    assert b2b.digests_to_bytes(got[0].cpu(), got[1].cpu(), 20) == _hashlib(
+        payloads, 20)
+
+
+@pytest.mark.cuda
+def test_launch_rejects_other_lane_counts_on_card(cuda_device):
+    mh, ml, lengths = (t.to(cuda_device)
+                       for t in b2b.pack_payloads([b"abc"]))
+    with pytest.raises(ValueError, match="lanes"):
+        launch(mh, ml, lengths, 32, 2)

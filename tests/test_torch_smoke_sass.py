@@ -1,5 +1,6 @@
-"""chip_smoke.py's SASS walk, which gives kernels B3-B6 their operation
-bound, on small hand-written listings in ``cuobjdump -sass`` format."""
+"""chip_smoke.py's SASS walks, which give the kernels their operation
+bounds and kernel B1 its chain bound, on small hand-written listings in
+``cuobjdump -sass`` format."""
 
 import sys
 from pathlib import Path
@@ -58,3 +59,58 @@ def test_loop_and_trips_must_agree():
         chip_smoke.sass_path(straight, trips=4)
     with pytest.raises(AssertionError, match="SASS functions match"):
         chip_smoke.parse_sass(_listing(STRAIGHT), "other_kernel")
+
+
+# 0x20-0xa0: a loop whose dependent path runs IADD3 -> IADD3.X (through
+# the carry predicate) -> LOP3 -> SHF -> [SHFL, no step] -> SEL -> ISETP
+CHAIN = ["S2R R0, SR_TID.X", "LDG.E R2, desc[UR4][R8.64]",
+         "IADD3 R4, P0, R2, R3, RZ", "IADD3.X R5, R6, R7, RZ, P0, !PT",
+         "LOP3.LUT R6, R4, R5, RZ, 0x3c, !PT", "SHF.R.W.U32 R7, R6, 0x18, R5",
+         "IMAD.MOV.U32 R9, RZ, RZ, R3", "SHFL.IDX PT, R10, R7, 0x1, 0x1c1f",
+         "@P0 SEL R11, R10, R9, P1", "ISETP.NE.AND P2, PT, R11, RZ, PT",
+         "@P2 BRA 0x20"]
+
+
+def test_chain_is_the_longest_dependent_path_of_the_loop_body():
+    insts = chip_smoke.parse_sass(_listing(CHAIN + TAIL), "k_kernel")
+    body = chip_smoke.sass_loop_body(insts)
+    assert (body[0][0], body[-1][0]) == (0x20, 0xa0)
+    assert chip_smoke.sass_chain(insts) == 6
+    # a guard is read too: here only the guard carries the chain to SEL
+    guarded = CHAIN[:6] + ["ISETP.GT.AND P3, PT, R7, RZ, PT",
+                           "@P3 SEL R11, R9, R9, P1", "@P3 BRA 0x20"]
+    insts = chip_smoke.parse_sass(_listing(guarded + TAIL), "k_kernel")
+    assert chip_smoke.sass_chain(insts) == 6
+
+
+def test_chain_takes_the_largest_innermost_loop_and_needs_one():
+    small = ["IADD3 R1, R1, 0x1, RZ", "ISETP.NE.AND P0, PT, R1, R2, PT",
+             "@P0 BRA 0x0"]
+    big = ["LOP3.LUT R3, R3, R4, RZ, 0x3c, !PT",
+           "LOP3.LUT R3, R3, R4, RZ, 0x3c, !PT",
+           "LOP3.LUT R3, R3, R4, RZ, 0x3c, !PT",
+           "LOP3.LUT R5, R3, R4, RZ, 0x3c, !PT", "@P0 BRA 0x30"]
+    insts = chip_smoke.parse_sass(_listing(small + big + TAIL), "k_kernel")
+    assert len(chip_smoke.sass_loop_body(insts)) == 5
+    assert chip_smoke.sass_chain(insts) == 4
+    # a loop around both is not innermost: the largest inner one counts
+    outer = chip_smoke.parse_sass(
+        _listing(small + big + ["@P1 BRA 0x0"] + TAIL), "k_kernel")
+    assert len(chip_smoke.sass_loop_body(outer)) == 5
+    straight = chip_smoke.parse_sass(_listing(STRAIGHT + TAIL[1:]), "k_kernel")
+    with pytest.raises(AssertionError, match="no loop"):
+        chip_smoke.sass_chain(straight)
+
+
+def test_operands_split_written_from_read():
+    ops = chip_smoke._sass_operands
+    assert ops("IADD3", "R4, P0, P1, R2, R3, R4") == (
+        ["R4", "P0", "P1"], ["R2", "R3", "R4"])
+    assert ops("IADD3.X", "R5, R6, R7, RZ, P0, !PT") == (
+        ["R5"], ["R6", "R7", "P0"])
+    assert ops("ISETP.GE.AND", "P0, PT, R0, R1, PT") == (["P0"], ["R0", "R1"])
+    assert ops("SHFL.IDX", "PT, R10, R7, 0x1, 0x1c1f") == (["R10"], ["R7"])
+    assert ops("LDG.E", "R8, desc[UR4][R2.64]") == (["R8"],
+                                                     ["UR4", "R2", "R3"])
+    assert ops("STG.E", "desc[UR4][R8.64], R5") == ([], ["UR4", "R8", "R9",
+                                                         "R5"])
