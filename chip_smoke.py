@@ -39,6 +39,10 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    and at the tests' shape (2,048 B rows, avg_bits 8, thin_bits 9), for a
    stream head, a ragged last tile, a slab with real context and an
    all-zero row; B5 must equal B3's window reduction, B6 B5, viol 0;
+   then the staged scan's edges (B4, B6): candidates planted in the
+   first and last byte of spans and only in a span's warm-up halo, a row
+   count whose spans are not a multiple of the CTAs, B6 at thin_bits 8,
+   11 and 16 with its ``occ`` against the OR of B3's words;
 7. ``content_address`` at the reference's chunk parameters (avg_bits
    13, chunks of 2-32 KiB, 128 KiB tiles) over a 1.5 GiB blob made from
    the seed, on each of the four extraction routes: single residency,
@@ -52,11 +56,14 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    7's blob is its first 1.5 GiB) in 1 GiB slabs: the same cut checks,
    and its cuts below 1.5 GiB - 32 KiB equal phase 7's;
 9. times: B1 at phase 7's largest chunk bucket (each variant, as in
-   phase 5), and B3-B6 on a 1 GiB
-   slab, each held byte-exact against its plain version there (B6 with
-   viol 0), beside the plain versions' times and the bounds; B3-B6's
-   operation bound walks the SASS of their built libraries
-   (``cuobjdump -sass``) and counts what each pipe issues.
+   phase 5), and B3-B6 on a 1 GiB slab, each held byte-exact against its
+   plain version there (B6 with viol 0), timed in turns beside the plain
+   versions' times and the bounds; B3 and B5 are the controls of the
+   staged B4 and B6 (the old one-thread-per-group scan); the operation
+   bounds walk the SASS of the built libraries (``cuobjdump -sass``) and
+   count what each pipe issues, the staged kernels' per span and CTA,
+   and B4/B6 also get the bound of the same work as their control issues
+   it, the smaller of the two counting; then B6 over G = 1, 2, 4, 8.
 
 Every launch counter (B1's per variant too) is set to 0 just before
 each main-path phase (3, 4, 7, 8) and read just after; a kernel or B1
@@ -748,6 +755,118 @@ def check_gear_kernels(device) -> None:
             f"viol 0")
 
 
+def plant_hit(row: np.ndarray, p: int, avg_bits: int) -> None:
+    """Make byte ``p`` of ``row`` (one row's bytes, its gear state zero at
+    byte 0; p >= 71) a candidate by rewriting bytes p-7..p: the first of
+    2^17 random 8-byte runs (drawn from ``p``) that hits, stepped from the
+    state at p-8 by the window hash.  (Fewer bytes do not reach every
+    13-bit value: the high word of g is linear in the byte.)"""
+    from dat_replication_protocol_tpu_torch.ops import rabin
+
+    table = np.array([rabin._gear_g(b) for b in range(256)], dtype=np.uint64)
+    runs = np.random.default_rng(p).integers(0, 256, (1 << 17, 8))
+    h = np.full(len(runs), window_hashes(row, np.array([p - 8]))[0],
+                dtype=np.uint64)
+    for j in range(8):
+        h = (h << np.uint64(1)) + table[runs[:, j]]
+    hits = np.flatnonzero(((h >> np.uint64(32))
+                           & np.uint64((1 << avg_bits) - 1)) == 0)
+    if not len(hits):
+        raise AssertionError(f"no byte run makes byte {p} a candidate")
+    row[p - 7:p + 1] = runs[hits[0]]
+
+
+def check_staged_edges(device, rows: int = 1000) -> dict:
+    """Phase 6, the staged scan's edges: B4 and B6 byte-exact against
+    their plain versions on random rows of 128 KiB + 256 B (avg_bits 13)
+    with candidates planted in the first and the last byte of spans (a B4
+    span that crosses a row boundary among them), one only in a span's
+    warm-up halo, and a row count whose spans are not a multiple of the
+    CTAs; B6 at thin_bits 8, 11 and 16, its ``occ`` against the OR of the
+    plain B3 words over each window, its viol 0."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch.ops import rabin, rabin_cuda
+    from dat_replication_protocol_tpu_torch.ops.fused_cdc_hash import (
+        gear_window_first_checked_kernel)
+
+    a = CDC_AVG_BITS
+    S = TILE_BYTES + rabin._PREFIX
+    ng = S // rabin.GROUP
+    sms = rabin_cuda.sm_count(torch.device(device))
+    for T in range(rows, 2 * rows + 64):
+        # spans not a multiple of the CTAs, and more than them
+        g4 = rabin_cuda.staged_geometry(T, S, sms=sms)
+        g6 = [rabin_cuda.staged_geometry(T, S, t, sms=sms) for t in (8, 11,
+                                                                     16)]
+        if all(g.total_spans % g.ctas and g.total_spans > g.ctas
+               for g in [g4, *g6]):
+            break
+    else:
+        raise AssertionError("no row count gives ragged persistent loops")
+    data = np.frombuffer(np.random.default_rng(SEED + 40).bytes(T * S),
+                         dtype=np.uint8).copy().reshape(T, S)
+    planted = []
+    # B4: first and last byte of span 1, the last byte of the first span
+    # that crosses a row boundary (in the next row)
+    span = g4.span_groups
+    cross = next(s for s in range(g4.total_spans)
+                 if (s * span) // ng != (s * span + span - 1) // ng)
+    for flat in (span, 2 * span - 1, cross * span + span - 1):
+        r, g = divmod(flat, ng)
+        planted.append((r, g * rabin.GROUP + (rabin.GROUP - 1
+                                              if flat % span else 0)))
+    # B6 at thin_bits 11: the first byte of a row's first span and the
+    # last byte of its last
+    g11 = g6[1]
+    planted += [(3, rabin.GROUP), (4, (1 + g11.spans_per_row * g11.span_groups)
+                                   * rabin.GROUP - 1)]
+    planted = [(r, min(p, S - 1)) for r, p in planted]
+    for r, p in planted:
+        plant_hit(data[r], p, a)
+    # a candidate only in the halo of span 3 of B4: the last byte before
+    # it, with none in the span's first group
+    halo = 3 * span
+    hr, hg = divmod(halo, ng)
+    plant_hit(data[hr], hg * rabin.GROUP - 1, a)
+    rows = torch.from_numpy(data.reshape(T, -1).view(np.int32)).to(device)
+    bits = rabin.gear_candidates_tiled(rows, a)
+    firsts = rabin.gear_first_tiled(rows, a)
+    for r, p in planted + [(hr, hg * rabin.GROUP - 1)]:
+        word = int(bits[r, p // 32]) & 0xFFFFFFFF
+        if not (word >> (p % 32)) & 1:
+            raise AssertionError(f"planted candidate at row {r} byte {p} "
+                                 f"is not one")
+    if int(firsts[hr, hg]) != rabin.NO_HIT or int(
+            firsts[hr, hg - 1]) != rabin.GROUP - 1:
+        raise AssertionError("the halo case needs a candidate in the halo "
+                             "only")
+    got = rabin_cuda.gear_first_kernel(rows, a)
+    sync(device)
+    if not torch.equal(got, firsts):
+        raise AssertionError(f"B4 differs from its plain version in "
+                             f"{int((got != firsts).sum())} groups at the "
+                             f"span edges")
+    for t, geom in zip((8, 11, 16), g6):
+        want, _ = rabin.gear_window_first_checked(rows, a, t)
+        first, viol = gear_window_first_checked_kernel(rows, a, t)
+        nwin = want.numel()
+        f2 = torch.empty(nwin, dtype=torch.int32, device=device)
+        occ = torch.empty_like(f2)
+        rabin_cuda._launch("gear_window_first_checked", rows, (f2, occ), a, t,
+                           *geom.args())
+        _, want_occ = rabin_cuda.staged_window_reduce(bits, firsts, t, 1)
+        sync(device)
+        if (not torch.equal(first, want) or not torch.equal(f2, want)
+                or int(viol) or not torch.equal(occ, want_occ)):
+            raise AssertionError(f"B6 at thin_bits {t} differs from its "
+                                 f"plain version, viol {int(viol)}")
+    return {"rows": T, "planted": len(planted) + 1,
+            "spans": {"B4": (g4.total_spans, g4.ctas),
+                      **{f"B6 thin {t}": (g.total_spans, g.ctas)
+                         for t, g in zip((8, 11, 16), g6)}}}
+
+
 # ---------------------------------------------------------------------------
 # phases 7 and 8: content addressing and chunk_stream
 # ---------------------------------------------------------------------------
@@ -1100,18 +1219,35 @@ def chain_latency(device) -> dict:
             "cycles_per_trip": per_trip}
 
 
-def sass_path(insts, trips: int | None = None,
-              skip_warm: bool = False) -> dict:
+def _is_wait_loop(insts, head: int, tail: int) -> bool:
+    """Whether the loop from ``insts[head]`` to its branch ``insts[tail]``
+    spins on an ``mbarrier`` try-wait: such a loop runs as often as the
+    copy it waits for takes, so the walk counts it once.  A loop around
+    one (another backward branch inside) is not a wait loop."""
+    body = insts[head:tail]
+    return any("TRYWAIT" in op for _, _, op, _ in body) and not any(
+        op.split(".")[0] == "BRA" and _branch_target(args) <= addr
+        for addr, _, op, args in body)
+
+
+def sass_path(insts, trips=None, skip_warm: bool = False) -> dict:
     """Instructions one thread issues, by pipe, walking the kernel's
     control flow from its entry: a guarded EXIT falls through (the thread
     is in range); a forward branch over a CALL is taken (the 64-bit
     division's slow path, which only 2^32 threads or more need); another
     forward branch falls through, but ``skip_warm`` takes the first of
-    them (a group-0 thread skipping its warm-up); a backward branch runs
-    its loop ``trips`` times, and there must be one exactly when
-    ``trips`` is given."""
+    them (a group-0 thread skipping its warm-up).  A guarded backward
+    branch closes a loop: an ``mbarrier`` wait loop runs once; every other
+    loop runs as many times as ``trips`` gives it each time it is entered
+    (an inner loop starts counting again when its outer loop comes back).
+    ``trips`` is None for a kernel without loops, an int for a kernel with
+    exactly one, or one count per loop in the order the walk first closes
+    them (for nested loops, inner before outer)."""
     at = {ins[0]: i for i, ins in enumerate(insts)}
     counts = {"alu": 0, "fma": 0, "issued": 0}
+    per_loop = [] if trips is None else (
+        [trips] if isinstance(trips, int) else list(trips))
+    order: list[int] = []  # loop branches, in the order first closed
     seen: dict[int, int] = {}
     i = 0
     while True:
@@ -1128,10 +1264,20 @@ def sass_path(insts, trips: int | None = None,
             target = _branch_target(args)
             jump = not guarded
             if guarded and target <= addr:
-                if trips is None:
-                    raise AssertionError(f"unexpected loop at {addr:#x}")
-                seen[addr] = seen.get(addr, 0) + 1
-                jump = seen[addr] < trips
+                if _is_wait_loop(insts, at[target], i):
+                    jump = False
+                else:
+                    if trips is None:
+                        raise AssertionError(f"unexpected loop at {addr:#x}")
+                    if addr not in order:
+                        order.append(addr)
+                        if len(order) > len(per_loop):
+                            raise AssertionError(_loops_expected(
+                                len(order), len(per_loop)))
+                    seen[addr] = seen.get(addr, 0) + 1
+                    jump = seen[addr] < per_loop[order.index(addr)]
+                    if not jump:
+                        seen[addr] = 0
             elif guarded and any(ins[2].startswith("CALL")
                                  for ins in insts[i + 1:at[target]]):
                 jump = True
@@ -1141,9 +1287,23 @@ def sass_path(insts, trips: int | None = None,
                 i = at[target]
                 continue
         i += 1
-    if trips is not None and len(seen) != 1:
-        raise AssertionError(f"{len(seen)} loops where one was expected")
+    if len(order) != len(per_loop):
+        raise AssertionError(_loops_expected(len(order), len(per_loop)))
     return counts
+
+
+def _loops_expected(found: int, want: int) -> str:
+    return (f"{found} loops where one was expected" if want == 1 else
+            f"{found} loops where {want} were expected")
+
+
+def sass_loops(insts) -> int:
+    """Loops of a function, not counting ``mbarrier`` wait loops."""
+    at = {ins[0]: i for i, ins in enumerate(insts)}
+    return sum(1 for i, (addr, guard, op, args) in enumerate(insts)
+               if op.split(".")[0] == "BRA" and guard
+               and _branch_target(args) <= addr
+               and not _is_wait_loop(insts, at[_branch_target(args)], i))
 
 
 def sass_bound(name: str, nthreads: int, warm_skips: int = 0,
@@ -1161,13 +1321,69 @@ def sass_bound(name: str, nthreads: int, warm_skips: int = 0,
     return cycles / (SM_COUNT * SM_HZ) * 1e3, one
 
 
+def staged_sass(name: str, geom) -> tuple[dict, dict]:
+    """One thread of the staged kernel ``name`` (B4 ``gear_first`` or B6
+    ``gear_window_first_checked``) in its instance for ``geom``'s stages
+    (and G), from its SASS: the instructions it issues by pipe per span
+    and once per CTA.  The walk runs the span loop once and twice (it is
+    linear in that loop's trips) and an inner step loop, where ptxas kept
+    one, G - 1 times; it falls through every forward branch, so it counts
+    the issue of the next step's copies, halo copies included, at every
+    step."""
+    tmpl = (f"ILi{geom.stages}E" if name == "gear_first"
+            else f"ILi{geom.g}ELi{geom.stages}E")
+    insts = parse_sass(sass_listing(name), f"{name}_kernel{tmpl}")
+    inner = [geom.g - 1] * (sass_loops(insts) - 1)
+    one, two = (sass_path(insts, inner + [k]) for k in (1, 2))
+    return ({k: two[k] - one[k] for k in LANES},
+            {k: 2 * one[k] - two[k] for k in LANES})
+
+
+def staged_bound(name: str, geom) -> tuple[float, dict]:
+    """Least ms for the instructions the staged kernel ``name`` issues
+    over ``geom``'s spans and CTAs, each pipe over its rate, the largest
+    of them; and one thread's counts per span."""
+    per_span, per_cta = staged_sass(name, geom)
+    cycles = max(geom.threads * (geom.total_spans * per_span[k]
+                                 + geom.ctas * per_cta[k]) / LANES[k]
+                 for k in LANES)
+    return cycles / (SM_COUNT * SM_HZ) * 1e3, per_span
+
+
+def res_usage(name: str) -> dict:
+    """Registers and static shared bytes of every function in the built
+    library ``name``, from ``cuobjdump -res-usage``, by function name."""
+    from dat_replication_protocol_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-res-usage", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return {f: {"registers": int(r), "static_shared": int(sh)} for f, r, sh in
+            re.findall(r"Function ([^:\s]+):\s*REG:(\d+)\s.*?SHARED:(\d+)",
+                       text)}
+
+
+def _in_turns(fns: dict, reps: int) -> dict:
+    """Device ms of each ``fns`` entry by CUDA events over ``reps``
+    launches, timed in turns (the list, then the list reversed): the mean
+    of the two and both readings."""
+    got = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        got[name].append(time_ms(fns[name], reps))
+    return {name: (sum(v) / len(v), v) for name, v in got.items()}
+
+
 def time_gear_kernels(device, launches: dict) -> list[dict]:
     """B3-B6 on one 1 GiB slab of random rows (8,192 x 128 KiB + 256 B),
     held byte-exact against the plain versions at the same shape and
-    timed beside them and the bounds."""
+    timed in turns beside them and the bounds: B3 and B5 (the
+    one-thread-per-group scan of gear.cuh) are the controls of the staged
+    B4 and B6, whose bound is also given for the same work as the
+    controls issue it.  Then B6 over G = 1, 2, 4, 8."""
     import torch
 
-    from dat_replication_protocol_tpu_torch.ops import rabin
+    from dat_replication_protocol_tpu_torch.ops import rabin, rabin_cuda
     from dat_replication_protocol_tpu_torch.ops.fused_cdc_hash import (
         gear_window_first_checked_kernel)
     from dat_replication_protocol_tpu_torch.ops.rabin_cuda import (
@@ -1183,34 +1399,37 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
     ngroups = SLAB_TILES * (S // rabin.GROUP)
     nwin = SLAB_TILES * (TILE_BYTES >> t)
     gpw = (1 << t) // rabin.GROUP
+    sms = rabin_cuda.sm_count(torch.device(device))
+    geoms = {"gear_first": rabin_cuda.staged_geometry(SLAB_TILES, S,
+                                                      sms=sms),
+             "gear_window_first_checked": rabin_cuda.staged_geometry(
+                 SLAB_TILES, S, t, sms=sms)}
     # (name, source, TPU kernel, kernel, plain version, output bytes,
-    #  threads, threads that skip the warm-up, loop trips)
+    #  threads, threads that skip the warm-up, loop trips, control)
     specs = [
         ("gear_candidates", "gear_candidates.cu", "ops/rabin_pallas.py:112",
          lambda: (gear_candidates_kernel(rows, a),),
          lambda: (rabin.gear_candidates_tiled(rows, a),), nbytes // 8,
-         ngroups, SLAB_TILES, None),
+         ngroups, SLAB_TILES, None, None),
         ("gear_first", "gear_first.cu", "ops/rabin_pallas.py:407",
          lambda: (gear_first_kernel(rows, a),),
          lambda: (rabin.gear_first_tiled(rows, a),), nbytes // 64,
-         ngroups, SLAB_TILES, None),
+         ngroups, SLAB_TILES, None, "gear_candidates"),
         ("gear_window_first", "gear_window_first.cu",
          "ops/rabin_pallas.py:284",
          lambda: (gear_window_first_kernel(rows, a, t),),
          lambda: (rabin.gear_window_first(rows, a, t),), 4 * nwin,
-         nwin, 0, gpw),
+         nwin, 0, gpw, None),
         ("gear_window_first_checked", "gear_window_first_checked.cu",
          "ops/fused_cdc_hash_pallas.py:163",
          lambda: gear_window_first_checked_kernel(rows, a, t),
          lambda: rabin.gear_window_first_checked(rows, a, t), 8 * nwin,
-         nwin, 0, gpw),
+         nwin, 0, gpw, "gear_window_first"),
     ]
-    out = []
-    for (name, src, replaces, kernel, plain, out_bytes, nthreads, skips,
-         trips) in specs:
-        ms = time_ms(kernel, reps=10)
+    plain_ms, wants, control_ops = {}, {}, {}
+    for name, _, _, kernel, plain, *_ in specs:
         torch.cuda.empty_cache()
-        plain_ms = time_ms(plain, reps=1)
+        plain_ms[name] = time_ms(plain, reps=1)
         want = plain()
         got = kernel()
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
@@ -1218,21 +1437,72 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
         if err:
             raise AssertionError(f"{name} differs from its plain version on "
                                  f"the 1 GiB slab: max_abs_err {err}")
-        if name == "gear_window_first_checked" and int(got[1]) != 0:
-            raise AssertionError(f"B6 viol {int(got[1])} on the 1 GiB slab")
+        if name == "gear_window_first_checked":
+            if int(got[1]) != 0:
+                raise AssertionError(f"B6 viol {int(got[1])} on the 1 GiB "
+                                     f"slab")
+            wants[name] = want[0]
         del want, got
-        torch.cuda.empty_cache()
-        ops_ms, per_thread = sass_bound(name, nthreads, skips, trips)
-        bytes_ms = (nbytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        bound_ms, bound_by = largest(operations=ops_ms, bytes=bytes_ms)
-        out.append({
-            "name": name, "route": "cuda",
-            "source": f"dat_replication_protocol_tpu_torch/csrc/{src}",
-            "replaces": f"dat_replication_protocol_tpu/{replaces}",
-            "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "shape": list(rows.shape),
-            "sass_per_thread": per_thread, "bytes_ms": bytes_ms})
+    torch.cuda.empty_cache()
+    timed = _in_turns({name: kernel for name, _, _, kernel, *_ in specs},
+                      reps=10)
+    out = []
+    for (name, src, replaces, kernel, plain, out_bytes, nthreads, skips,
+         trips, control) in specs:
+        ops_ms, per_thread = sass_bound(name, nthreads, skips, trips) if (
+            control is None) else staged_bound(name, geoms[name])
+        row = {"name": name, "route": "cuda",
+               "source": f"dat_replication_protocol_tpu_torch/csrc/{src}",
+               "replaces": f"dat_replication_protocol_tpu/{replaces}",
+               "launches": launches[name], "max_abs_err": 0,
+               "ms": timed[name][0], "turns_ms": timed[name][1],
+               "plain_ms": plain_ms[name], "library_ms": None,
+               "shape": list(rows.shape), "sass_per_thread": per_thread,
+               "bytes_ms": (nbytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+               "ops_ms": ops_ms}
+        if control is None:
+            control_ops[name] = ops_ms
+            use = [v for f, v in res_usage(name).items()
+                   if f"{name}_kernel" in f]
+            row["registers"] = use[0]["registers"] if use else None
+        else:
+            # the bound of the same work as the control issues it; the
+            # smaller of the two operation bounds is the one that counts
+            geom = geoms[name]
+            fn = (f"{name}_kernelILi{geom.stages}E" if name == "gear_first"
+                  else f"{name}_kernelILi{geom.g}ELi{geom.stages}E")
+            use = [v for f, v in res_usage(name).items() if fn in f]
+            row.update({"control": control, "control_ms": timed[control][0],
+                        "ops_same_work_ms": control_ops[control],
+                        "geometry": geom._asdict(),
+                        "registers": use[0]["registers"] if use else None})
+            ops_ms = min(ops_ms, control_ops[control])
+        row["bound_ms"], row["bound_by"] = largest(operations=ops_ms,
+                                                   bytes=row["bytes_ms"])
+        out.append(row)
+
+    # B6 over G at 2 KiB windows, each held against the plain version
+    sweep = {}
+    for g in (1, 2, 4, 8):
+        geom = rabin_cuda.staged_geometry(SLAB_TILES, S, t, g=g, sms=sms)
+        first = torch.empty(nwin, dtype=torch.int32, device=device)
+        occ = torch.empty_like(first)
+
+        def run(geom=geom, outs=(first, occ)):
+            rabin_cuda._launch("gear_window_first_checked", rows, outs, a, t,
+                               *geom.args())
+        run()
+        viol = int(((occ != 0) != (first != rabin._SENT_OFF)).sum())
+        if not torch.equal(first, wants["gear_window_first_checked"]) or viol:
+            raise AssertionError(f"B6 at G={g} differs from its plain "
+                                 f"version or viol {viol}")
+        sweep[f"G={g}"] = run
+    b6 = out[-1]
+    b6["g_sweep_ms"] = {k: v[0] for k, v in _in_turns(sweep, reps=10).items()}
+    b6["g_sweep_geometry"] = {
+        f"G={g}": rabin_cuda.staged_geometry(SLAB_TILES, S, t, g=g,
+                                             sms=sms)._asdict()
+        for g in (1, 2, 4, 8)}
     return out
 
 
@@ -1324,6 +1594,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     check_gear_kernels(device)
+    edges = check_staged_edges(device)
+    log(f"phase 6: B4 and B6 byte-exact vs plain at the staged scan's edges "
+        f"({edges['rows']} rows x 128 KiB + 256 B, {edges['planted']} "
+        f"planted candidates at span first/last bytes, across a row "
+        f"boundary and in a halo only; spans, CTAs {edges['spans']}); B6 at "
+        f"thin_bits 8, 11, 16, occ == the OR of B3's words, viol 0")
     log(f"phase 6: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -1389,8 +1665,23 @@ def main() -> int:
             f"{r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']}),"
             f" {r['launches']} launches on the main path, library none")
         if "sass_per_thread" in r:
-            log(f"  SASS walk, one thread: {r['sass_per_thread']}; bytes "
-                f"alone {r['bytes_ms']} ms")
+            log(f"  SASS walk, one thread{' per span' if 'control' in r else ''}"
+                f": {r['sass_per_thread']}; bytes alone {r['bytes_ms']} ms, "
+                f"operations {r['ops_ms']} ms; in turns {r['turns_ms']} ms; "
+                f"{r['registers']} registers")
+        if "control" in r:
+            geom = r["geometry"]
+            log(f"  staged: {geom['threads']} threads x G={geom['g']} "
+                f"(span {geom['span_groups']} groups), {geom['stages']} "
+                f"stages, {geom['smem_bytes']} B shared a CTA, {geom['ctas']} "
+                f"CTAs over {geom['total_spans']} spans, {r['registers']} "
+                f"registers; its own SASS bound {r['ops_ms']} ms, the same "
+                f"work as {r['control']} issues it {r['ops_same_work_ms']} "
+                f"ms: {r['ms'] / r['bound_ms']} x the smaller; control "
+                f"{r['control']} {r['control_ms']} ms in the same turns")
+        if "g_sweep_ms" in r:
+            log(f"  B6 by G (device ms, in turns): {r['g_sweep_ms']}; "
+                f"geometry {r['g_sweep_geometry']}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

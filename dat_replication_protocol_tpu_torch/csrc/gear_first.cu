@@ -4,58 +4,115 @@
 // Replaces the TPU kernel dat_replication_protocol_tpu/ops/rabin_pallas.py
 // gear_first_native (body _kernel_first, :365; wrapper gear_first_pallas
 // :447), which walks each row serially in one vector lane with a per-byte
-// select on the first hit.  Here, as in B3 (gear_candidates.cu), one
-// thread owns one (row, group): warm-up over the 64 bytes before the group
-// (none for group 0), a scan of its 256 bytes, and one u32 out.  The first
-// hit is taken from the packed hit words (first nonzero word, then its
-// lowest set bit), off the gear chain's serial path.
+// select on the first hit.  Here the (T, S) rows, contiguous in memory,
+// are read as one run of T * S/256 groups, cut into spans of `threads`
+// groups (a span may cross a row boundary; only the last one is ragged),
+// and scanned by the staged scan of gear_staged.cuh at G = 1: a
+// persistent CTA copies each span (and the 64 bytes before it) into a
+// shared-memory ring with coalesced cp.async requests while it scans the
+// previous one; thread t warms its state on the 64 bytes before its group
+// (the tail of the slot before its own, none for a row's group 0) and
+// scans its group from shared memory into eight packed hit words held in
+// registers.  The first hit (first nonzero word, then its lowest set bit)
+// is taken after the scan, off the gear chain, and each thread writes one
+// u32, so a warp's stores are 128 contiguous bytes.
 //
 // Input: rows (T, S/4) uint32 words (int32 storage), S a multiple of 256.
 // Output: first (T, S/256) uint32, the group-local offset of the group's
-// first candidate or 256 (NO_HIT).  dat_gear_first returns
-// cudaGetLastError().
+// first candidate or 256 (NO_HIT).  Geometry (threads, G = 1, stages, CTA
+// count, span) comes from the wrapper, ops/rabin_cuda.py staged_geometry;
+// dat_gear_first returns cudaErrorInvalidValue on one it does not take,
+// else the launch's cudaGetLastError().
 //
-// What bounds it: the same scan as B3, with B3's instruction count in the
-// SASS to within 1% (chip_smoke.py sass_bound): the 32-bit integer ALU
-// pipe, about 0.46 ms per 1 GiB slab on an H100 at 1.98 GHz, against 0.33
-// ms of bytes (1 byte read, 1/64 byte written).  The design pays the 25%
-// warm-up for 64x more threads than a row each.
-#include "gear.cuh"
+// What bounds it: the 32-bit integer ALU pipe, about 5.7 instructions per
+// byte stepped (chip_smoke.py sass_bound walks its SASS), against 0.33 ms
+// of bytes per 1 GiB slab (1 byte read, 1/64 byte written).  The design
+// pays a 25% warm-up per group to run one chain per group, and takes the
+// strided global loads of the one-thread-per-group scan (gear.cuh, kept
+// for B3) off the load path.
+#include "gear_staged.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+namespace st = dat::staged;
 
-__global__ void __launch_bounds__(kThreads)
-gear_first_kernel(const uint4* __restrict__ rows, uint32_t* __restrict__ first,
-                  int nrows, int row_bytes, uint32_t mask) {
-  const int ng = row_bytes / dat::kGroup;
-  const long long id = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-  if (id >= static_cast<long long>(nrows) * ng) return;
-  const int t = static_cast<int>(id / ng);
-  const int g = static_cast<int>(id % ng);
-  const uint4* row = rows + static_cast<size_t>(t) * (row_bytes / 16);
-  const int p = g * dat::kGroup;
-  uint64_t h = dat::gear_warm(row, p);
-  uint32_t out = dat::kNoHit;
-  dat::gear_group(row, p, h, mask, [&](int k, uint32_t b) {
-    if (out == dat::kNoHit && b != 0u) out = k * dat::kPack + (__ffs(b) - 1);
-  });
-  first[id] = out;
+template <int kStages>
+__global__ void __launch_bounds__(st::kMaxThreads)
+gear_first_kernel(const uint8_t* __restrict__ rows,
+                  uint32_t* __restrict__ first, int ng, int ng_all,
+                  int total_spans, uint32_t mask) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int threads = blockDim.x;
+  const int t = threadIdx.x;
+  const int sb = st::stage_bytes(threads, 1);
+  const int nspans =
+      (total_spans - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  // the rows read as one row of ng_all groups: span i of this CTA starts
+  // at group (blockIdx.x + i * gridDim.x) * threads
+  auto span = [&](int i) {
+    return st::Span{rows, 0,
+                    static_cast<int>(blockIdx.x + i * gridDim.x) * threads};
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < nspans) st::issue_step<1>(smem + i * sb, span(i), 0, ng_all);
+    st::commit();
+  }
+#pragma unroll 1
+  for (int i = 0; i < nspans; ++i) {
+    const int ahead = i + kStages - 1;
+    if (ahead < nspans)
+      st::issue_step<1>(smem + (ahead % kStages) * sb, span(ahead), 0,
+                        ng_all);
+    st::commit();
+    st::wait_pending<kStages - 1>();
+    __syncthreads();
+    const uint8_t* stage = smem + (i % kStages) * sb;
+    const int g = span(i).g0 + t;
+    uint64_t h = st::warm(stage + t * st::kSlot + dat::kGroup -
+                          dat::kGearWindow);
+    if (g % ng == 0) h = 0;  // a row's group 0 starts from the zero state
+    uint32_t w[dat::kGroup / dat::kPack];
+    st::scan_group(stage + (t + 1) * st::kSlot, h, mask, w);
+    if (g < ng_all) first[g] = st::first_of(w);
+    __syncthreads();
+  }
 }
 
 }  // namespace
 
 extern "C" int dat_gear_first(const void* rows, void* first, int nrows,
-                              int row_bytes, int avg_bits, void* stream) {
-  const long long n = static_cast<long long>(nrows) * (row_bytes / dat::kGroup);
-  if (n > 0) {
-    const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-    gear_first_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint4*>(rows), static_cast<uint32_t*>(first), nrows,
-        row_bytes, (1u << avg_bits) - 1u);
+                              int row_bytes, int avg_bits, int threads, int g,
+                              int stages, int ctas, int span_groups,
+                              int spans_per_row, int total_spans,
+                              void* stream) {
+  // the rows are scanned as one row of nrows * row_bytes bytes
+  st::Launch l{threads, g, stages, ctas, span_groups, spans_per_row,
+               total_spans, 0};
+  const long long all = static_cast<long long>(nrows) * row_bytes;
+  if (g != 1 || row_bytes <= 0 || row_bytes % dat::kGroup || nrows < 1 ||
+      all >= (1ll << 31) ||
+      st::check_launch(l, 1, static_cast<int>(all), 0) != cudaSuccess)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ng = row_bytes / dat::kGroup;
+  const int ng_all = static_cast<int>(all / dat::kGroup);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* r = static_cast<const uint8_t*>(rows);
+  auto* f = static_cast<uint32_t*>(first);
+  const uint32_t mask = (1u << avg_bits) - 1u;
+  cudaError_t rc;
+  switch (stages) {
+    case 2:
+      rc = st::launch(gear_first_kernel<2>, l, s, r, f, ng, ng_all,
+                      total_spans, mask);
+      break;
+    case 3:
+      rc = st::launch(gear_first_kernel<3>, l, s, r, f, ng, ng_all,
+                      total_spans, mask);
+      break;
+    default:
+      rc = st::launch(gear_first_kernel<4>, l, s, r, f, ng, ng_all,
+                      total_spans, mask);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rc);
 }

@@ -114,3 +114,50 @@ def test_operands_split_written_from_read():
                                                      ["UR4", "R2", "R3"])
     assert ops("STG.E", "desc[UR4][R8.64], R5") == ([], ["UR4", "R8", "R9",
                                                          "R5"])
+
+
+# 0x00: entry; 0x10-0x60: an outer loop around an inner one (0x20-0x40)
+# and, in the staged kernels' shape, an mbarrier wait (0x50-0x60) that
+# spins until a copy lands; 0x90: exit
+NESTED = ["S2R R0, SR_TID.X", "MOV R1, 0x0", "IADD3 R1, R1, 0x1, RZ",
+          "ISETP.NE.AND P0, PT, R1, R2, PT", "@P0 BRA 0x20",
+          "SYNCS.PHASECHK.TRANS64.TRYWAIT P2, [R4+URZ], R5",
+          "@!P2 BRA 0x50", "LOP3.LUT R3, R3, R1, RZ, 0x3c, !PT",
+          "@P1 BRA 0x10", "EXIT"]
+
+
+@pytest.mark.parametrize("inner,outer", [(1, 1), (3, 2), (4, 5)])
+def test_nested_loops_run_their_trips_and_the_wait_once(inner, outer):
+    insts = chip_smoke.parse_sass(_listing(NESTED + TAIL[2:]), "k_kernel")
+    got = chip_smoke.sass_path(insts, [inner, outer])
+    # per outer trip: MOV, the inner body (IADD3, ISETP, BRA) inner times,
+    # the wait (SYNCS, BRA) once, LOP3, BRA
+    assert got == {"alu": outer * (1 + 2 * inner + 1), "fma": 0,
+                   "issued": 2 + outer * (1 + 3 * inner + 2 + 2)}
+    assert chip_smoke.sass_loops(insts) == 2
+
+
+def test_trips_per_loop_must_match_the_loops():
+    insts = chip_smoke.parse_sass(_listing(NESTED + TAIL[2:]), "k_kernel")
+    with pytest.raises(AssertionError, match="2 loops where one was"):
+        chip_smoke.sass_path(insts, 3)
+    with pytest.raises(AssertionError, match="2 loops where 3 were"):
+        chip_smoke.sass_path(insts, [2, 2, 2])
+    with pytest.raises(AssertionError, match="unexpected loop"):
+        chip_smoke.sass_path(insts)
+    # a wait loop alone is no loop to give trips to
+    wait = ["SYNCS.PHASECHK.TRANS64.TRYWAIT P2, [R4+URZ], R5",
+            "@!P2 BRA 0x0", "EXIT"]
+    insts = chip_smoke.parse_sass(_listing(wait), "k_kernel")
+    assert chip_smoke.sass_path(insts) == {"alu": 0, "fma": 0, "issued": 3}
+    assert chip_smoke.sass_loops(insts) == 0
+
+
+def test_kernel_instances_are_told_apart_by_their_template_arguments():
+    text = ("\t\tFunction : _ZN12_GLOBAL__N_117k_kernelILi1ELi2EEEvPKh\n"
+            "        /*0000*/ EXIT ;\n"
+            "\t\tFunction : _ZN12_GLOBAL__N_117k_kernelILi2ELi2EEEvPKh\n"
+            "        /*0000*/ MOV R1, 0x0 ;\n        /*0010*/ EXIT ;\n")
+    with pytest.raises(AssertionError, match="2 SASS functions match"):
+        chip_smoke.parse_sass(text, "k_kernel")
+    assert len(chip_smoke.parse_sass(text, "k_kernelILi2ELi2E")) == 2
