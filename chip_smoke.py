@@ -1665,8 +1665,9 @@ def main() -> int:
             f"{r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']}),"
             f" {r['launches']} launches on the main path, library none")
         if "sass_per_thread" in r:
-            log(f"  SASS walk, one thread{' per span' if 'control' in r else ''}"
-                f": {r['sass_per_thread']}; bytes alone {r['bytes_ms']} ms, "
+            per = " per span" if "control" in r else ""
+            log(f"  SASS walk, one thread{per}: {r['sass_per_thread']}; "
+                f"bytes alone {r['bytes_ms']} ms, "
                 f"operations {r['ops_ms']} ms; in turns {r['turns_ms']} ms; "
                 f"{r['registers']} registers")
         if "control" in r:

@@ -8,9 +8,10 @@ The counterparts of ``dat_replication_protocol_tpu/ops/rabin_pallas.py``
 The kernels are ``csrc/gear_candidates.cu``, ``csrc/gear_first.cu`` and
 ``csrc/gear_window_first.cu`` over the shared step in ``csrc/gear.cuh``;
 B4 (and B6) scan through the shared-memory ring of
-``csrc/gear_staged.cuh``, whose geometry :func:`staged_geometry` computes
-here.  The source notes say what bounds each kernel.  Each wrapper keeps the
-reference wrapper's public shapes: (T, S/4) int32 rows of u32 words in.
+``csrc/gear_staged.cuh``, whose geometry :func:`staged_geometry`
+computes here.  The source notes say what bounds each kernel.  Each
+wrapper keeps the reference wrapper's public shapes: (T, S/4) int32 rows
+of u32 words in.
 The TPU's ``(ng, 64, 8, T/8)`` layout is not carried over.
 
 CPU tensors take the plain versions in :mod:`.rabin`; a CUDA tensor

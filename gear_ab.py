@@ -175,7 +175,8 @@ def old_variant(lib: Path, kind: str):
             outs = (out,)
         else:
             nwin = (S - 256) >> thin_bits
-            first = torch.empty(T * nwin, dtype=torch.int32, device=rows.device)
+            first = torch.empty(T * nwin, dtype=torch.int32,
+                                device=rows.device)
             occ = torch.empty_like(first)
             rc = fn(rows.data_ptr(), first.data_ptr(), occ.data_ptr(), T, S,
                     avg_bits, thin_bits, stream)
