@@ -39,10 +39,11 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    and at the tests' shape (2,048 B rows, avg_bits 8, thin_bits 9), for a
    stream head, a ragged last tile, a slab with real context and an
    all-zero row; B5 must equal B3's window reduction, B6 B5, viol 0;
-   then the staged scan's edges (B4, B6): candidates planted in the
-   first and last byte of spans and only in a span's warm-up halo, a row
-   count whose spans are not a multiple of the CTAs, B6 at thin_bits 8,
-   11 and 16 with its ``occ`` against the OR of B3's words;
+   then the edges of B4's staged scan and of B6's windows: candidates
+   planted in the first and last byte of spans and of a row's payload
+   and only in a span's warm-up halo, a row count whose spans are not a
+   multiple of the CTAs, B6 at thin_bits 8, 11 and 16 with its ``occ``
+   against the OR of B3's words;
 7. ``content_address`` at the reference's chunk parameters (avg_bits
    13, chunks of 2-32 KiB, 128 KiB tiles) over a 1.5 GiB blob made from
    the seed, on each of the four extraction routes: single residency,
@@ -58,12 +59,12 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
 9. times: B1 at phase 7's largest chunk bucket (each variant, as in
    phase 5), and B3-B6 on a 1 GiB slab, each held byte-exact against its
    plain version there (B6 with viol 0), timed in turns beside the plain
-   versions' times and the bounds; B3 and B5 are the controls of the
-   staged B4 and B6 (the old one-thread-per-group scan); the operation
-   bounds walk the SASS of the built libraries (``cuobjdump -sass``) and
-   count what each pipe issues, the staged kernels' per span and CTA,
-   and B4/B6 also get the bound of the same work as their control issues
-   it, the smaller of the two counting; then B6 over G = 1, 2, 4, 8.
+   versions' times and the bounds; B3 and B5 (the one-thread scan of
+   ``gear.cuh``) are the controls of B4 and B6; the operation bounds
+   walk the SASS of the built libraries (``cuobjdump -sass``) and count
+   what each pipe issues, the staged B4's per span and CTA, and B4/B6
+   also get the bound of the same work as their control issues it, the
+   smaller of the two counting.
 
 Every launch counter (B1's per variant too) is set to 0 just before
 each main-path phase (3, 4, 7, 8) and read just after; a kernel or B1
@@ -777,13 +778,13 @@ def plant_hit(row: np.ndarray, p: int, avg_bits: int) -> None:
 
 
 def check_staged_edges(device, rows: int = 1000) -> dict:
-    """Phase 6, the staged scan's edges: B4 and B6 byte-exact against
-    their plain versions on random rows of 128 KiB + 256 B (avg_bits 13)
-    with candidates planted in the first and the last byte of spans (a B4
-    span that crosses a row boundary among them), one only in a span's
-    warm-up halo, and a row count whose spans are not a multiple of the
-    CTAs; B6 at thin_bits 8, 11 and 16, its ``occ`` against the OR of the
-    plain B3 words over each window, its viol 0."""
+    """Phase 6, the edges: B4 and B6 byte-exact against their plain
+    versions on random rows of 128 KiB + 256 B (avg_bits 13) with
+    candidates planted in the first and the last byte of B4's spans (one
+    that crosses a row boundary among them) and of a row's payload, one
+    only in a span's warm-up halo, and a row count whose spans are not a
+    multiple of B4's CTAs; B6 at thin_bits 8, 11 and 16, its ``occ``
+    against the OR of the plain B3 words over each window, its viol 0."""
     import torch
 
     from dat_replication_protocol_tpu_torch.ops import rabin, rabin_cuda
@@ -797,10 +798,7 @@ def check_staged_edges(device, rows: int = 1000) -> dict:
     for T in range(rows, 2 * rows + 64):
         # spans not a multiple of the CTAs, and more than them
         g4 = rabin_cuda.staged_geometry(T, S, sms=sms)
-        g6 = [rabin_cuda.staged_geometry(T, S, t, sms=sms) for t in (8, 11,
-                                                                     16)]
-        if all(g.total_spans % g.ctas and g.total_spans > g.ctas
-               for g in [g4, *g6]):
+        if g4.total_spans % g4.ctas and g4.total_spans > g4.ctas:
             break
     else:
         raise AssertionError("no row count gives ragged persistent loops")
@@ -809,19 +807,16 @@ def check_staged_edges(device, rows: int = 1000) -> dict:
     planted = []
     # B4: first and last byte of span 1, the last byte of the first span
     # that crosses a row boundary (in the next row)
-    span = g4.span_groups
+    span = rabin_cuda.STAGED_THREADS
     cross = next(s for s in range(g4.total_spans)
                  if (s * span) // ng != (s * span + span - 1) // ng)
     for flat in (span, 2 * span - 1, cross * span + span - 1):
         r, g = divmod(flat, ng)
         planted.append((r, g * rabin.GROUP + (rabin.GROUP - 1
                                               if flat % span else 0)))
-    # B6 at thin_bits 11: the first byte of a row's first span and the
-    # last byte of its last
-    g11 = g6[1]
-    planted += [(3, rabin.GROUP), (4, (1 + g11.spans_per_row * g11.span_groups)
-                                   * rabin.GROUP - 1)]
-    planted = [(r, min(p, S - 1)) for r, p in planted]
+    # B6: the first byte of a row's payload (its first window) and the
+    # last byte of a row (its last window)
+    planted += [(3, rabin.GROUP), (4, S - 1)]
     for r, p in planted:
         plant_hit(data[r], p, a)
     # a candidate only in the halo of span 3 of B4: the last byte before
@@ -847,24 +842,21 @@ def check_staged_edges(device, rows: int = 1000) -> dict:
         raise AssertionError(f"B4 differs from its plain version in "
                              f"{int((got != firsts).sum())} groups at the "
                              f"span edges")
-    for t, geom in zip((8, 11, 16), g6):
+    for t in (8, 11, 16):
         want, _ = rabin.gear_window_first_checked(rows, a, t)
         first, viol = gear_window_first_checked_kernel(rows, a, t)
         nwin = want.numel()
         f2 = torch.empty(nwin, dtype=torch.int32, device=device)
         occ = torch.empty_like(f2)
-        rabin_cuda._launch("gear_window_first_checked", rows, (f2, occ), a, t,
-                           *geom.args())
-        _, want_occ = rabin_cuda.staged_window_reduce(bits, firsts, t, 1)
+        rabin_cuda._launch("gear_window_first_checked", rows, (f2, occ), a, t)
+        _, want_occ = rabin_cuda.window_reduce(bits, firsts, t)
         sync(device)
         if (not torch.equal(first, want) or not torch.equal(f2, want)
                 or int(viol) or not torch.equal(occ, want_occ)):
             raise AssertionError(f"B6 at thin_bits {t} differs from its "
                                  f"plain version, viol {int(viol)}")
     return {"rows": T, "planted": len(planted) + 1,
-            "spans": {"B4": (g4.total_spans, g4.ctas),
-                      **{f"B6 thin {t}": (g.total_spans, g.ctas)
-                         for t, g in zip((8, 11, 16), g6)}}}
+            "spans": (g4.total_spans, g4.ctas)}
 
 
 # ---------------------------------------------------------------------------
@@ -1297,15 +1289,6 @@ def _loops_expected(found: int, want: int) -> str:
             f"{found} loops where {want} were expected")
 
 
-def sass_loops(insts) -> int:
-    """Loops of a function, not counting ``mbarrier`` wait loops."""
-    at = {ins[0]: i for i, ins in enumerate(insts)}
-    return sum(1 for i, (addr, guard, op, args) in enumerate(insts)
-               if op.split(".")[0] == "BRA" and guard
-               and _branch_target(args) <= addr
-               and not _is_wait_loop(insts, at[_branch_target(args)], i))
-
-
 def sass_bound(name: str, nthreads: int, warm_skips: int = 0,
                trips: int | None = None) -> tuple[float, dict]:
     """Least ms for the instructions that kernel ``name`` issues over
@@ -1321,20 +1304,14 @@ def sass_bound(name: str, nthreads: int, warm_skips: int = 0,
     return cycles / (SM_COUNT * SM_HZ) * 1e3, one
 
 
-def staged_sass(name: str, geom) -> tuple[dict, dict]:
-    """One thread of the staged kernel ``name`` (B4 ``gear_first`` or B6
-    ``gear_window_first_checked``) in its instance for ``geom``'s stages
-    (and G), from its SASS: the instructions it issues by pipe per span
-    and once per CTA.  The walk runs the span loop once and twice (it is
-    linear in that loop's trips) and an inner step loop, where ptxas kept
-    one, G - 1 times; it falls through every forward branch, so it counts
-    the issue of the next step's copies, halo copies included, at every
-    step."""
-    tmpl = (f"ILi{geom.stages}E" if name == "gear_first"
-            else f"ILi{geom.g}ELi{geom.stages}E")
-    insts = parse_sass(sass_listing(name), f"{name}_kernel{tmpl}")
-    inner = [geom.g - 1] * (sass_loops(insts) - 1)
-    one, two = (sass_path(insts, inner + [k]) for k in (1, 2))
+def staged_sass(name: str) -> tuple[dict, dict]:
+    """One thread of the staged kernel ``name`` (B4, ``gear_first``)
+    from its SASS: the instructions it issues by pipe per span and once
+    per CTA.  The walk runs the span loop once and twice (it is linear in
+    that loop's trips) and falls through every forward branch, so it
+    counts the issue of the next span's copies at every span."""
+    insts = parse_sass(sass_listing(name), f"{name}_kernel")
+    one, two = (sass_path(insts, k) for k in (1, 2))
     return ({k: two[k] - one[k] for k in LANES},
             {k: 2 * one[k] - two[k] for k in LANES})
 
@@ -1343,9 +1320,12 @@ def staged_bound(name: str, geom) -> tuple[float, dict]:
     """Least ms for the instructions the staged kernel ``name`` issues
     over ``geom``'s spans and CTAs, each pipe over its rate, the largest
     of them; and one thread's counts per span."""
-    per_span, per_cta = staged_sass(name, geom)
-    cycles = max(geom.threads * (geom.total_spans * per_span[k]
-                                 + geom.ctas * per_cta[k]) / LANES[k]
+    from dat_replication_protocol_tpu_torch.ops.rabin_cuda import (
+        STAGED_THREADS)
+
+    per_span, per_cta = staged_sass(name)
+    cycles = max(STAGED_THREADS * (geom.total_spans * per_span[k]
+                                   + geom.ctas * per_cta[k]) / LANES[k]
                  for k in LANES)
     return cycles / (SM_COUNT * SM_HZ) * 1e3, per_span
 
@@ -1366,21 +1346,24 @@ def res_usage(name: str) -> dict:
 
 def _in_turns(fns: dict, reps: int) -> dict:
     """Device ms of each ``fns`` entry by CUDA events over ``reps``
-    launches, timed in turns (the list, then the list reversed): the mean
-    of the two and both readings."""
+    launches, timed in turns (the list, then the list reversed) after one
+    untimed turn of the whole list: the faster of the two turns and both
+    readings.  (Without the untimed turn, the first kernels timed right
+    after the plain versions read about 20% high.)"""
+    for fn in fns.values():
+        time_ms(fn, reps)
     got = {name: [] for name in fns}
     for name in list(fns) + list(fns)[::-1]:
         got[name].append(time_ms(fns[name], reps))
-    return {name: (sum(v) / len(v), v) for name, v in got.items()}
+    return {name: (min(v), v) for name, v in got.items()}
 
 
 def time_gear_kernels(device, launches: dict) -> list[dict]:
     """B3-B6 on one 1 GiB slab of random rows (8,192 x 128 KiB + 256 B),
     held byte-exact against the plain versions at the same shape and
-    timed in turns beside them and the bounds: B3 and B5 (the
-    one-thread-per-group scan of gear.cuh) are the controls of the staged
-    B4 and B6, whose bound is also given for the same work as the
-    controls issue it.  Then B6 over G = 1, 2, 4, 8."""
+    timed in turns beside them and the bounds: B3 and B5 (the one-thread
+    scan of gear.cuh) are the controls of B4 and B6, whose bound is also
+    given for the same work as the controls issue it."""
     import torch
 
     from dat_replication_protocol_tpu_torch.ops import rabin, rabin_cuda
@@ -1399,11 +1382,8 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
     ngroups = SLAB_TILES * (S // rabin.GROUP)
     nwin = SLAB_TILES * (TILE_BYTES >> t)
     gpw = (1 << t) // rabin.GROUP
-    sms = rabin_cuda.sm_count(torch.device(device))
-    geoms = {"gear_first": rabin_cuda.staged_geometry(SLAB_TILES, S,
-                                                      sms=sms),
-             "gear_window_first_checked": rabin_cuda.staged_geometry(
-                 SLAB_TILES, S, t, sms=sms)}
+    geom = rabin_cuda.staged_geometry(
+        SLAB_TILES, S, sms=rabin_cuda.sm_count(torch.device(device)))
     # (name, source, TPU kernel, kernel, plain version, output bytes,
     #  threads, threads that skip the warm-up, loop trips, control)
     specs = [
@@ -1426,7 +1406,7 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
          lambda: rabin.gear_window_first_checked(rows, a, t), 8 * nwin,
          nwin, 0, gpw, "gear_window_first"),
     ]
-    plain_ms, wants, control_ops = {}, {}, {}
+    plain_ms, control_ops = {}, {}
     for name, _, _, kernel, plain, *_ in specs:
         torch.cuda.empty_cache()
         plain_ms[name] = time_ms(plain, reps=1)
@@ -1437,11 +1417,8 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
         if err:
             raise AssertionError(f"{name} differs from its plain version on "
                                  f"the 1 GiB slab: max_abs_err {err}")
-        if name == "gear_window_first_checked":
-            if int(got[1]) != 0:
-                raise AssertionError(f"B6 viol {int(got[1])} on the 1 GiB "
-                                     f"slab")
-            wants[name] = want[0]
+        if name == "gear_window_first_checked" and int(got[1]) != 0:
+            raise AssertionError(f"B6 viol {int(got[1])} on the 1 GiB slab")
         del want, got
     torch.cuda.empty_cache()
     timed = _in_turns({name: kernel for name, _, _, kernel, *_ in specs},
@@ -1449,8 +1426,9 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
     out = []
     for (name, src, replaces, kernel, plain, out_bytes, nthreads, skips,
          trips, control) in specs:
-        ops_ms, per_thread = sass_bound(name, nthreads, skips, trips) if (
-            control is None) else staged_bound(name, geoms[name])
+        ops_ms, per_thread = staged_bound(name, geom) if (
+            name == "gear_first") else sass_bound(name, nthreads, skips,
+                                                  trips)
         row = {"name": name, "route": "cuda",
                "source": f"dat_replication_protocol_tpu_torch/csrc/{src}",
                "replaces": f"dat_replication_protocol_tpu/{replaces}",
@@ -1460,49 +1438,24 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
                "shape": list(rows.shape), "sass_per_thread": per_thread,
                "bytes_ms": (nbytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
                "ops_ms": ops_ms}
+        use = [v for f, v in res_usage(name).items() if f"{name}_kernel" in f]
+        row["registers"] = use[0]["registers"] if use else None
         if control is None:
             control_ops[name] = ops_ms
-            use = [v for f, v in res_usage(name).items()
-                   if f"{name}_kernel" in f]
-            row["registers"] = use[0]["registers"] if use else None
         else:
             # the bound of the same work as the control issues it; the
             # smaller of the two operation bounds is the one that counts
-            geom = geoms[name]
-            fn = (f"{name}_kernelILi{geom.stages}E" if name == "gear_first"
-                  else f"{name}_kernelILi{geom.g}ELi{geom.stages}E")
-            use = [v for f, v in res_usage(name).items() if fn in f]
             row.update({"control": control, "control_ms": timed[control][0],
-                        "ops_same_work_ms": control_ops[control],
-                        "geometry": geom._asdict(),
-                        "registers": use[0]["registers"] if use else None})
+                        "ops_same_work_ms": control_ops[control]})
             ops_ms = min(ops_ms, control_ops[control])
+        if name == "gear_first":
+            row["geometry"] = {**geom._asdict(),
+                               "threads": rabin_cuda.STAGED_THREADS,
+                               "smem_bytes": rabin_cuda.STAGED_SMEM}
         row["bound_ms"], row["bound_by"] = largest(operations=ops_ms,
                                                    bytes=row["bytes_ms"])
         out.append(row)
 
-    # B6 over G at 2 KiB windows, each held against the plain version
-    sweep = {}
-    for g in (1, 2, 4, 8):
-        geom = rabin_cuda.staged_geometry(SLAB_TILES, S, t, g=g, sms=sms)
-        first = torch.empty(nwin, dtype=torch.int32, device=device)
-        occ = torch.empty_like(first)
-
-        def run(geom=geom, outs=(first, occ)):
-            rabin_cuda._launch("gear_window_first_checked", rows, outs, a, t,
-                               *geom.args())
-        run()
-        viol = int(((occ != 0) != (first != rabin._SENT_OFF)).sum())
-        if not torch.equal(first, wants["gear_window_first_checked"]) or viol:
-            raise AssertionError(f"B6 at G={g} differs from its plain "
-                                 f"version or viol {viol}")
-        sweep[f"G={g}"] = run
-    b6 = out[-1]
-    b6["g_sweep_ms"] = {k: v[0] for k, v in _in_turns(sweep, reps=10).items()}
-    b6["g_sweep_geometry"] = {
-        f"G={g}": rabin_cuda.staged_geometry(SLAB_TILES, S, t, g=g,
-                                             sms=sms)._asdict()
-        for g in (1, 2, 4, 8)}
     return out
 
 
@@ -1595,11 +1548,12 @@ def main() -> int:
     t0 = time.perf_counter()
     check_gear_kernels(device)
     edges = check_staged_edges(device)
-    log(f"phase 6: B4 and B6 byte-exact vs plain at the staged scan's edges "
+    log(f"phase 6: B4 and B6 byte-exact vs plain at the edges "
         f"({edges['rows']} rows x 128 KiB + 256 B, {edges['planted']} "
-        f"planted candidates at span first/last bytes, across a row "
-        f"boundary and in a halo only; spans, CTAs {edges['spans']}); B6 at "
-        f"thin_bits 8, 11, 16, occ == the OR of B3's words, viol 0")
+        f"planted candidates at span and payload first/last bytes, across "
+        f"a row boundary and in a halo only; B4 spans, CTAs "
+        f"{edges['spans']}); B6 at thin_bits 8, 11, 16, occ == the OR of "
+        f"B3's words, viol 0")
     log(f"phase 6: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -1665,24 +1619,21 @@ def main() -> int:
             f"{r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']}),"
             f" {r['launches']} launches on the main path, library none")
         if "sass_per_thread" in r:
-            per = " per span" if "control" in r else ""
+            per = " per span" if "geometry" in r else ""
             log(f"  SASS walk, one thread{per}: {r['sass_per_thread']}; "
                 f"bytes alone {r['bytes_ms']} ms, "
                 f"operations {r['ops_ms']} ms; in turns {r['turns_ms']} ms; "
                 f"{r['registers']} registers")
-        if "control" in r:
+        if "geometry" in r:
             geom = r["geometry"]
-            log(f"  staged: {geom['threads']} threads x G={geom['g']} "
-                f"(span {geom['span_groups']} groups), {geom['stages']} "
-                f"stages, {geom['smem_bytes']} B shared a CTA, {geom['ctas']} "
-                f"CTAs over {geom['total_spans']} spans, {r['registers']} "
-                f"registers; its own SASS bound {r['ops_ms']} ms, the same "
-                f"work as {r['control']} issues it {r['ops_same_work_ms']} "
-                f"ms: {r['ms'] / r['bound_ms']} x the smaller; control "
+            log(f"  staged: {geom['threads']} threads a CTA and groups a "
+                f"span, 2 stages, {geom['smem_bytes']} B shared a CTA, "
+                f"{geom['ctas']} CTAs over {geom['total_spans']} spans")
+        if "control" in r:
+            log(f"  its own SASS bound {r['ops_ms']} ms, the same work as "
+                f"{r['control']} issues it {r['ops_same_work_ms']} ms: "
+                f"{r['ms'] / r['bound_ms']} x the smaller; control "
                 f"{r['control']} {r['control_ms']} ms in the same turns")
-        if "g_sweep_ms" in r:
-            log(f"  B6 by G (device ms, in turns): {r['g_sweep_ms']}; "
-                f"geometry {r['g_sweep_geometry']}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -5,28 +5,28 @@
 // gear_first_native (body _kernel_first, :365; wrapper gear_first_pallas
 // :447), which walks each row serially in one vector lane with a per-byte
 // select on the first hit.  Here the (T, S) rows, contiguous in memory,
-// are read as one run of T * S/256 groups, cut into spans of `threads`
-// groups (a span may cross a row boundary; only the last one is ragged),
-// and scanned by the staged scan of gear_staged.cuh at G = 1: a
-// persistent CTA copies each span (and the 64 bytes before it) into a
-// shared-memory ring with coalesced cp.async requests while it scans the
-// previous one; thread t warms its state on the 64 bytes before its group
-// (the tail of the slot before its own, none for a row's group 0) and
-// scans its group from shared memory into eight packed hit words held in
-// registers.  The first hit (first nonzero word, then its lowest set bit)
-// is taken after the scan, off the gear chain, and each thread writes one
-// u32, so a warp's stores are 128 contiguous bytes.
+// are read as one run of T * S/256 groups, cut into spans of 256 groups
+// (a span may cross a row boundary; only the last one is ragged), and
+// scanned by the staged scan of gear_staged.cuh: a persistent CTA copies
+// each span (and the 64 bytes before it) into a shared-memory ring with
+// coalesced cp.async requests while it scans the previous one; thread t
+// warms its state on the 64 bytes before its group (the tail of the slot
+// before its own, none for a row's group 0) and scans its group from
+// shared memory into eight packed hit words held in registers.  The first
+// hit (first nonzero word, then its lowest set bit) is taken after the
+// scan, off the gear chain, and each thread writes one u32, so a warp's
+// stores are 128 contiguous bytes.
 //
 // Input: rows (T, S/4) uint32 words (int32 storage), S a multiple of 256.
 // Output: first (T, S/256) uint32, the group-local offset of the group's
-// first candidate or 256 (NO_HIT).  Geometry (threads, G = 1, stages, CTA
-// count, span) comes from the wrapper, ops/rabin_cuda.py staged_geometry;
-// dat_gear_first returns cudaErrorInvalidValue on one it does not take,
-// else the launch's cudaGetLastError().
+// first candidate or 256 (NO_HIT).  The CTA count and the span count come
+// from the wrapper, ops/rabin_cuda.py staged_geometry; dat_gear_first
+// returns cudaErrorInvalidValue on a geometry it does not take, else the
+// launch's cudaGetLastError().
 //
-// What bounds it: the 32-bit integer ALU pipe, about 5.7 instructions per
-// byte stepped (chip_smoke.py sass_bound walks its SASS), against 0.33 ms
-// of bytes per 1 GiB slab (1 byte read, 1/64 byte written).  The design
+// What bounds it: the 32-bit integer ALU pipe, about 6 instructions per
+// byte stepped (chip_smoke.py staged_bound walks its SASS), against 0.33
+// ms of bytes per 1 GiB slab (1 byte read, 1/64 byte written).  The design
 // pays a 25% warm-up per group to run one chain per group, and takes the
 // strided global loads of the one-thread-per-group scan (gear.cuh, kept
 // for B3) off the load path.
@@ -36,39 +36,31 @@ namespace {
 
 namespace st = dat::staged;
 
-template <int kStages>
-__global__ void __launch_bounds__(st::kMaxThreads)
+__global__ void __launch_bounds__(st::kThreads)
 gear_first_kernel(const uint8_t* __restrict__ rows,
                   uint32_t* __restrict__ first, int ng, int ng_all,
                   int total_spans, uint32_t mask) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const int threads = blockDim.x;
   const int t = threadIdx.x;
-  const int sb = st::stage_bytes(threads, 1);
   const int nspans =
       (total_spans - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
   // the rows read as one row of ng_all groups: span i of this CTA starts
-  // at group (blockIdx.x + i * gridDim.x) * threads
-  auto span = [&](int i) {
-    return st::Span{rows, 0,
-                    static_cast<int>(blockIdx.x + i * gridDim.x) * threads};
+  // at group (blockIdx.x + i * gridDim.x) * kThreads
+  auto g0 = [&](int i) {
+    return static_cast<int>(blockIdx.x + i * gridDim.x) * st::kThreads;
   };
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < nspans) st::issue_step<1>(smem + i * sb, span(i), 0, ng_all);
-    st::commit();
-  }
+  if (nspans > 0) st::issue_span(smem, rows, g0(0), ng_all);
+  st::commit();
 #pragma unroll 1
   for (int i = 0; i < nspans; ++i) {
-    const int ahead = i + kStages - 1;
-    if (ahead < nspans)
-      st::issue_step<1>(smem + (ahead % kStages) * sb, span(ahead), 0,
-                        ng_all);
+    if (i + 1 < nspans)
+      st::issue_span(smem + ((i + 1) % st::kStages) * st::kStageBytes, rows,
+                     g0(i + 1), ng_all);
     st::commit();
-    st::wait_pending<kStages - 1>();
+    st::wait_ring();
     __syncthreads();
-    const uint8_t* stage = smem + (i % kStages) * sb;
-    const int g = span(i).g0 + t;
+    const uint8_t* stage = smem + (i % st::kStages) * st::kStageBytes;
+    const int g = g0(i) + t;
     uint64_t h = st::warm(stage + t * st::kSlot + dat::kGroup -
                           dat::kGearWindow);
     if (g % ng == 0) h = 0;  // a row's group 0 starts from the zero state
@@ -82,37 +74,25 @@ gear_first_kernel(const uint8_t* __restrict__ rows,
 }  // namespace
 
 extern "C" int dat_gear_first(const void* rows, void* first, int nrows,
-                              int row_bytes, int avg_bits, int threads, int g,
-                              int stages, int ctas, int span_groups,
-                              int spans_per_row, int total_spans,
-                              void* stream) {
+                              int row_bytes, int avg_bits, int ctas,
+                              int total_spans, void* stream) {
   // the rows are scanned as one row of nrows * row_bytes bytes
-  st::Launch l{threads, g, stages, ctas, span_groups, spans_per_row,
-               total_spans, 0};
   const long long all = static_cast<long long>(nrows) * row_bytes;
-  if (g != 1 || row_bytes <= 0 || row_bytes % dat::kGroup || nrows < 1 ||
-      all >= (1ll << 31) ||
-      st::check_launch(l, 1, static_cast<int>(all), 0) != cudaSuccess)
+  if (row_bytes <= 0 || row_bytes % dat::kGroup || nrows < 1 ||
+      all >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const int ng = row_bytes / dat::kGroup;
   const int ng_all = static_cast<int>(all / dat::kGroup);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* r = static_cast<const uint8_t*>(rows);
-  auto* f = static_cast<uint32_t*>(first);
-  const uint32_t mask = (1u << avg_bits) - 1u;
-  cudaError_t rc;
-  switch (stages) {
-    case 2:
-      rc = st::launch(gear_first_kernel<2>, l, s, r, f, ng, ng_all,
-                      total_spans, mask);
-      break;
-    case 3:
-      rc = st::launch(gear_first_kernel<3>, l, s, r, f, ng, ng_all,
-                      total_spans, mask);
-      break;
-    default:
-      rc = st::launch(gear_first_kernel<4>, l, s, r, f, ng, ng_all,
-                      total_spans, mask);
-  }
-  return static_cast<int>(rc);
+  if (total_spans != (ng_all + st::kThreads - 1) / st::kThreads ||
+      ctas < 1 || ctas > total_spans)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t rc = cudaFuncSetAttribute(
+      gear_first_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      st::kSmemBytes);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  gear_first_kernel<<<ctas, st::kThreads, st::kSmemBytes,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(rows), static_cast<uint32_t*>(first), ng,
+      ng_all, total_spans, (1u << avg_bits) - 1u);
+  return static_cast<int>(cudaGetLastError());
 }

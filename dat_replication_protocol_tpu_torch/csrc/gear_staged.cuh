@@ -1,43 +1,28 @@
-// The staged gear scan of kernels B4 (gear_first.cu) and B6
-// (gear_window_first_checked.cu): rows are copied global -> shared memory
-// in coalesced 16-byte cp.async requests and scanned from there.
+// The staged gear scan of kernel B4 (gear_first.cu): rows are copied
+// global -> shared memory in coalesced 16-byte cp.async requests and
+// scanned from there.
 //
-// Why: the one-thread-per-group scan of gear.cuh (B3, B5) issues 16-byte
-// global loads 256 B (B3/B4) or 2 KiB (B5/B6) apart across a warp, so
-// every load instruction touches 32 cache lines and each line is consumed
-// over several loads of one lane.  Here a warp's copy request covers 512
-// contiguous bytes and each lane then reads its own group from shared
+// Why: the one-thread-per-group scan of gear.cuh (B3) issues 16-byte
+// global loads 256 B apart across a warp, so every load instruction
+// touches 32 cache lines and each line is consumed over several loads of
+// one lane.  Here a warp's copy request covers 512 contiguous bytes and
+// each lane then reads its own group from shared memory.
+//
+// Work is cut into spans of kThreads consecutive 256-byte groups; thread
+// t of a CTA scans group g0 + t of its span after one 64-byte warm-up.
+// Stage layout (bytes): slot 0 of kSlot bytes, then slots 1..kThreads
+// (slot t+1 holds thread t's group, 256 bytes of data and 16 of padding,
+// so lanes reading 16 bytes at slot stride spread over all 32 banks).
+// The warm-up of a group is the 64 bytes before it: the tail of slot t
+// (thread t-1's group, or for t = 0 the span's own halo, held in bytes
+// 192..255 of slot 0), so only the span's halo is read twice from global
 // memory.
-//
-// Work is cut into spans: a span is span_groups = threads * G consecutive
-// 256-byte groups of a row, from group g0 (B6 cuts each row from its group
-// 1, group 0 being warm-up only; B4 reads the rows as one row, so its
-// spans may cross a row boundary, where the kernel restarts the state from
-// zero).  Thread t of a CTA owns the run of G groups [g0 + t*G,
-// g0 + (t+1)*G) of its span, and scans it as one serial chain after one
-// 64-byte warm-up.  The G groups of a run are
-// staged one step at a time: step j holds group j of every thread's run,
-// so shared memory per stage is threads * 272 B whatever G is.
-//
-// Stage layout (bytes): slot 0 of kSlot bytes, then slots 1..threads
-// (slot t+1 holds thread t's group of the step, 256 bytes of data and 16
-// of padding, so lanes reading 16 bytes at slot stride spread over all 32
-// banks), then, for G > 1, one 80-byte halo slot per thread.
-//
-// The warm-up of a run is the 64 bytes before it.  At G = 1 runs are
-// adjacent, so thread t warms from slot t (the tail of thread t-1's group,
-// or for t = 0 the span's own halo, held in bytes 192..255 of slot 0): only
-// the span's halo is read twice from global memory.  At G > 1 a run's
-// predecessor arrives G-1 steps later, so each run's 64 halo bytes are
-// copied into its halo slot with step 0 (a second read of bytes that the
-// previous run copies later, mostly from L2): 25%/G more bytes read in
-// exchange for shared memory that does not grow with G.
 //
 // A CTA walks spans blockIdx.x, blockIdx.x + gridDim.x, ... (a persistent
 // grid sized by the wrapper, ops/rabin_cuda.py staged_geometry), through a
-// ring of kStages stages: the copy of step n + kStages - 1 is in flight
-// while step n is scanned.  Groups past the row end (the ragged last span)
-// are zero-filled by the copy and scanned, and their results are dropped.
+// ring of kStages stages: the copy of span i + 1 is in flight while span i
+// is scanned.  Groups past the end (the ragged last span) are zero-filled
+// by the copy and scanned, and their results are dropped.
 #pragma once
 
 #include "gear.cuh"
@@ -45,19 +30,11 @@
 namespace dat {
 namespace staged {
 
-constexpr int kSlot = kGroup + 16;          // shared bytes per group slot
-constexpr int kHaloSlot = kGearWindow + 16; // shared bytes per run halo
-constexpr int kMaxThreads = 256;  // B6 at G = 8 takes ~240 registers
-
-struct Span {
-  const uint8_t* row;  // the span's row
-  int row_index;
-  int g0;  // first group of the span in the row
-};
-
-__host__ __device__ constexpr int stage_bytes(int threads, int g) {
-  return (threads + 1) * kSlot + (g > 1 ? threads * kHaloSlot : 0);
-}
+constexpr int kThreads = 256;     // threads a CTA, groups a span
+constexpr int kStages = 2;        // spans in the ring
+constexpr int kSlot = kGroup + 16;  // shared bytes per group slot
+constexpr int kStageBytes = (kThreads + 1) * kSlot;
+constexpr int kSmemBytes = kStages * kStageBytes;  // 139,808: one CTA an SM
 
 // 16 bytes global -> shared, bypassing L1; src_bytes 0 fills zeros and
 // reads nothing.
@@ -73,49 +50,33 @@ __device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int kPending>
-__device__ __forceinline__ void wait_pending() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+// Waits until at most kStages - 1 committed copy groups are in flight.
+__device__ __forceinline__ void wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
 }
 
-// Issue the copies of step j of span sp into stage st: each thread copies
-// 16 chunks of 16 bytes of the step's groups (a warp covers two groups'
-// 512 contiguous bytes per request), plus the halo: at G = 1 threads 0-3
-// copy the span's 64 bytes before g0 (none at the row start); at G > 1 and
-// j = 0 each thread copies 4 chunks of the runs' halos.
-template <int G>
-__device__ __forceinline__ void issue_step(uint8_t* st, const Span& sp, int j,
-                                           int ng) {
-  const int threads = blockDim.x;
+// Issues the copies of the span of groups [g0, g0 + kThreads) of src (ng
+// groups in all) into stage st: each thread copies 16 chunks of 16 bytes
+// (a warp covers two groups' 512 contiguous bytes per request), and
+// threads 0-3 the 64 bytes before g0 (none at g0 = 0).
+__device__ __forceinline__ void issue_span(uint8_t* st, const uint8_t* src,
+                                           int g0, int ng) {
   const int tid = threadIdx.x;
 #pragma unroll
   for (int q = 0; q < kGroup / 16; ++q) {
-    const int c = tid + q * threads;
+    const int c = tid + q * kThreads;
     const int t = c >> 4;
     const int off = (c & 15) * 16;
-    const int g = sp.g0 + t * G + j;
+    const int g = g0 + t;
     const bool ok = g < ng;
-    copy16(st + (t + 1) * kSlot + off,
-           sp.row + (ok ? g * kGroup + off : 0), ok ? 16 : 0);
+    copy16(st + (t + 1) * kSlot + off, src + (ok ? g * kGroup + off : 0),
+           ok ? 16 : 0);
   }
-  if (G == 1) {
-    if (tid < kGearWindow / 16) {
-      const bool ok = sp.g0 > 0;
-      copy16(st + kGroup - kGearWindow + tid * 16,
-             sp.row + (ok ? sp.g0 * kGroup - kGearWindow + tid * 16 : 0),
-             ok ? 16 : 0);
-    }
-  } else if (j == 0) {
-#pragma unroll
-    for (int q = 0; q < kGearWindow / 16; ++q) {
-      const int c = tid + q * threads;
-      const int t = c >> 2;
-      const int off = (c & 3) * 16;
-      const int g = sp.g0 + t * G;
-      const bool ok = g > 0 && g < ng;
-      copy16(st + (threads + 1) * kSlot + t * kHaloSlot + off,
-             sp.row + (ok ? g * kGroup - kGearWindow + off : 0), ok ? 16 : 0);
-    }
+  if (tid < kGearWindow / 16) {
+    const bool ok = g0 > 0;
+    copy16(st + kGroup - kGearWindow + tid * 16,
+           src + (ok ? g0 * kGroup - kGearWindow + tid * 16 : 0),
+           ok ? 16 : 0);
   }
 }
 
@@ -164,45 +125,6 @@ __device__ __forceinline__ uint32_t first_of(const uint32_t (&w)[8]) {
     if (w[k] != 0u) out = k * kPack + (__ffs(w[k]) - 1);
   }
   return out;
-}
-
-// The geometry every staged kernel checks before launch.
-struct Launch {
-  int threads, g, stages, ctas, span_groups, spans_per_row, total_spans;
-  int smem;
-};
-
-// Validates a wrapper's geometry for rows of ng groups scanned from group
-// base; returns cudaErrorInvalidValue for one the kernels do not take.
-inline cudaError_t check_launch(Launch& l, int nrows, int row_bytes,
-                                int base) {
-  const int ng = row_bytes / kGroup;
-  if (row_bytes % kGroup || nrows < 0 || l.threads < 32 ||
-      l.threads > kMaxThreads || l.threads % 32 || l.ctas < 1 ||
-      l.stages < 2 || l.stages > 4 ||
-      (l.g != 1 && l.g != 2 && l.g != 4 && l.g != 8) ||
-      l.span_groups != l.threads * l.g || ng <= base)
-    return cudaErrorInvalidValue;
-  const int want = (ng - base + l.span_groups - 1) / l.span_groups;
-  if (l.spans_per_row != want ||
-      static_cast<long long>(nrows) * want != l.total_spans)
-    return cudaErrorInvalidValue;
-  l.smem = l.stages * stage_bytes(l.threads, l.g);
-  if (l.smem > 227 * 1024) return cudaErrorInvalidValue;
-  return cudaSuccess;
-}
-
-// Sets the dynamic shared-memory ceiling of kernel and launches it; a
-// refused launch comes back as its cudaError.
-template <class K, class... Args>
-cudaError_t launch(K kernel, const Launch& l, cudaStream_t stream,
-                   Args... args) {
-  if (l.total_spans == 0) return cudaGetLastError();
-  cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
-  if (rc != cudaSuccess) return rc;
-  kernel<<<l.ctas, l.threads, l.smem, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 }  // namespace staged

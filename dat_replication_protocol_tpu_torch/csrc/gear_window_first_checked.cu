@@ -7,202 +7,82 @@
 // gear_window_first_checked_native (body _kernel_wfirst_checked, :66;
 // wrapper gear_window_first_checked :226), which carries one window's
 // first-hit tracking and occupancy in VMEM scratch across grid steps, one
-// vector lane per row.  Here the payload (group 0 of a row is warm-up and
-// belongs to no window) is cut into spans of threads * G groups and
-// scanned by the staged scan of gear_staged.cuh: a persistent CTA copies
-// each step of a span into a shared-memory ring with coalesced cp.async
-// requests while it scans the previous one, and thread t scans a run of G
-// consecutive groups as one chain after one 64-byte warm-up.  A window of
-// gpw = 2^thin_bits / 256 groups is scanned by gpw / G consecutive lanes
-// of one warp (G grows with the window: at most 32 lanes a window).
-//
-// Each lane keeps its eight packed hit words of a group in registers and,
-// after the group, takes two things from them: its first hit (first
-// nonzero word, lowest set bit; the earliest group of the run that has
-// one) and the OR of the words.  At the run's end the window's lanes
-// combine each on its own shuffles: `first` is the lane-ordered minimum of
-// the lanes' in-window offsets (the empty sentinel 1 << 30 lies above every
-// offset) and `occ` the OR of the lanes' ORs.  The occupancy path never
-// reads the first-hit path; the wrapper counts the windows where
-// (occ != 0) disagrees with (first != 1 << 30), as the reference wrapper
-// does outside its kernel, and the caller refuses a nonzero count.
+// vector lane per row.  Here one thread owns one (row, window), as in B5
+// (gear_window_first.cu): it replays the 64 bytes before the window and
+// scans the window's 2^thin_bits / 256 groups from global memory (group 0
+// of a row is warm-up and belongs to no window).  Unlike B5, which folds
+// a first-hit select into every packed word inside the scan, each group's
+// eight packed hit words stay in registers until the group is scanned, so
+// nothing but the gear chain sits between the loads and ptxas can hoist
+// them.  After each group the thread takes two things from its words, on
+// separate paths: the group's first hit (first nonzero word, lowest set
+// bit), kept if the window has none yet, and their OR into the window's
+// occupancy word, which never reads the first-hit path.  The wrapper
+// counts the windows where (occ != 0) disagrees with (first != 1 << 30),
+// as the reference wrapper does outside its kernel, and the caller
+// refuses a nonzero count.
 //
 // Input: rows (T, S/4) uint32 words (int32 storage), (S - 256) a multiple
-// of 2^thin_bits, 8 <= thin_bits <= 16.  Output: first and occ, each
-// (T * nwin,) uint32 in stream order.  Geometry (threads, G, stages, CTA
-// count, span) comes from the wrapper, ops/rabin_cuda.py staged_geometry;
-// dat_gear_window_first_checked returns cudaErrorInvalidValue on one it
-// does not take, else the launch's cudaGetLastError().
+// of 2^thin_bits, thin_bits >= 8.  Output: first and occ, each (T * nwin,)
+// uint32 in stream order.  dat_gear_window_first_checked returns
+// cudaGetLastError().
 //
-// What bounds it: the 32-bit integer ALU pipe, about 5.7-6 instructions per
+// What bounds it: the 32-bit integer ALU pipe, about 6 instructions per
 // byte stepped (chip_smoke.py sass_bound walks its SASS), against 0.32 ms
-// of bytes per 1 GiB slab.  Warm-up costs 25%/G more steps.
-#include "gear_staged.cuh"
+// of bytes per 1 GiB slab.  At 2 KiB windows the warm-up adds 3% more
+// steps.
+#include "gear.cuh"
 
 namespace {
 
-namespace st = dat::staged;
+constexpr int kThreads = 128;
 
-// Span s: row s / spans_per_row, from group 1 + (s % spans_per_row) *
-// span_groups of it.
-__device__ __forceinline__ st::Span span_at(const uint8_t* rows, int s,
-                                            int spans_per_row, int row_bytes,
-                                            int span_groups) {
-  const int r = s / spans_per_row;
-  return {rows + static_cast<size_t>(r) * row_bytes, r,
-          1 + (s - r * spans_per_row) * span_groups};
-}
-
-template <int G, int kStages>
-struct Ring {
-  uint8_t* smem;
-  int sb, nsteps;
-  const uint8_t* rows;
-  int spans_per_row, row_bytes, span_groups, ng;
-
-  __device__ st::Span span(int i) const {
-    return span_at(rows, blockIdx.x + i * gridDim.x, spans_per_row,
-                   row_bytes, span_groups);
-  }
-  __device__ void issue(int n) const {
-    if (n < nsteps) st::issue_step<G>(smem + (n % kStages) * sb, span(n / G),
-                                      n % G, ng);
-    st::commit();
-  }
-  // Issues step n + kStages - 1 and waits for step n; returns its stage.
-  __device__ const uint8_t* advance(int n) const {
-    issue(n + kStages - 1);
-    st::wait_pending<kStages - 1>();
-    __syncthreads();
-    return smem + (n % kStages) * sb;
-  }
-};
-
-template <int G, int kStages>
-__global__ void __launch_bounds__(st::kMaxThreads)
-gear_window_first_checked_kernel(const uint8_t* __restrict__ rows,
+__global__ void __launch_bounds__(kThreads)
+gear_window_first_checked_kernel(const uint4* __restrict__ rows,
                                  uint32_t* __restrict__ first,
-                                 uint32_t* __restrict__ occ, int row_bytes,
-                                 int thin_bits, int spans_per_row,
-                                 int total_spans, uint32_t mask) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int threads = blockDim.x;
-  const int t = threadIdx.x;
-  const int ng = row_bytes / dat::kGroup;
+                                 uint32_t* __restrict__ occ, int nrows,
+                                 int row_bytes, int thin_bits, uint32_t mask) {
+  const int nwin = (row_bytes - dat::kGroup) >> thin_bits;
+  const long long id = static_cast<long long>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+  if (id >= static_cast<long long>(nrows) * nwin) return;
+  const int t = static_cast<int>(id / nwin);
+  const int w = static_cast<int>(id % nwin);
+  const uint4* row = rows + static_cast<size_t>(t) * (row_bytes / 16);
   const int gpw = (1 << thin_bits) / dat::kGroup;
-  const int lanes = gpw / G;  // lanes per window
-  const int nwin = (ng - 1) / gpw;
-  const int nspans =
-      (total_spans - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
-  const Ring<G, kStages> ring{smem, st::stage_bytes(threads, G), nspans * G,
-                              rows, spans_per_row, row_bytes, threads * G, ng};
+  const int p0 = dat::kGroup + (w << thin_bits);
+  uint64_t h = dat::gear_warm(row, p0);
+  uint32_t f = dat::kEmptyWindow, any = 0;
+  for (int g = 0; g < gpw; ++g) {
+    uint32_t wd[dat::kGroup / dat::kPack];
+    dat::gear_group(row, p0 + g * dat::kGroup, h, mask,
+                    [&](int k, uint32_t b) { wd[k] = b; });
+    uint32_t gf = dat::kNoHit;
 #pragma unroll
-  for (int n = 0; n < kStages - 1; ++n) ring.issue(n);
-  int n = 0;
-#pragma unroll 1
-  for (int i = 0; i < nspans; ++i) {
-    const st::Span sp = ring.span(i);
-    const int g = sp.g0 + t * G;  // the run's first group
-    uint32_t w[dat::kGroup / dat::kPack];
-    // step 0: warm-up and the run's first group
-    const uint8_t* stage = ring.advance(n++);
-    uint64_t h = st::warm(G == 1 ? stage + t * st::kSlot + dat::kGroup -
-                                       dat::kGearWindow
-                                 : stage + (threads + 1) * st::kSlot +
-                                       t * st::kHaloSlot);
-    st::scan_group(stage + (t + 1) * st::kSlot, h, mask, w);
-    uint32_t lfirst = st::first_of(w);
-    if (lfirst == dat::kNoHit) lfirst = dat::kEmptyWindow;
-    uint32_t any = w[0] | w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7];
-    __syncthreads();
-#pragma unroll 1
-    for (int j = 1; j < G; ++j) {
-      stage = ring.advance(n++);
-      st::scan_group(stage + (t + 1) * st::kSlot, h, mask, w);
-      const uint32_t gf = st::first_of(w);
-      if (lfirst == dat::kEmptyWindow && gf != dat::kNoHit)
-        lfirst = j * dat::kGroup + gf;
-      any |= w[0] | w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7];
-      __syncthreads();
-    }
-    // the window's lanes: lane-ordered minimum and OR, each on its own
-    // shuffles
-    const int lw = t & (lanes - 1);
-    uint32_t f = lfirst == dat::kEmptyWindow
-                     ? dat::kEmptyWindow
-                     : static_cast<uint32_t>(lw * G * dat::kGroup) + lfirst;
-    uint32_t o = any;
-#pragma unroll
-    for (int m = 1; m < 32; m <<= 1) {
-      const uint32_t fo = __shfl_xor_sync(0xFFFFFFFFu, f, m);
-      const uint32_t oo = __shfl_xor_sync(0xFFFFFFFFu, o, m);
-      if (m < lanes) {
-        f = min(f, fo);
-        o |= oo;
-      }
-    }
-    if (lw == 0 && g < ng) {
-      const size_t at = static_cast<size_t>(sp.row_index) * nwin +
-                        (g - 1) / gpw;
-      first[at] = f;
-      occ[at] = o;
-    }
+    for (int k = dat::kGroup / dat::kPack - 1; k >= 0; --k)
+      if (wd[k] != 0u) gf = k * dat::kPack + (__ffs(wd[k]) - 1);
+    if (f == dat::kEmptyWindow && gf != dat::kNoHit) f = g * dat::kGroup + gf;
+    any |= wd[0] | wd[1] | wd[2] | wd[3] | wd[4] | wd[5] | wd[6] | wd[7];
   }
-}
-
-template <int G>
-cudaError_t launch_g(const st::Launch& l, cudaStream_t s, const uint8_t* r,
-                     uint32_t* f, uint32_t* o, int row_bytes, int thin_bits,
-                     uint32_t mask) {
-  switch (l.stages) {
-    case 2:
-      return st::launch(gear_window_first_checked_kernel<G, 2>, l, s, r, f, o,
-                        row_bytes, thin_bits, l.spans_per_row, l.total_spans,
-                        mask);
-    case 3:
-      return st::launch(gear_window_first_checked_kernel<G, 3>, l, s, r, f, o,
-                        row_bytes, thin_bits, l.spans_per_row, l.total_spans,
-                        mask);
-    default:
-      return st::launch(gear_window_first_checked_kernel<G, 4>, l, s, r, f, o,
-                        row_bytes, thin_bits, l.spans_per_row, l.total_spans,
-                        mask);
-  }
+  first[id] = f;
+  occ[id] = any;
 }
 
 }  // namespace
 
-extern "C" int dat_gear_window_first_checked(
-    const void* rows, void* first, void* occ, int nrows, int row_bytes,
-    int avg_bits, int thin_bits, int threads, int g, int stages, int ctas,
-    int span_groups, int spans_per_row, int total_spans, void* stream) {
-  st::Launch l{threads, g, stages, ctas, span_groups, spans_per_row,
-               total_spans, 0};
-  const int payload = row_bytes - dat::kGroup;
-  const int gpw = thin_bits >= 8 && thin_bits <= 16
-                      ? (1 << thin_bits) / dat::kGroup : 0;
-  if (gpw == 0 || payload < 0 || payload % (1 << thin_bits) ||
-      gpw % g || gpw / g > 32 ||
-      st::check_launch(l, nrows, row_bytes, 1) != cudaSuccess)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* r = static_cast<const uint8_t*>(rows);
-  auto* f = static_cast<uint32_t*>(first);
-  auto* o = static_cast<uint32_t*>(occ);
-  const uint32_t mask = (1u << avg_bits) - 1u;
-  cudaError_t rc;
-  switch (g) {
-    case 1:
-      rc = launch_g<1>(l, s, r, f, o, row_bytes, thin_bits, mask);
-      break;
-    case 2:
-      rc = launch_g<2>(l, s, r, f, o, row_bytes, thin_bits, mask);
-      break;
-    case 4:
-      rc = launch_g<4>(l, s, r, f, o, row_bytes, thin_bits, mask);
-      break;
-    default:
-      rc = launch_g<8>(l, s, r, f, o, row_bytes, thin_bits, mask);
+extern "C" int dat_gear_window_first_checked(const void* rows, void* first,
+                                             void* occ, int nrows,
+                                             int row_bytes, int avg_bits,
+                                             int thin_bits, void* stream) {
+  const long long n =
+      static_cast<long long>(nrows) * ((row_bytes - dat::kGroup) >> thin_bits);
+  if (n > 0) {
+    const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    gear_window_first_checked_kernel<<<grid, kThreads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint4*>(rows), static_cast<uint32_t*>(first),
+        static_cast<uint32_t*>(occ), nrows, row_bytes, thin_bits,
+        (1u << avg_bits) - 1u);
   }
-  return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
 }

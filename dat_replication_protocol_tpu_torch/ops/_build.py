@@ -40,15 +40,12 @@ SIGNATURES = {
     "chain_latency": ("dat_chain_latency", (_P, _P, _I, _I, _P)),
     "merkle_level": ("dat_merkle_level", (_P, _P, _P, _P, _I, _P)),
     "gear_candidates": ("dat_gear_candidates", (_P, _P, _I, _I, _I, _P)),
-    # the staged B4/B6 also take their launch geometry: threads, G,
-    # stages, CTAs, span groups, spans per row, spans
-    "gear_first": ("dat_gear_first", (_P, _P, _I, _I, _I) + (_I,) * 7
-                   + (_P,)),
+    # the staged B4 also takes its launch geometry: CTAs, spans
+    "gear_first": ("dat_gear_first", (_P, _P, _I, _I, _I, _I, _I, _P)),
     "gear_window_first": ("dat_gear_window_first",
                           (_P, _P, _I, _I, _I, _I, _P)),
     "gear_window_first_checked": ("dat_gear_window_first_checked",
-                                  (_P, _P, _P, _I, _I, _I, _I) + (_I,) * 7
-                                  + (_P,)),
+                                  (_P, _P, _P, _I, _I, _I, _I, _P)),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

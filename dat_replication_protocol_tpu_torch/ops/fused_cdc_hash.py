@@ -4,8 +4,7 @@ The counterpart of ``dat_replication_protocol_tpu/ops/
 fused_cdc_hash_pallas.py``:
 
 * :func:`gear_window_first_checked_kernel` wraps kernel B6
-  (``csrc/gear_window_first_checked.cu``, on the staged scan of
-  ``csrc/gear_staged.cuh``; the TPU kernel is
+  (``csrc/gear_window_first_checked.cu``; the TPU kernel is
   ``gear_window_first_checked_native`` :163): B5's per-window first
   candidate plus an independent occupancy fold, and ``viol``, the count
   of windows where the two disagree, reduced here with torch ops as the
@@ -28,8 +27,7 @@ from ..utils.device import resolve_device
 from .rabin import (GROUP, TILE_BYTES, _SENT_OFF, _clamp_thin_bits,
                     _greedy_select, candidates_begin, check_route,
                     default_sizes, gear_window_first_checked, stage_words)
-from .rabin_cuda import (_device_of, _launch, check_rows, sm_count,
-                         staged_geometry)
+from .rabin_cuda import _device_of, _launch, check_rows
 
 # per-call residency cap: the reference computes extent-pack positions
 # in int32 and keeps a 64 MiB margin below 2 GiB for the padded width of
@@ -53,10 +51,8 @@ def gear_window_first_checked_kernel(rows: torch.Tensor, avg_bits: int,
     first = torch.empty((T * nwin,), dtype=torch.int32, device=rows.device)
     occ = torch.empty((T * nwin,), dtype=torch.int32, device=rows.device)
     if T * nwin:
-        geom = staged_geometry(T, nwords * 4, thin_bits,
-                               sms=sm_count(rows.device))
         _launch("gear_window_first_checked", rows, (first, occ), avg_bits,
-                thin_bits, *geom.args())
+                thin_bits)
         gear_window_first_checked_kernel.launches += 1
     viol = ((occ != 0) != (first != _SENT_OFF)).sum()
     return first, viol

@@ -1,5 +1,5 @@
 """Wrappers of kernels B3, B4 and B5: the gear scans on the card, and the
-launch geometry of the staged scan (B4 here, B6 in :mod:`.fused_cdc_hash`).
+launch geometry of B4's staged scan.
 
 The counterparts of ``dat_replication_protocol_tpu/ops/rabin_pallas.py``
 ``gear_candidates_pallas`` (B3, kernel ``gear_candidates_native`` :112),
@@ -7,11 +7,10 @@ The counterparts of ``dat_replication_protocol_tpu/ops/rabin_pallas.py``
 ``gear_window_first_pallas`` (B5, ``gear_window_first_native`` :284).
 The kernels are ``csrc/gear_candidates.cu``, ``csrc/gear_first.cu`` and
 ``csrc/gear_window_first.cu`` over the shared step in ``csrc/gear.cuh``;
-B4 (and B6) scan through the shared-memory ring of
-``csrc/gear_staged.cuh``, whose geometry :func:`staged_geometry`
-computes here.  The source notes say what bounds each kernel.  Each
-wrapper keeps the reference wrapper's public shapes: (T, S/4) int32 rows
-of u32 words in.
+B4 scans through the shared-memory ring of ``csrc/gear_staged.cuh``,
+whose geometry :func:`staged_geometry` computes here.  The source notes
+say what bounds each kernel.  Each wrapper keeps the reference wrapper's
+public shapes: (T, S/4) int32 rows of u32 words in.
 The TPU's ``(ng, 64, 8, T/8)`` layout is not carried over.
 
 CPU tensors take the plain versions in :mod:`.rabin`; a CUDA tensor
@@ -51,110 +50,48 @@ def check_rows(rows: torch.Tensor, avg_bits: int,
                              f"64 KiB and divide the payload ({payload} B)")
 
 
-# staged scan defaults (csrc/gear_staged.cuh): CTA size, ring depth, and
-# B6's groups per thread at 2 KiB windows, from the sweeps of gear_ab.py
-# and chip_smoke.py phase 9 in PERF.md
+# the staged scan of B4 (csrc/gear_staged.cuh): threads a CTA, which is
+# also groups a span, and the shared memory of its ring of two spans
 STAGED_THREADS = 256
-STAGED_STAGES = 2
-STAGED_G = 2
-_SLOT, _HALO_SLOT = GROUP + 16, 64 + 16  # shared bytes per group, per halo
+STAGED_SMEM = 2 * (STAGED_THREADS + 1) * (GROUP + 16)
 _SMEM_PER_SM = 228 << 10  # an H100 SM's shared memory, 1 KiB of it per CTA
-_SMEM_PER_CTA = 227 << 10  # the most one CTA may take
-_REGS_PER_THREAD = 240  # the most a staged kernel takes (B6 at G >= 2)
 
 
 class StagedGeometry(NamedTuple):
-    """A launch of the staged scan: ``threads`` per CTA, each scanning
-    runs of ``g`` groups; spans of ``span_groups = threads * g`` groups,
-    ``spans_per_row`` to a row and ``total_spans`` in all, walked by a
-    persistent grid of ``ctas`` CTAs through a ring of ``stages`` stages
-    of ``smem_bytes`` shared memory in all.  B6 spans start at group
-    ``base`` = 1 of each row; B4 (``base`` 0) reads the (T, S) rows as one
-    row of T * S/256 groups, so a span may cross a row boundary and only
-    the last span is ragged."""
-    threads: int
-    g: int
-    stages: int
+    """A launch of B4's staged scan: the (T, S) rows read as one run of
+    T * S/256 groups, cut into ``total_spans`` spans of
+    ``STAGED_THREADS`` groups (a span may cross a row boundary; only the
+    last one is ragged), walked by a persistent grid of ``ctas`` CTAs."""
     ctas: int
-    span_groups: int
-    spans_per_row: int
     total_spans: int
-    base: int
-    smem_bytes: int
-
-    def args(self) -> tuple:
-        """The geometry as the C entries take it."""
-        return (self.threads, self.g, self.stages, self.ctas,
-                self.span_groups, self.spans_per_row, self.total_spans)
 
 
-def staged_geometry(T: int, S: int, thin_bits: int | None = None,
-                    g: int | None = None, threads: int = STAGED_THREADS,
-                    stages: int = STAGED_STAGES,
-                    sms: int = 132) -> StagedGeometry:
-    """The staged scan's launch over (T, S)-byte rows: B4's when
-    ``thin_bits`` is None (G = 1, all T * S/256 groups as one row), else
-    B6's (groups 1.. of each row, in windows of ``2^thin_bits`` bytes; G =
-    ``g`` or ``STAGED_G``, raised to keep a window within 32 lanes and cut
-    to the window; ``threads`` cut so that a span fits the row where it
-    can).  The grid is what stays resident on ``sms`` SMs, at most one CTA
-    per span.  Raises on what the kernels do not take."""
+def staged_geometry(T: int, S: int, sms: int = 132) -> StagedGeometry:
+    """B4's launch over T rows of S bytes on a card of ``sms`` SMs: as
+    many CTAs as stay resident (shared memory allows one an SM), at most
+    one a span.  Raises on rows the kernel does not take."""
     if S % GROUP or S <= 0 or T < 0:
         raise ValueError(f"rows of {S} B: not a positive multiple of "
                          f"{GROUP}")
-    if threads % 32 or not 32 <= threads <= 256:
-        raise ValueError(f"threads {threads}: a multiple of 32 in [32, 256]")
-    if not 2 <= stages <= 4:
-        raise ValueError(f"stages {stages}: 2, 3 or 4")
-    ng = S // GROUP
-    if thin_bits is None:
-        if g not in (None, 1):
-            raise ValueError("B4 scans one group per thread")
-        g, base, nrows, row_groups = 1, 0, 1, T * ng
-    else:
-        if not 8 <= thin_bits <= 16 or (S - GROUP) % (1 << thin_bits):
-            raise ValueError(f"window of 2**{thin_bits} B must be 256 B to "
-                             f"64 KiB and divide the payload ({S - GROUP} B)")
-        gpw = (1 << thin_bits) // GROUP
-        g = min(max(STAGED_G if g is None else g, gpw // 32), gpw)
-        base, nrows, row_groups = 1, T, ng - 1
-        threads = min(threads, max(32, row_groups // g // 32 * 32))
-    if g not in (1, 2, 4, 8):
-        raise ValueError(f"G {g}: 1, 2, 4 or 8")
-    span = threads * g
-    spans_per_row = max(1, -(-row_groups // span))
-    total = nrows * spans_per_row if row_groups else 0
-    smem = stages * ((threads + 1) * _SLOT
-                     + (threads * _HALO_SLOT if g > 1 else 0))
-    if smem > _SMEM_PER_CTA:
-        raise ValueError(f"{smem} B of shared memory: more than a CTA may "
-                         f"take")
-    per_sm = min(_SMEM_PER_SM // (smem + 1024), 2048 // threads, 32,
-                 65536 // (_REGS_PER_THREAD * threads))
-    ctas = max(1, min(total, sms * per_sm))
-    return StagedGeometry(threads, g, stages, ctas, span, spans_per_row,
-                          total, base, smem)
+    total = -(-T * (S // GROUP) // STAGED_THREADS)
+    per_sm = _SMEM_PER_SM // (STAGED_SMEM + 1024)
+    return StagedGeometry(min(total, sms * per_sm), total)
 
 
-def staged_window_reduce(words: torch.Tensor, firsts: torch.Tensor,
-                         thin_bits: int, g: int):
-    """B6's reduction as the staged kernel decomposes it, from per-group
+def window_reduce(words: torch.Tensor, firsts: torch.Tensor,
+                  thin_bits: int):
+    """B6's reduction as its kernel decomposes it, from per-group
     results: ``words`` (T, S/32) packed hit words (B3's output) and
     ``firsts`` (T, S/256) group-local first hits (B4's).  Group 0 of a
-    row is dropped; a lane's run of ``g`` groups gives its first hit
-    (earliest group with one, offset in the run) and the OR of its words;
-    a window's ``2^thin_bits / 256 / g`` lanes give ``first``, their
-    lane-ordered minimum (``1 << 30`` when empty), and ``occ``, the OR of
-    their ORs.  Returns both as (T * nwin,) int32, in stream order."""
-    T, ng = firsts.shape
+    row is dropped; a window's ``first`` is the hit of its earliest group
+    that has one, as an offset in the window (``1 << 30`` when empty),
+    and its ``occ`` the OR of its words.  Returns both as (T * nwin,)
+    int32, in stream order."""
+    T = firsts.shape[0]
     gpw = (1 << thin_bits) // GROUP
-    lanes = gpw // g
-    f = firsts[:, 1:].to(torch.int64).reshape(T, -1, g)
-    run = torch.arange(g, dtype=torch.int64, device=f.device) * GROUP
-    lf = torch.where(f < GROUP, f + run, _SENT_OFF).amin(-1)
-    lf = lf.reshape(T, -1, lanes)
-    lane = torch.arange(lanes, dtype=torch.int64, device=f.device) * g * GROUP
-    first = torch.where(lf < _SENT_OFF, lf + lane, _SENT_OFF).amin(-1)
+    f = firsts[:, 1:].to(torch.int64).reshape(T, -1, gpw)
+    at = torch.arange(gpw, dtype=torch.int64, device=f.device) * GROUP
+    first = torch.where(f < GROUP, f + at, _SENT_OFF).amin(-1)
     w = words[:, GROUP // 32:].to(torch.int64).reshape(T, first.shape[1], -1)
     occ = w[..., 0]
     for k in range(1, w.shape[-1]):
@@ -210,7 +147,7 @@ def gear_first_kernel(rows: torch.Tensor, avg_bits: int = 13):
                         device=rows.device)
     if T:
         geom = staged_geometry(T, nwords * 4, sms=sm_count(rows.device))
-        _launch("gear_first", rows, (first,), avg_bits, *geom.args())
+        _launch("gear_first", rows, (first,), avg_bits, *geom)
         gear_first_kernel.launches += 1
     return first
 

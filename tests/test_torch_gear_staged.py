@@ -1,18 +1,19 @@
-"""The staged gear scan of kernels B4 and B6 (``csrc/gear_staged.cuh``):
-its decomposition and its launch geometry, on the CPU.
+"""Kernels B4 and B6 as their CUDA kernels decompose the work, and B4's
+launch geometry, on the CPU.
 
-B6 as the staged kernel computes it, from per-group results reduced by
-lanes of G groups and then by a window's lanes
-(``rabin_cuda.staged_window_reduce``), is held against the JAX package's
-Pallas kernels in interpret mode: the per-group inputs are its B3 and B4,
-and the result must equal its B6 (``first``) and the OR of its B3 words
-over each window (``occ``), at thin_bits 8, 9, 11 and 16 and every G the
-kernel takes there (B6 itself from the interpret kernel at 11 and 16,
-from the JAX host reference at 8 and 9).  The geometry tests walk
-``staged_geometry``'s spans as the kernels do and check that every group
-is scanned exactly once with the right warm-up at span and row edges.
-Everything is exact.  The kernels themselves run only on a CUDA card
-(``cuda`` marker).
+B6 (one thread per window, per-group hit words in registers) takes its
+window's first hit from the earliest group that has one and ORs the
+group's packed words into its occupancy; that decomposition of per-group
+results (``rabin_cuda.window_reduce``) is held against the JAX package's
+Pallas kernels in interpret mode: the per-group inputs are its B3 and
+B4, and the result must equal its B6 (``first``) and the OR of its B3
+words over each window (``occ``), at thin_bits 8, 9, 11 and 16 (B6
+itself from the interpret kernel at 11 and 16, from the JAX host
+reference at 8 and 9).  The geometry tests walk the spans of B4's staged
+scan (``csrc/gear_staged.cuh``) as the kernel does and check that every
+group is scanned exactly once with the right warm-up at span and row
+edges.  Everything is exact.  The kernels themselves run only on a CUDA
+card (``cuda`` marker).
 """
 
 import jax.numpy as jnp
@@ -26,9 +27,13 @@ from dat_replication_protocol_tpu.ops.fused_cdc_hash_pallas import (
     gear_window_first_checked as jax_checked,
 )
 from dat_replication_protocol_tpu_torch.ops import rabin, rabin_cuda
+from dat_replication_protocol_tpu_torch.ops.fused_cdc_hash import (
+    gear_window_first_checked_kernel,
+)
 from dat_replication_protocol_tpu_torch.ops.rabin_cuda import (
+    STAGED_THREADS,
     staged_geometry,
-    staged_window_reduce,
+    window_reduce,
 )
 
 T, STRIDE, AVG = 2, 1 << 16, 8  # payload a multiple of every window
@@ -53,13 +58,6 @@ def per_group():
             torch.from_numpy(firsts.view(np.int32).copy()), data)
 
 
-def _gs(thin_bits):
-    """The G values the staged B6 takes at this window."""
-    gpw = (1 << thin_bits) // rabin.GROUP
-    return sorted({staged_geometry(T, STRIDE + 256, thin_bits, g=g).g
-                   for g in (1, 2, 4, 8) if g <= gpw})
-
-
 def _host_first(data: np.ndarray, thin_bits: int) -> np.ndarray:
     """Per-window first offsets from the JAX package's host reference
     (``host_thin`` of ``host_candidates``), windows aligned to the row
@@ -73,8 +71,8 @@ def _host_first(data: np.ndarray, thin_bits: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("thin_bits", [8, 9, 11, 16])
-def test_staged_reduction_equals_the_jax_b6_and_b3(per_group, thin_bits):
-    """B6 from the staged decomposition of the JAX interpret B3 and B4,
+def test_window_reduction_equals_the_jax_b6_and_b3(per_group, thin_bits):
+    """B6 from its kernel's decomposition of the JAX interpret B3 and B4,
     against the JAX interpret B6 (thin_bits 11 and 16) or the JAX host
     reference (8 and 9, where the interpret B6 is already held against
     the plain version in test_torch_rabin.py), and ``occ`` against the OR
@@ -93,124 +91,93 @@ def test_staged_reduction_equals_the_jax_b6_and_b3(per_group, thin_bits):
     if thin_bits < 11:
         assert (want_first == (1 << 30)).any(), "weak fixture: no empty"
     assert np.array_equal(want_occ != 0, want_first < (1 << 30))
-    for g in _gs(thin_bits):
-        first, occ = staged_window_reduce(words, firsts, thin_bits, g)
-        assert np.array_equal(first.numpy(), want_first), g
-        assert np.array_equal(occ.numpy().view(np.uint32), want_occ), g
+    first, occ = window_reduce(words, firsts, thin_bits)
+    assert np.array_equal(first.numpy(), want_first)
+    assert np.array_equal(occ.numpy().view(np.uint32), want_occ)
     # the same from the port's plain B3 and B4, and its plain B6
     pw, pf = (rabin.gear_candidates_tiled(trows, AVG),
               rabin.gear_first_tiled(trows, AVG))
     assert torch.equal(pw, words) and torch.equal(pf, firsts)
-    first, _ = staged_window_reduce(pw, pf, thin_bits, _gs(thin_bits)[-1])
+    first, _ = window_reduce(pw, pf, thin_bits)
     assert torch.equal(first, rabin.gear_window_first_checked(
         trows, AVG, thin_bits)[0])
 
 
-def test_g_grows_with_the_window_and_stays_within_it():
-    S = STRIDE + 256
-    assert [staged_geometry(T, S, t, g=1).g for t in range(8, 17)] == [
-        1, 1, 1, 1, 1, 1, 2, 4, 8]
-    assert [staged_geometry(T, S, t, g=8).g for t in range(8, 17)] == [
-        1, 2, 4, 8, 8, 8, 8, 8, 8]
-    for t in range(8, 17):
-        geom = staged_geometry(T, S, t)
-        lanes = ((1 << t) // 256) // geom.g
-        assert 1 <= lanes <= 32 and geom.threads % lanes == 0
-        assert geom.span_groups % ((1 << t) // 256) == 0
-
-
-def staged_span(geom, s):
-    """(row, first group) of span ``s``, as the kernels compute it (for
-    B4 the row is 0 and the group counts across rows)."""
-    r = s // geom.spans_per_row
-    return r, geom.base + (s - r * geom.spans_per_row) * geom.span_groups
-
-
-def _runs(geom, nrows, S):
-    """(row, first group, groups) of every thread's run, walked as the
-    kernels walk spans: CTA c takes spans c, c + ctas, ...; B4 reads the
-    rows as one row of nrows * S/256 groups."""
+def _spans(geom, nrows, S):
+    """(row, group) of every thread's group, with the group its warm-up
+    reads from (the one before it in the flat run, or None at the run's
+    start), walked as the kernel walks spans: CTA c takes spans c,
+    c + ctas, ...; thread t of span s scans flat group s * 256 + t of the
+    rows read as one row of nrows * S/256 groups, and drops it past the
+    end."""
     ng = S // 256
-    width = nrows * ng if geom.base == 0 else ng
     out = []
     for c in range(geom.ctas):
         for s in range(c, geom.total_spans, geom.ctas):
-            r, g0 = staged_span(geom, s)
-            for t in range(geom.threads):
-                g = g0 + t * geom.g
-                n = max(0, min(geom.g, width - g))
-                if geom.base == 0:
-                    r, g = divmod(g, ng) if n else (r, g)
-                out.append((r, g, n))
+            for t in range(STAGED_THREADS):
+                g = s * STAGED_THREADS + t
+                if g < nrows * ng:
+                    out.append((divmod(g, ng), divmod(g - 1, ng) if g else None))
     return out
 
 
-@pytest.mark.parametrize("nrows,S,thin_bits", [
-    (1, 256, None), (3, 256 + 2048, None), (7, 256 + (1 << 17), None),
-    (5, 256 + 4096, 8), (9, 256 + 4096, 9), (11, 256 + (1 << 17), 11),
-    (3, 256 + (1 << 17), 16), (13, 256 + 2048, 11)])
+@pytest.mark.parametrize("nrows,S", [
+    (1, 256), (3, 256 + 2048), (7, 256 + (1 << 17)), (5, 256 + 4096),
+    (9, 256 + 4096), (11, 256 + (1 << 17)), (3, 256 + (1 << 17)),
+    (13, 256 + 2048)])
 @pytest.mark.parametrize("sms", [1, 132])
-def test_every_group_is_scanned_once_with_its_warm_up(nrows, S, thin_bits,
-                                                      sms):
-    geom = staged_geometry(nrows, S, thin_bits, sms=sms)
+def test_every_group_is_scanned_once_with_its_warm_up(nrows, S, sms):
+    geom = staged_geometry(nrows, S, sms=sms)
     ng = S // 256
     seen = {}
-    for r, g, n in _runs(geom, nrows, S):
-        for k in range(n):
-            assert (r, g + k) not in seen
-            seen[(r, g + k)] = (g, k)
-    base = 0 if thin_bits is None else 1
-    assert set(seen) == {(r, g) for r in range(nrows) for g in range(base, ng)}
-    for (r, g), (start, k) in seen.items():
-        # a run warms on the 64 bytes before its first group, in its row,
-        # and the row's group 0 starts from the zero state (B4 only)
-        assert start == g - k and (start > 0 or base == 0)
-    # runs of one span are adjacent, so at G = 1 each thread's warm-up is
-    # the previous slot of its span (the span's halo for thread 0)
-    if geom.g == 1:
-        for s in range(geom.total_spans):
-            r, g0 = staged_span(geom, s)
-            assert g0 == geom.base + (s % geom.spans_per_row) * geom.threads
-    assert geom.ctas <= max(1, geom.total_spans)
-    assert geom.smem_bytes == geom.stages * (
-        (geom.threads + 1) * 272 + (geom.threads * 80 if geom.g > 1 else 0))
+    for (r, g), before in _spans(geom, nrows, S):
+        assert (r, g) not in seen
+        seen[(r, g)] = before
+    assert set(seen) == {(r, g) for r in range(nrows) for g in range(ng)}
+    for (r, g), before in seen.items():
+        # a group warms on the 64 bytes before it, in its row; a row's
+        # group 0 starts from the zero state (the kernel discards the
+        # warm-up there, which reads the previous row's last group)
+        assert before == ((r, g - 1) if g else
+                          (None if r == 0 else (r - 1, ng - 1)))
+    assert 1 <= geom.ctas <= geom.total_spans
 
 
 def test_b4_spans_cross_rows_and_only_the_last_is_ragged():
     S = 256 + (1 << 17)  # 513 groups a row
     geom = staged_geometry(8192, S)
-    assert geom.total_spans == -(-8192 * 513 // geom.threads)
-    assert geom.spans_per_row == geom.total_spans and geom.g == 1
+    assert geom.total_spans == -(-8192 * 513 // STAGED_THREADS)
     # a row-aligned span would leave the 513th group a span of its own
-    assert geom.total_spans < 8192 * -(-513 // geom.threads)
+    assert geom.total_spans < 8192 * -(-513 // STAGED_THREADS)
+
+
+def test_grid_is_one_resident_cta_an_sm_and_at_most_one_a_span():
+    """Two spans of 257 slots of 272 B take 139,808 B of shared memory:
+    one CTA an SM, so the grid is the SM count, or the span count when
+    there are fewer spans."""
+    assert rabin_cuda.STAGED_SMEM == 2 * 257 * 272
+    S = 256 + (1 << 17)
+    assert staged_geometry(8192, S, sms=132) == (132, 16416)
+    assert staged_geometry(8192, S, sms=114).ctas == 114
+    assert staged_geometry(3, S, sms=132) == (7, 7)
+    assert staged_geometry(0, S) == (0, 0)
 
 
 def test_geometry_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="multiple of 256"):
         staged_geometry(2, 1000)
-    with pytest.raises(ValueError, match="threads"):
-        staged_geometry(2, 2304, threads=48)
-    with pytest.raises(ValueError, match="stages"):
-        staged_geometry(2, 2304, stages=5)
-    with pytest.raises(ValueError, match="one group per thread"):
-        staged_geometry(2, 2304, g=2)
-    with pytest.raises(ValueError, match="window"):
-        staged_geometry(2, 2304, 17)
-    with pytest.raises(ValueError, match="window"):
-        staged_geometry(2, 256 + 3 * 512, 10)
-    with pytest.raises(ValueError, match="G 3"):
-        staged_geometry(2, 256 + 4096, 11, g=3)
-    with pytest.raises(ValueError, match="shared memory"):
-        staged_geometry(2, 256 + (1 << 17), 11, g=2, threads=256, stages=4)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        staged_geometry(2, 0)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        staged_geometry(-1, 2304)
 
 
 def test_args_are_the_c_entries_order():
-    geom = staged_geometry(4, 256 + 4096, 9)
-    assert geom.args() == (geom.threads, geom.g, geom.stages, geom.ctas,
-                           geom.span_groups, geom.spans_per_row,
-                           geom.total_spans)
-    assert rabin_cuda._build.SIGNATURES["gear_window_first_checked"][1][
-        7:14] == (rabin_cuda._build.ctypes.c_int,) * 7
+    geom = staged_geometry(4, 256 + 4096)
+    assert tuple(geom) == (geom.ctas, geom.total_spans)
+    _I = rabin_cuda._build.ctypes.c_int
+    assert rabin_cuda._build.SIGNATURES["gear_first"][1][5:7] == (_I, _I)
+    assert len(rabin_cuda._build.SIGNATURES["gear_first"][1]) == 8
 
 
 @pytest.fixture
@@ -221,25 +188,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("threads,stages", [(64, 2), (256, 2), (128, 3)])
-def test_staged_kernels_match_plain_on_card(cuda_device, per_group, threads,
-                                            stages):
+@pytest.mark.parametrize("thin_bits", [8, 9, 11, 16])
+def test_staged_kernels_match_plain_on_card(cuda_device, per_group,
+                                            thin_bits):
     _, trows, words, firsts, _ = per_group
     rows = trows.to(cuda_device)
-    geom = staged_geometry(T, STRIDE + 256, threads=threads, stages=stages,
-                           sms=rabin_cuda.sm_count(cuda_device))
-    got = torch.empty(firsts.shape, dtype=torch.int32, device=cuda_device)
-    rabin_cuda._launch("gear_first", rows, (got,), AVG, *geom.args())
-    assert torch.equal(got.cpu(), firsts)
-    for thin_bits in (8, 9, 11, 16):
-        for g in _gs(thin_bits):
-            geom = staged_geometry(T, STRIDE + 256, thin_bits, g=g,
-                                   threads=threads, stages=stages,
-                                   sms=rabin_cuda.sm_count(cuda_device))
-            want = staged_window_reduce(words, firsts, thin_bits, g)
-            out = [torch.empty_like(want[0], device=cuda_device)
-                   for _ in range(2)]
-            rabin_cuda._launch("gear_window_first_checked", rows, out, AVG,
-                               thin_bits, *geom.args())
-            assert torch.equal(out[0].cpu(), want[0])
-            assert torch.equal(out[1].cpu(), want[1])
+    assert torch.equal(rabin_cuda.gear_first_kernel(rows, AVG).cpu(), firsts)
+    first, viol = gear_window_first_checked_kernel(rows, AVG, thin_bits)
+    assert torch.equal(first.cpu(), window_reduce(words, firsts,
+                                                  thin_bits)[0])
+    assert int(viol) == 0

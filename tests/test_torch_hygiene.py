@@ -2,9 +2,8 @@
 
 The image preloads the ``jax`` module into every interpreter, so "the
 port never imports JAX" is proven on the source (an AST scan of every
-file of the port, of ``chip_smoke.py`` and of ``gear_ab.py``) and, at run
-time, by the absence of every module of the JAX *package* after a port
-session.
+file of the port and of ``chip_smoke.py``) and, at run time, by the
+absence of every module of the JAX *package* after a port session.
 """
 
 import ast
@@ -39,8 +38,7 @@ def _imports(path: Path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                         REPO / "gear_ab.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
