@@ -39,11 +39,12 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    and at the tests' shape (2,048 B rows, avg_bits 8, thin_bits 9), for a
    stream head, a ragged last tile, a slab with real context and an
    all-zero row; B5 must equal B3's window reduction, B6 B5, viol 0;
-   then the edges of B4's staged scan and of B6's windows: candidates
-   planted in the first and last byte of spans and of a row's payload
-   and only in a span's warm-up halo, a row count whose spans are not a
-   multiple of the CTAs, B6 at thin_bits 8, 11 and 16 with its ``occ``
-   against the OR of B3's words;
+   then the edges of B4's staged scan and of the window scan that B5 and
+   B6 share: candidates planted in the first and last byte of spans and
+   of a row's payload and only in a span's warm-up halo, a row count
+   whose spans are not a multiple of the CTAs, B5 and B6 at thin_bits 8,
+   11 and 16, B5 against its plain version, B6's ``first`` and the window
+   reduction of B3 and B4, B6's ``occ`` against the OR of B3's words;
 7. ``content_address`` at the reference's chunk parameters (avg_bits
    13, chunks of 2-32 KiB, 128 KiB tiles) over a 1.5 GiB blob made from
    the seed, on each of the four extraction routes: single residency,
@@ -57,20 +58,22 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    7's blob is its first 1.5 GiB) in 1 GiB slabs: the same cut checks,
    and its cuts below 1.5 GiB - 32 KiB equal phase 7's;
 9. times: B1 at phase 7's largest chunk bucket (each variant, as in
-   phase 5), and B3-B6 on a 1 GiB slab, each held byte-exact against its
-   plain version there (B6 with viol 0), timed in turns beside the plain
-   versions' times and the bounds; B3 and B5 (the one-thread scan of
-   ``gear.cuh``) are the controls of B4 and B6; the operation bounds
-   walk the SASS of the built libraries (``cuobjdump -sass``) and count
-   what each pipe issues, the staged B4's per span and CTA, and B4/B6
-   also get the bound of the same work as their control issues it, the
-   smaller of the two counting.
+   phase 5), B1's main-path launches by bucket (blob, change, sidecar,
+   ``entry()``, chunk), and B3-B6 on a 1 GiB slab, each held byte-exact
+   against its plain version there (B6 with viol 0), timed in turns
+   beside the plain versions' times, the bounds and their registers.
+   The operation bounds walk the SASS of the built libraries
+   (``cuobjdump -sass``) and count what each pipe issues, the staged
+   B4's per span and CTA.  B3 (the one-thread scan of ``gear.cuh``) is
+   B4's control; B5 is B6's window scan without the occupancy fold.  B4
+   and B6 also get the bound of the same work as B3 and B5 issue it, the
+   smaller of the two counting; B3 and B5 count their own.
 
-Every launch counter (B1's per variant too) is set to 0 just before
-each main-path phase (3, 4, 7, 8) and read just after; a kernel or B1
-variant that the phases did not launch fails the run.  The lines before
-the last carry the card, the per-kernel JSON
-and the times; the last line is ``{"ok": true, "device": {...}}``.  Without a
+Every launch counter (B1's per variant and per block count too) is set
+to 0 just before each main-path phase (3, 4, 7, 8) and read just after;
+a kernel or B1 variant that the phases did not launch fails the run.
+The lines before the last carry the card, the per-kernel JSON and the
+times; the last line is ``{"ok": true, "device": {...}}``.  Without a
 card it exits 2 and prints no result.
 """
 
@@ -145,15 +148,34 @@ def reset_counters() -> None:
         fn.launches = 0
     b1 = wrappers["blake2b"]
     b1.launches_by_lanes = dict.fromkeys(b1.launches_by_lanes, 0)
+    b1.launches_by_blocks = {}
 
 
 def read_counters() -> dict:
-    """Launches of every kernel wrapper, and of each B1 variant."""
+    """Launches of every kernel wrapper, and of each B1 variant; B1's by
+    block count under ``b1_blocks``."""
     wrappers = _wrappers()
     out = {name: fn.launches for name, fn in wrappers.items()}
-    by_lanes = wrappers["blake2b"].launches_by_lanes
-    out.update({name: by_lanes[lanes] for name, lanes in B1_VARIANTS.items()})
+    b1 = wrappers["blake2b"]
+    out.update({name: b1.launches_by_lanes[lanes]
+                for name, lanes in B1_VARIANTS.items()})
+    out["b1_blocks"] = dict(sorted(b1.launches_by_blocks.items()))
     return out
+
+
+def b1_buckets(session, side, ent, cdc, streamed) -> dict:
+    """B1's main-path launches by bucket, from each phase's launches by
+    block count: phase 3's blob buckets (1 MiB blobs) and change buckets,
+    the sidecar's, ``entry()``'s, phase 7's chunk buckets and phase 8's
+    (none: ``chunk_stream`` hashes nothing)."""
+    blob = BLOB_BYTES // 128
+    by = session["b1_blocks"]
+    return {"blob": by.get(blob, 0),
+            "change": sum(n for b, n in by.items() if b != blob),
+            "sidecar": sum(side["b1_blocks"].values()),
+            "entry": sum(ent["b1_blocks"].values()),
+            "chunk": sum(cdc["b1_blocks"].values()),
+            "chunk_stream": sum(streamed["b1_blocks"].values())}
 
 
 def sync(device) -> None:
@@ -778,13 +800,15 @@ def plant_hit(row: np.ndarray, p: int, avg_bits: int) -> None:
 
 
 def check_staged_edges(device, rows: int = 1000) -> dict:
-    """Phase 6, the edges: B4 and B6 byte-exact against their plain
+    """Phase 6, the edges: B4, B5 and B6 byte-exact against their plain
     versions on random rows of 128 KiB + 256 B (avg_bits 13) with
     candidates planted in the first and the last byte of B4's spans (one
     that crosses a row boundary among them) and of a row's payload, one
     only in a span's warm-up halo, and a row count whose spans are not a
-    multiple of B4's CTAs; B6 at thin_bits 8, 11 and 16, its ``occ``
-    against the OR of the plain B3 words over each window, its viol 0."""
+    multiple of B4's CTAs; B5 and B6 at thin_bits 8, 11 and 16, B5 also
+    against B6's ``first`` and the window reduction of the plain B3 and
+    B4, B6's ``occ`` against the OR of the plain B3 words over each
+    window, its viol 0."""
     import torch
 
     from dat_replication_protocol_tpu_torch.ops import rabin, rabin_cuda
@@ -849,12 +873,21 @@ def check_staged_edges(device, rows: int = 1000) -> dict:
         f2 = torch.empty(nwin, dtype=torch.int32, device=device)
         occ = torch.empty_like(f2)
         rabin_cuda._launch("gear_window_first_checked", rows, (f2, occ), a, t)
-        _, want_occ = rabin_cuda.window_reduce(bits, firsts, t)
+        reduced, want_occ = rabin_cuda.window_reduce(bits, firsts, t)
+        b5 = rabin_cuda.gear_window_first_kernel(rows, a, t)
+        want5 = rabin.gear_window_first(rows, a, t)
         sync(device)
         if (not torch.equal(first, want) or not torch.equal(f2, want)
                 or int(viol) or not torch.equal(occ, want_occ)):
             raise AssertionError(f"B6 at thin_bits {t} differs from its "
                                  f"plain version, viol {int(viol)}")
+        for what, other in (("its plain version", want5),
+                            ("B6's first", first),
+                            ("the window reduction", reduced)):
+            if not torch.equal(b5, other):
+                raise AssertionError(
+                    f"B5 at thin_bits {t} differs from {what} in "
+                    f"{int((b5 != other).sum())} windows at the edges")
     return {"rows": T, "planted": len(planted) + 1,
             "spans": (g4.total_spans, g4.ctas)}
 
@@ -1361,9 +1394,10 @@ def _in_turns(fns: dict, reps: int) -> dict:
 def time_gear_kernels(device, launches: dict) -> list[dict]:
     """B3-B6 on one 1 GiB slab of random rows (8,192 x 128 KiB + 256 B),
     held byte-exact against the plain versions at the same shape and
-    timed in turns beside them and the bounds: B3 and B5 (the one-thread
-    scan of gear.cuh) are the controls of B4 and B6, whose bound is also
-    given for the same work as the controls issue it."""
+    timed in turns beside them and the bounds.  B3 (the one-thread scan
+    of gear.cuh) is B4's control; B5 is B6's window scan without the
+    occupancy fold.  B4's and B6's bound is also given for the same work
+    as B3 and B5 issue it."""
     import torch
 
     from dat_replication_protocol_tpu_torch.ops import rabin, rabin_cuda
@@ -1385,7 +1419,8 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
     geom = rabin_cuda.staged_geometry(
         SLAB_TILES, S, sms=rabin_cuda.sm_count(torch.device(device)))
     # (name, source, TPU kernel, kernel, plain version, output bytes,
-    #  threads, threads that skip the warm-up, loop trips, control)
+    #  threads, threads that skip the warm-up, loop trips, the kernel
+    #  that issues the same work)
     specs = [
         ("gear_candidates", "gear_candidates.cu", "ops/rabin_pallas.py:112",
          lambda: (gear_candidates_kernel(rows, a),),
@@ -1406,7 +1441,7 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
          lambda: rabin.gear_window_first_checked(rows, a, t), 8 * nwin,
          nwin, 0, gpw, "gear_window_first"),
     ]
-    plain_ms, control_ops = {}, {}
+    plain_ms, own_ops = {}, {}
     for name, _, _, kernel, plain, *_ in specs:
         torch.cuda.empty_cache()
         plain_ms[name] = time_ms(plain, reps=1)
@@ -1425,7 +1460,7 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
                       reps=10)
     out = []
     for (name, src, replaces, kernel, plain, out_bytes, nthreads, skips,
-         trips, control) in specs:
+         trips, same_work) in specs:
         ops_ms, per_thread = staged_bound(name, geom) if (
             name == "gear_first") else sass_bound(name, nthreads, skips,
                                                   trips)
@@ -1440,14 +1475,14 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
                "ops_ms": ops_ms}
         use = [v for f, v in res_usage(name).items() if f"{name}_kernel" in f]
         row["registers"] = use[0]["registers"] if use else None
-        if control is None:
-            control_ops[name] = ops_ms
-        else:
-            # the bound of the same work as the control issues it; the
+        own_ops[name] = ops_ms
+        if same_work is not None:
+            # the bound of the same work as same_work issues it; the
             # smaller of the two operation bounds is the one that counts
-            row.update({"control": control, "control_ms": timed[control][0],
-                        "ops_same_work_ms": control_ops[control]})
-            ops_ms = min(ops_ms, control_ops[control])
+            row.update({"same_work": same_work,
+                        "same_work_ms": timed[same_work][0],
+                        "ops_same_work_ms": own_ops[same_work]})
+            ops_ms = min(ops_ms, own_ops[same_work])
         if name == "gear_first":
             row["geometry"] = {**geom._asdict(),
                                "threads": rabin_cuda.STAGED_THREADS,
@@ -1548,12 +1583,13 @@ def main() -> int:
     t0 = time.perf_counter()
     check_gear_kernels(device)
     edges = check_staged_edges(device)
-    log(f"phase 6: B4 and B6 byte-exact vs plain at the edges "
+    log(f"phase 6: B4, B5 and B6 byte-exact vs plain at the edges "
         f"({edges['rows']} rows x 128 KiB + 256 B, {edges['planted']} "
         f"planted candidates at span and payload first/last bytes, across "
         f"a row boundary and in a halo only; B4 spans, CTAs "
-        f"{edges['spans']}); B6 at thin_bits 8, 11, 16, occ == the OR of "
-        f"B3's words, viol 0")
+        f"{edges['spans']}); B5 and B6 at thin_bits 8, 11, 16, B5 == B6's "
+        f"first == the window reduction, occ == the OR of B3's words, "
+        f"viol 0")
     log(f"phase 6: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -1593,7 +1629,14 @@ def main() -> int:
 
     launches = {k: session["launches"][k] + side["launches"][k]
                 + ent["launches"][k] + cdc[k] + streamed[k]
-                for k in session["launches"]}
+                for k in session["launches"] if k != "b1_blocks"}
+    buckets = b1_buckets(session["launches"], side["launches"],
+                         ent["launches"], cdc, streamed)
+    if sum(buckets.values()) != launches["blake2b"]:
+        raise AssertionError(f"B1's launches by bucket {buckets} do not sum "
+                             f"to its {launches['blake2b']} launches")
+    log(f"phase 9: B1's {launches['blake2b']} main-path launches by bucket "
+        f"{buckets}")
     sass = b1_sass()
     latency = chain_latency(device)
     log(f"phase 5: dependent-issue latency {latency['cycles']} cycles a "
@@ -1629,11 +1672,13 @@ def main() -> int:
             log(f"  staged: {geom['threads']} threads a CTA and groups a "
                 f"span, 2 stages, {geom['smem_bytes']} B shared a CTA, "
                 f"{geom['ctas']} CTAs over {geom['total_spans']} spans")
-        if "control" in r:
+        if "same_work" in r:
             log(f"  its own SASS bound {r['ops_ms']} ms, the same work as "
-                f"{r['control']} issues it {r['ops_same_work_ms']} ms: "
-                f"{r['ms'] / r['bound_ms']} x the smaller; control "
-                f"{r['control']} {r['control_ms']} ms in the same turns")
+                f"{r['same_work']} issues it {r['ops_same_work_ms']} ms: "
+                f"{r['ms'] / r['bound_ms']} x the smaller; "
+                f"{r['same_work']} {r['same_work_ms']} ms in the same turns")
+        elif "sass_per_thread" in r:
+            log(f"  {r['ms'] / r['bound_ms']} x its bound")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -91,31 +91,47 @@ __device__ __forceinline__ void gear_group(const uint4* __restrict__ row,
   }
 }
 
+// The group-local offset of the first set bit of a group's eight packed
+// hit words (its first candidate), or kNoHit; taken after the group is
+// scanned, off the gear chain.
+__device__ __forceinline__ uint32_t group_first(
+    const uint32_t (&w)[kGroup / kPack]) {
+  uint32_t out = kNoHit;
+#pragma unroll
+  for (int k = kGroup / kPack - 1; k >= 0; --k)
+    if (w[k] != 0u) out = k * kPack + (__ffs(w[k]) - 1);
+  return out;
+}
+
 // B5 and B6: the first candidate of payload window w of a row (window w
 // covers row bytes [256 + w*2^thin_bits, 256 + (w+1)*2^thin_bits): group
-// 0 is warm-up and never counts).  Tracks the first nonzero packed word
-// and its bits; kChecked also ORs every packed word into *occ on its own
-// path, blind to that tracking.  Returns the in-window byte offset of the
-// first candidate, or kEmptyWindow.
-template <bool kChecked>
-__device__ __forceinline__ uint32_t gear_window(const uint4* __restrict__ row,
-                                                int w, int thin_bits,
-                                                uint32_t mask, uint32_t* occ) {
+// 0 is warm-up and never counts), scanned by one thread after a 64-byte
+// warm-up.  Each group's eight packed hit words stay in registers until
+// the group is scanned, so nothing but the gear chain sits between the
+// loads and ptxas can hoist them; the group's first hit is taken after
+// it and kept while the window has none.  kOcc (B6) also ORs the raw
+// words into *occ, on a path that never reads the first-hit state, so
+// the two cross-check each other.  Returns the in-window byte offset of
+// the first candidate, or kEmptyWindow.
+template <bool kOcc>
+__device__ __forceinline__ uint32_t gear_window_scan(
+    const uint4* __restrict__ row, int w, int thin_bits, uint32_t mask,
+    uint32_t* occ) {
   const int gpw = (1 << thin_bits) / kGroup;
   const int p0 = kGroup + (w << thin_bits);
   uint64_t h = gear_warm(row, p0);
-  uint32_t fidx = 0xFFFFFFFFu, fval = 0u, any = 0u;
+  uint32_t f = kEmptyWindow, any = 0;
   for (int g = 0; g < gpw; ++g) {
-    gear_group(row, p0 + g * kGroup, h, mask, [&](int k, uint32_t bits) {
-      if (fidx == 0xFFFFFFFFu && bits != 0u) {
-        fidx = static_cast<uint32_t>(g * (kGroup / kPack) + k);
-        fval = bits;
-      }
-      if (kChecked) any |= bits;
-    });
+    uint32_t wd[kGroup / kPack];
+    gear_group(row, p0 + g * kGroup, h, mask,
+               [&](int k, uint32_t b) { wd[k] = b; });
+    const uint32_t gf = group_first(wd);
+    if (f == kEmptyWindow && gf != kNoHit) f = g * kGroup + gf;
+    if constexpr (kOcc)
+      any |= wd[0] | wd[1] | wd[2] | wd[3] | wd[4] | wd[5] | wd[6] | wd[7];
   }
-  if (kChecked) *occ = any;
-  return fidx != 0xFFFFFFFFu ? fidx * kPack + (__ffs(fval) - 1) : kEmptyWindow;
+  if constexpr (kOcc) *occ = any;
+  return f;
 }
 
 }  // namespace dat

@@ -66,7 +66,7 @@ gear_first_kernel(const uint8_t* __restrict__ rows,
     if (g % ng == 0) h = 0;  // a row's group 0 starts from the zero state
     uint32_t w[dat::kGroup / dat::kPack];
     st::scan_group(stage + (t + 1) * st::kSlot, h, mask, w);
-    if (g < ng_all) first[g] = st::first_of(w);
+    if (g < ng_all) first[g] = dat::group_first(w);
     __syncthreads();
   }
 }

@@ -116,16 +116,5 @@ __device__ __forceinline__ void scan_group(const uint8_t* src, uint64_t& h,
   }
 }
 
-// The group-local offset of the first set bit of 8 packed words, or
-// kNoHit; taken after the scan, off the chain.
-__device__ __forceinline__ uint32_t first_of(const uint32_t (&w)[8]) {
-  uint32_t out = kNoHit;
-#pragma unroll
-  for (int k = kGroup / kPack - 1; k >= 0; --k) {
-    if (w[k] != 0u) out = k * kPack + (__ffs(w[k]) - 1);
-  }
-  return out;
-}
-
 }  // namespace staged
 }  // namespace dat

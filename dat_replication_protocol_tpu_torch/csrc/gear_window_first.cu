@@ -5,24 +5,27 @@
 // gear_window_first_native (body _kernel_wfirst, :190; wrapper
 // gear_window_first_pallas :342).  The TPU kernel carries the first-hit
 // tracking of one window in VMEM scratch across grid steps, one vector
-// lane per row.  Here one thread owns one (row, window): it replays the
-// 64 bytes before the window, scans the window's 2^thin_bits / 256 groups
-// (gear.cuh gear_window), keeps the first nonzero packed hit word and its
-// bits in registers, and writes one u32.  Group 0 of a row is warm-up and
-// belongs to no window, as in the reference.
+// lane per row.  Here one thread owns one (row, window) and runs the
+// window scan of gear.cuh (gear_window_scan), the scan of B6
+// (gear_window_first_checked.cu) without its occupancy fold: it replays
+// the 64 bytes before the window, scans the window's 2^thin_bits / 256
+// groups from global memory, each group's eight packed hit words into
+// registers, takes each group's first hit after the group, and writes
+// one u32.  Group 0 of a row is warm-up and belongs to no window, as in
+// the reference.
 //
 // Input: rows (T, S/4) uint32 words (int32 storage), (S - 256) a multiple
 // of 2^thin_bits, thin_bits >= 8.  Output: first (T * nwin,) uint32 in
 // stream order (row-major), the in-window offset of the first candidate or
 // 1 << 30.  dat_gear_window_first returns cudaGetLastError().
 //
-// What bounds it: the instructions it issues, read from the SASS
-// (chip_smoke.py sass_bound): about 6.1 on the 32-bit integer ALU pipe per
-// byte stepped at 2 KiB windows, so that pipe bounds it, about 0.41 ms
-// per 1 GiB slab on an H100 at 1.98 GHz, against 0.32 ms of bytes (1 byte
-// read, 4 bytes written per window).  At 2 KiB windows the warm-up adds 3% more steps; a
-// 1 GiB slab still gives 512k threads.  Each thread reads 2 KiB apart from
-// its neighbour, so loads coalesce only through L1: not tuned yet.
+// What bounds it: the 32-bit integer ALU pipe, about 6 instructions per
+// byte stepped (chip_smoke.py sass_bound walks its SASS), against 0.32 ms
+// of bytes per 1 GiB slab (1 byte read, 4 bytes written per window).  The
+// design keeps the first-hit select out of the scan, so nothing but the
+// gear chain sits between the 16-byte loads and ptxas can issue them well
+// ahead of their use, off the chain.  At 2 KiB windows the warm-up adds
+// 3% more steps.
 #include "gear.cuh"
 
 namespace {
@@ -40,7 +43,7 @@ gear_window_first_kernel(const uint4* __restrict__ rows,
   const int t = static_cast<int>(id / nwin);
   const int w = static_cast<int>(id % nwin);
   const uint4* row = rows + static_cast<size_t>(t) * (row_bytes / 16);
-  first[id] = dat::gear_window<false>(row, w, thin_bits, mask, nullptr);
+  first[id] = dat::gear_window_scan<false>(row, w, thin_bits, mask, nullptr);
 }
 
 }  // namespace

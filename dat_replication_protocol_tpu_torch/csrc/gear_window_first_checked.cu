@@ -7,20 +7,18 @@
 // gear_window_first_checked_native (body _kernel_wfirst_checked, :66;
 // wrapper gear_window_first_checked :226), which carries one window's
 // first-hit tracking and occupancy in VMEM scratch across grid steps, one
-// vector lane per row.  Here one thread owns one (row, window), as in B5
-// (gear_window_first.cu): it replays the 64 bytes before the window and
-// scans the window's 2^thin_bits / 256 groups from global memory (group 0
-// of a row is warm-up and belongs to no window).  Unlike B5, which folds
-// a first-hit select into every packed word inside the scan, each group's
-// eight packed hit words stay in registers until the group is scanned, so
-// nothing but the gear chain sits between the loads and ptxas can hoist
-// them.  After each group the thread takes two things from its words, on
-// separate paths: the group's first hit (first nonzero word, lowest set
-// bit), kept if the window has none yet, and their OR into the window's
-// occupancy word, which never reads the first-hit path.  The wrapper
-// counts the windows where (occ != 0) disagrees with (first != 1 << 30),
-// as the reference wrapper does outside its kernel, and the caller
-// refuses a nonzero count.
+// vector lane per row.  Here one thread owns one (row, window) and runs
+// B5's window scan (gear.cuh gear_window_scan) with the occupancy fold:
+// it replays the 64 bytes before the window and scans the window's
+// 2^thin_bits / 256 groups from global memory (group 0 of a row is
+// warm-up and belongs to no window), each group's eight packed hit words
+// into registers.  After each group it takes two things from its words,
+// on separate paths: the group's first hit (first nonzero word, lowest
+// set bit), kept if the window has none yet, and their OR into the
+// window's occupancy word, which never reads the first-hit path.  The
+// wrapper counts the windows where (occ != 0) disagrees with (first !=
+// 1 << 30), as the reference wrapper does outside its kernel, and the
+// caller refuses a nonzero count.
 //
 // Input: rows (T, S/4) uint32 words (int32 storage), (S - 256) a multiple
 // of 2^thin_bits, thin_bits >= 8.  Output: first and occ, each (T * nwin,)
@@ -29,8 +27,10 @@
 //
 // What bounds it: the 32-bit integer ALU pipe, about 6 instructions per
 // byte stepped (chip_smoke.py sass_bound walks its SASS), against 0.32 ms
-// of bytes per 1 GiB slab.  At 2 KiB windows the warm-up adds 3% more
-// steps.
+// of bytes per 1 GiB slab.  With the select and the fold both after the
+// group, nothing but the gear chain sits between the 16-byte loads, and
+// ptxas can issue them well ahead of their use, off the chain.  At 2 KiB
+// windows the warm-up adds 3% more steps.
 #include "gear.cuh"
 
 namespace {
@@ -49,23 +49,7 @@ gear_window_first_checked_kernel(const uint4* __restrict__ rows,
   const int t = static_cast<int>(id / nwin);
   const int w = static_cast<int>(id % nwin);
   const uint4* row = rows + static_cast<size_t>(t) * (row_bytes / 16);
-  const int gpw = (1 << thin_bits) / dat::kGroup;
-  const int p0 = dat::kGroup + (w << thin_bits);
-  uint64_t h = dat::gear_warm(row, p0);
-  uint32_t f = dat::kEmptyWindow, any = 0;
-  for (int g = 0; g < gpw; ++g) {
-    uint32_t wd[dat::kGroup / dat::kPack];
-    dat::gear_group(row, p0 + g * dat::kGroup, h, mask,
-                    [&](int k, uint32_t b) { wd[k] = b; });
-    uint32_t gf = dat::kNoHit;
-#pragma unroll
-    for (int k = dat::kGroup / dat::kPack - 1; k >= 0; --k)
-      if (wd[k] != 0u) gf = k * dat::kPack + (__ffs(wd[k]) - 1);
-    if (f == dat::kEmptyWindow && gf != dat::kNoHit) f = g * dat::kGroup + gf;
-    any |= wd[0] | wd[1] | wd[2] | wd[3] | wd[4] | wd[5] | wd[6] | wd[7];
-  }
-  first[id] = f;
-  occ[id] = any;
+  first[id] = dat::gear_window_scan<true>(row, w, thin_bits, mask, occ + id);
 }
 
 }  // namespace

@@ -89,6 +89,8 @@ def launch(mh, ml, lengths, digest_size: int, lanes: int):
         raise RuntimeError(f"blake2b kernel launch failed: cudaError {rc}")
     blake2b_packed_kernel.launches += 1
     blake2b_packed_kernel.launches_by_lanes[lanes] += 1
+    by_blocks = blake2b_packed_kernel.launches_by_blocks
+    by_blocks[nblocks] = by_blocks.get(nblocks, 0) + 1
     return hh, hl
 
 
@@ -97,8 +99,9 @@ def blake2b_packed_kernel(mh, ml, lengths, digest_size: int = DIGEST_SIZE):
 
     Same contract as :func:`.blake2b.blake2b_packed`: returns ``(hh, hl)``,
     each (B, 8) int32.  Counts its launches in
-    ``blake2b_packed_kernel.launches`` and, by variant,
-    ``blake2b_packed_kernel.launches_by_lanes``.
+    ``blake2b_packed_kernel.launches``, by variant in
+    ``blake2b_packed_kernel.launches_by_lanes`` and by the bucket's block
+    count in ``blake2b_packed_kernel.launches_by_blocks``.
     """
     if mh.device.type == "cpu":
         return blake2b_packed(mh, ml, lengths, digest_size)
@@ -108,3 +111,4 @@ def blake2b_packed_kernel(mh, ml, lengths, digest_size: int = DIGEST_SIZE):
 
 blake2b_packed_kernel.launches = 0
 blake2b_packed_kernel.launches_by_lanes = dict.fromkeys(LANES, 0)
+blake2b_packed_kernel.launches_by_blocks = {}

@@ -7,6 +7,7 @@ The counterparts of ``dat_replication_protocol_tpu/ops/rabin_pallas.py``
 ``gear_window_first_pallas`` (B5, ``gear_window_first_native`` :284).
 The kernels are ``csrc/gear_candidates.cu``, ``csrc/gear_first.cu`` and
 ``csrc/gear_window_first.cu`` over the shared step in ``csrc/gear.cuh``;
+B5 runs the window scan there that B6 runs with its occupancy fold, and
 B4 scans through the shared-memory ring of ``csrc/gear_staged.cuh``,
 whose geometry :func:`staged_geometry` computes here.  The source notes
 say what bounds each kernel.  Each wrapper keeps the reference wrapper's
@@ -80,10 +81,11 @@ def staged_geometry(T: int, S: int, sms: int = 132) -> StagedGeometry:
 
 def window_reduce(words: torch.Tensor, firsts: torch.Tensor,
                   thin_bits: int):
-    """B6's reduction as its kernel decomposes it, from per-group
-    results: ``words`` (T, S/32) packed hit words (B3's output) and
-    ``firsts`` (T, S/256) group-local first hits (B4's).  Group 0 of a
-    row is dropped; a window's ``first`` is the hit of its earliest group
+    """B5's and B6's reduction as their window scan (``csrc/gear.cuh``
+    ``gear_window_scan``) decomposes it, from per-group results:
+    ``words`` (T, S/32) packed hit words (B3's output) and ``firsts``
+    (T, S/256) group-local first hits (B4's).  Group 0 of a row is
+    dropped; a window's ``first`` is the hit of its earliest group
     that has one, as an offset in the window (``1 << 30`` when empty),
     and its ``occ`` the OR of its words.  Returns both as (T * nwin,)
     int32, in stream order."""

@@ -145,10 +145,12 @@ def test_lanes_per_item_rule(batch, want):
 def test_launch_refuses_cpu_tensors_and_counts_nothing():
     mh, ml, lengths = b2b.pack_payloads(_payloads((3, 300)))
     before = dict(blake2b_packed_kernel.launches_by_lanes)
+    by_blocks = dict(blake2b_packed_kernel.launches_by_blocks)
     for lanes in LANES:
         with pytest.raises(ValueError, match="unsupported device"):
             launch(mh, ml, lengths, 32, lanes)
     assert blake2b_packed_kernel.launches_by_lanes == before
+    assert blake2b_packed_kernel.launches_by_blocks == by_blocks
 
 
 def test_batch_rejects_cuda_without_a_card():
@@ -196,10 +198,13 @@ def test_each_variant_matches_plain_and_hashlib_on_card(cuda_device, lanes,
     payloads = _payloads(lengths, seed=n_items)
     mh, ml, lens = (t.to(cuda_device) for t in b2b.pack_payloads(payloads))
     before = blake2b_packed_kernel.launches_by_lanes[lanes]
+    nblocks = mh.shape[1]
+    by_blocks = blake2b_packed_kernel.launches_by_blocks.get(nblocks, 0)
     got = launch(mh, ml, lens, 32, lanes)
     want = b2b.blake2b_packed(mh, ml, lens)
     torch.cuda.synchronize()
     assert blake2b_packed_kernel.launches_by_lanes[lanes] == before + 1
+    assert blake2b_packed_kernel.launches_by_blocks[nblocks] == by_blocks + 1
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert b2b.digests_to_bytes(got[0].cpu(), got[1].cpu()) == _hashlib(
         payloads)

@@ -1,14 +1,15 @@
-"""Kernels B4 and B6 as their CUDA kernels decompose the work, and B4's
-launch geometry, on the CPU.
+"""Kernels B4, B5 and B6 as their CUDA kernels decompose the work, and
+B4's launch geometry, on the CPU.
 
-B6 (one thread per window, per-group hit words in registers) takes its
-window's first hit from the earliest group that has one and ORs the
-group's packed words into its occupancy; that decomposition of per-group
-results (``rabin_cuda.window_reduce``) is held against the JAX package's
-Pallas kernels in interpret mode: the per-group inputs are its B3 and
-B4, and the result must equal its B6 (``first``) and the OR of its B3
-words over each window (``occ``), at thin_bits 8, 9, 11 and 16 (B6
-itself from the interpret kernel at 11 and 16, from the JAX host
+B5 and B6 run one window scan (one thread per window, per-group hit
+words in registers): it takes its window's first hit from the earliest
+group that has one, and B6 also ORs the group's packed words into its
+occupancy.  That decomposition of per-group results
+(``rabin_cuda.window_reduce``) is held against the JAX package's Pallas
+kernels in interpret mode: the per-group inputs are its B3 and B4, and
+the result must equal its B5 and B6 (``first``) and the OR of its B3
+words over each window (``occ``), at thin_bits 8, 9, 11 and 16 (B5 and
+B6 themselves from the interpret kernels at 11 and 16, from the JAX host
 reference at 8 and 9).  The geometry tests walk the spans of B4's staged
 scan (``csrc/gear_staged.cuh``) as the kernel does and check that every
 group is scanned exactly once with the right warm-up at span and row
@@ -103,6 +104,25 @@ def test_window_reduction_equals_the_jax_b6_and_b3(per_group, thin_bits):
         trows, AVG, thin_bits)[0])
 
 
+@pytest.mark.parametrize("thin_bits", [8, 9, 11, 16])
+def test_window_reduction_equals_the_jax_b5(per_group, thin_bits):
+    """B5 from the decomposition its kernel shares with B6 (each group's
+    first hit, then the earliest group that has one) of the JAX
+    interpret B3 and B4, against the JAX package's B5: its interpret
+    kernel at thin_bits 11 and 16, its host reference at 8 and 9."""
+    jrows, _, words, firsts, data = per_group
+    if thin_bits >= 11:
+        want = np.asarray(rabin_pallas.gear_window_first_pallas(
+            jrows, AVG, thin_bits, interpret=True))
+    else:
+        want = _host_first(data, thin_bits)
+    assert (want < (1 << 30)).any()
+    if thin_bits < 11:
+        assert (want == (1 << 30)).any(), "weak fixture: no empty"
+    first, _ = window_reduce(words, firsts, thin_bits)
+    assert np.array_equal(first.numpy(), want)
+
+
 def _spans(geom, nrows, S):
     """(row, group) of every thread's group, with the group its warm-up
     reads from (the one before it in the flat run, or None at the run's
@@ -195,6 +215,10 @@ def test_staged_kernels_match_plain_on_card(cuda_device, per_group,
     rows = trows.to(cuda_device)
     assert torch.equal(rabin_cuda.gear_first_kernel(rows, AVG).cpu(), firsts)
     first, viol = gear_window_first_checked_kernel(rows, AVG, thin_bits)
-    assert torch.equal(first.cpu(), window_reduce(words, firsts,
-                                                  thin_bits)[0])
+    want = window_reduce(words, firsts, thin_bits)[0]
+    assert torch.equal(first.cpu(), want)
     assert int(viol) == 0
+    b5 = rabin_cuda.gear_window_first_kernel(rows, AVG, thin_bits)
+    assert torch.equal(b5.cpu(), want)
+    assert torch.equal(b5.cpu(), rabin.gear_window_first(trows, AVG,
+                                                         thin_bits))
