@@ -67,11 +67,31 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    B4's per span and CTA.  B3 (the one-thread scan of ``gear.cuh``) is
    B4's control; B5 is B6's window scan without the occupancy fold.  B4
    and B6 also get the bound of the same work as B3 and B5 issue it, the
-   smaller of the two counting; B3 and B5 count their own.
+   smaller of the two counting; B3 and B5 count their own;
+10. reconciliation at BASELINE.json configs[4]'s width: two snapshots
+   of 2^20 change records (40-200-byte values, the port's change codec,
+   hashed by ``feed.hash_extents_device`` on B1), B with 1% of the
+   values rewritten; ``diff_snapshots`` and ``diff_root_guided_packed``
+   over the 2^21 concatenated leaves (20 B2 levels) must equal a dense
+   compare and the rewritten rows, both roots ``root_host``;
+   ``update_leaves`` of 1,024 leaves must equal a rebuild and leave its
+   input unchanged; 64 proofs must verify and a flipped byte or a wrong
+   index must not; ``LogSummary``/``reconcile`` of 1M + 1M + 1,000
+   records (bench.py bench_merkle's shape, 2^21 slots) must equal
+   ``hashlib`` + ``np.add.at`` and find exactly the inserted keys'
+   slots, and ``tree_sync`` over the two tables' B2 trees the same
+   slots; coded symbols of 2^20 digests against a set with k = 1,000
+   (500 only on each side) must decode exactly the symmetric
+   difference with its signs, the device-built cells equal to
+   ``build_symbols_host``.  Then the diff's entries/s (median of 10
+   warm reps), B2 at the 2^21 -> 2^20 level beside its plain version
+   and bound, ``update_leaves`` ms, the sketch scatter-add's device ms
+   and two warm reconcile repeats.
 
 Every launch counter (B1's per variant and per block count too) is set
-to 0 just before each main-path phase (3, 4, 7, 8) and read just after;
-a kernel or B1 variant that the phases did not launch fails the run.
+to 0 just before each main-path phase (3, 4, 7, 8, 10) and read just
+after; a kernel or B1 variant that the phases did not launch fails the
+run.
 The lines before the last carry the card, the per-kernel JSON and the
 times; the last line is ``{"ok": true, "device": {...}}``.  Without a
 card it exits 2 and prints no result.
@@ -1531,6 +1551,290 @@ def time_chunk_bucket(device, blob: np.ndarray, cuts, sass: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: reconciliation at BASELINE.json configs[4]'s width
+# ---------------------------------------------------------------------------
+
+DIFF_LEAVES = 1 << 20  # leaves per snapshot
+SKETCH_ROWS = 1_000_000  # records per sketch log, as bench.py bench_merkle
+SKETCH_INSERTS = 1_000
+SKETCH_LOG2_SLOTS = 21
+RATELESS_K = 1_000  # symmetric difference, half only in each set
+N_UPDATES = 1024
+N_PROOFS = 64
+
+
+def encode_rows(values, rows) -> list[bytes]:
+    """Change records of row numbers ``rows`` with ``values``, encoded by
+    the port's change codec."""
+    from dat_replication_protocol_tpu_torch import encode_change
+
+    return [encode_change({"key": f"row-{i}", "change": i + 1, "from": 0,
+                           "to": 1, "value": v})
+            for i, v in zip(map(int, rows), values)]
+
+
+def random_values(rng, n: int) -> list[bytes]:
+    lens = rng.integers(40, 201, n)
+    buf = rng.bytes(int(lens.sum()))
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    return [buf[offs[i]:offs[i + 1]] for i in range(n)]
+
+
+def hash_records(records, device):
+    """BLAKE2b-256 of each record by ``feed.hash_extents_device`` (B1):
+    (n, 4) hi/lo halves on the card."""
+    from dat_replication_protocol_tpu_torch.batch.feed import (
+        hash_extents_device)
+
+    lens = np.array([len(r) for r in records], dtype=np.int64)
+    buf = np.frombuffer(b"".join(records), np.uint8)
+    return hash_extents_device(buf, np.cumsum(lens) - lens, lens,
+                               device=device)
+
+
+def host_sketch(records, keys, log2_slots: int):
+    """The sketch table and slots from ``hashlib`` digests and
+    ``np.add.at``: the independent reference of ``LogSummary``."""
+    nslots = 1 << log2_slots
+    rd = np.frombuffer(b"".join(blake(r) for r in records), "<u4")
+    kd = np.frombuffer(b"".join(blake(k) for k in keys), "<u4")
+    slots = kd.reshape(-1, 8)[:, 0] & np.uint32(nslots - 1)
+    table = np.zeros((nslots, 8), dtype=np.uint32)
+    np.add.at(table, slots, rd.reshape(-1, 8))
+    return table, slots.astype(np.int64)
+
+
+def run_reconcile(device, n=DIFF_LEAVES, rows=SKETCH_ROWS,
+                  inserts=SKETCH_INSERTS, log2_slots=SKETCH_LOG2_SLOTS,
+                  k=RATELESS_K, n_updates=N_UPDATES,
+                  n_proofs=N_PROOFS) -> dict:
+    """Phase 10's main path, once: the tree diff of two change-log
+    snapshots, ``update_leaves``, proofs, the sketch reconcile, the
+    tree-sync descent over the sketches and the rateless decode, each
+    held against an independent reference.  The launch counters are set
+    to 0 at the start and read at the end."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch import weights
+    from dat_replication_protocol_tpu_torch.ops import merkle, rateless
+    from dat_replication_protocol_tpu_torch.ops import reconcile as rec
+    from dat_replication_protocol_tpu_torch.runtime.tree_sync import (
+        TreeSyncSession, sync as tree_sync)
+
+    rng = np.random.default_rng(SEED + 40)
+    half = k // 2
+    out = {"leaves": n, "sketch_records": 2 * rows + inserts}
+
+    # 1. two snapshots: A's records (and k/2 more, only in the rateless
+    # step's B set), B = A with 1% of the values rewritten
+    t0 = time.perf_counter()
+    recs_a = encode_rows(random_values(rng, n + half), range(n + half))
+    rewritten = np.sort(rng.choice(n, n // 100, replace=False))
+    recs_b = recs_a[:n]
+    for i, r in zip(rewritten, encode_rows(random_values(rng, len(rewritten)),
+                                           rewritten)):
+        recs_b[i] = r
+    out["encode_s"] = time.perf_counter() - t0
+    digests_a = [blake(r) for r in recs_a[:n]]
+    digests_b = [blake(r) for r in recs_b]
+
+    reset_counters()
+    a_all = hash_records(recs_a, device)
+    a_hh, a_hl = a_all[0][:n], a_all[1][:n]
+    b_hh, b_hl = hash_records(recs_b, device)
+    idx = merkle.diff_snapshots(a_hh, a_hl, b_hh, b_hl)
+    bits, root_a, root_b = merkle.diff_root_guided_packed(a_hh, a_hl, b_hh,
+                                                          b_hl)
+    packed_idx = np.nonzero(merkle.unpack_mask(bits, n))[0]
+    dense = np.nonzero((merkle.digest_matrix(a_hh, a_hl)
+                        != merkle.digest_matrix(b_hh, b_hl)).any(axis=1))[0]
+    for name, got in (("diff_snapshots", idx), ("the packed diff",
+                                                 packed_idx)):
+        if not (np.array_equal(got, dense)
+                and np.array_equal(got, rewritten)):
+            raise AssertionError(f"{name} finds {len(got)} leaves; the dense "
+                                 f"compare {len(dense)}, rewritten "
+                                 f"{len(rewritten)}")
+    roots = [merkle.digests_from_device(*r)[0] for r in (root_a, root_b)]
+    if roots != [merkle.root_host(digests_a), merkle.root_host(digests_b)]:
+        raise AssertionError("a diff root differs from root_host")
+    out["differing"] = len(idx)
+
+    # 2. K leaf updates on A's tree against a rebuild
+    levels_hh, levels_hl = merkle.build_tree(a_hh, a_hl)
+    kept = [t.clone() for t in levels_hh + levels_hl]
+    pos = np.sort(rng.choice(n, n_updates, replace=False))
+    words = rng.integers(0, 1 << 32, (2, n_updates, 4), dtype=np.uint64)
+    new_hh, new_hl = (torch.from_numpy(w.astype(np.uint32).view(np.int32))
+                      .to(device) for w in words)
+    up_hh, up_hl = merkle.update_leaves(levels_hh, levels_hl, pos, new_hh,
+                                        new_hl)
+    at = torch.as_tensor(pos, device=device)
+    leaf_hh, leaf_hl = a_hh.clone(), a_hl.clone()
+    leaf_hh[at], leaf_hl[at] = new_hh, new_hl
+    want_hh, want_hl = merkle.build_tree(leaf_hh, leaf_hl)
+    if not all(torch.equal(x, y) for x, y in zip(up_hh + up_hl,
+                                                  want_hh + want_hl)):
+        raise AssertionError("update_leaves differs from a rebuild")
+    if not all(torch.equal(x, y) for x, y in zip(levels_hh + levels_hl,
+                                                  kept)):
+        raise AssertionError("update_leaves wrote into its input tree")
+    del kept, leaf_hh, leaf_hl, want_hh, want_hl
+    out["update"] = (levels_hh, levels_hl, pos, new_hh, new_hl)
+
+    # 3. proofs against A's root, and two that must fail
+    root = roots[0]
+    for i in rng.choice(n, n_proofs, replace=False).tolist():
+        path = merkle.prove(levels_hh, levels_hl, i)
+        if not merkle.verify_proof(root, digests_a[i], i, path, n):
+            raise AssertionError(f"the proof of leaf {i} does not verify")
+    bad = list(path)
+    bad[len(bad) // 2] = bytes([bad[len(bad) // 2][0] ^ 1]) + bad[
+        len(bad) // 2][1:]
+    if (merkle.verify_proof(root, digests_a[i], i, bad, n)
+            or merkle.verify_proof(root, digests_a[i], i ^ 1, path, n)):
+        raise AssertionError("a tampered proof or a wrong index verifies")
+
+    # 4. the sketch reconcile at bench_merkle's shape
+    keys_a = [b"row-%07d" % i for i in range(rows)]
+    srecs_a = [b"value-of:" + key for key in keys_a]
+    keys_b, srecs_b = list(keys_a), list(srecs_a)
+    at_rows = sorted(rng.integers(0, rows, inserts).tolist(), reverse=True)
+    for j, p in enumerate(at_rows):
+        keys_b.insert(p, b"new-%d" % j)
+        srecs_b.insert(p, b"value-of-new-%d" % j)
+    t0 = time.perf_counter()
+    sa = rec.LogSummary(srecs_a, keys_a, log2_slots, device=device)
+    sb = rec.LogSummary(srecs_b, keys_b, log2_slots, device=device)
+    diff = rec.reconcile(sa, sb)
+    out["reconcile_s"] = time.perf_counter() - t0
+    for s, recs, keys in ((sa, srecs_a, keys_a), (sb, srecs_b, keys_b)):
+        table, slots = host_sketch(recs, keys, log2_slots)
+        if not (np.array_equal(weights.table_to_numpy(s.table), table)
+                and np.array_equal(s.slots, slots)):
+            raise AssertionError("a sketch differs from hashlib + np.add.at")
+    new_keys = {b"new-%d" % j for j in range(inserts)}
+    if not new_keys <= set(diff["b_keys"]):
+        raise AssertionError("an inserted key is missing from b_keys")
+    new_slots = np.unique(sb.slots[[i for i, key in enumerate(keys_b)
+                                    if key in new_keys]])
+    if not np.array_equal(diff["slots"], new_slots):
+        raise AssertionError("the differing slots are not the inserted "
+                             "keys' slots")
+    out["sketch"] = (srecs_a, keys_a, srecs_b, keys_b)
+    out["slots"] = len(diff["slots"])
+
+    # 5. the tree-sync descent over the two sketch tables' B2 trees
+    ta = TreeSyncSession(*merkle.build_tree(*rec.table_leaves(sa.table)))
+    tb = TreeSyncSession(*merkle.build_tree(*rec.table_leaves(sb.table)))
+    transcript = []
+    if tree_sync(ta, tb, transcript) != diff["slots"].tolist():
+        raise AssertionError("tree_sync's slots differ from the sketch diff")
+    out["sync_bytes"] = sum(nb for _, nb in transcript)
+    out["sync_messages"] = len(transcript)
+    del sa, sb, ta, tb
+
+    # 6. rateless: A's leaf digests against B = A less the first k/2,
+    # plus k/2 records only in B (bench.py config 11's split)
+    a_el = merkle.digest_matrix(a_hh, a_hl)
+    b_el = np.concatenate([a_el[half:],
+                           merkle.digest_matrix(a_all[0][n:], a_all[1][n:])])
+    t0 = time.perf_counter()
+    sender = rateless.CodedSymbols(rateless.dedupe_digests(a_el)[0],
+                                   device=device)
+    decoder = rateless.PeelDecoder(b_el, device=device)
+    sent, m, got = 0, 0, None
+    while got is None:
+        if m > 64 * k:
+            raise AssertionError(f"no decode after {m} symbols")
+        m = 128 if m == 0 else 2 * m
+        decoder.add_symbols(sent, sender.extend(m)[sent:])
+        sent = m
+        got = decoder.try_decode()
+    out["decode_s"] = time.perf_counter() - t0
+    out["symbols"] = m
+    digests, signs = got
+    want = {+1: {d.tobytes() for d in a_el[:half]},
+            -1: {d.tobytes() for d in b_el[-half:]}}
+    for sign, elems in want.items():
+        if {d.tobytes() for d in digests[signs == sign]} != elems:
+            raise AssertionError(f"the rateless decode's sign {sign} set "
+                                 "differs from the true difference")
+    if len(digests) != k:
+        raise AssertionError(f"decoded {len(digests)} elements, not {k}")
+    for prefix, el in ((sender, sender.digests),
+                       (decoder.local, decoder.local.digests)):
+        e, i = rateless.IndexCursor(el).advance(m)
+        host = rateless.build_symbols_host(rateless.element_rows(el), e, i, m)
+        if not np.array_equal(prefix.extend(m), host):
+            raise AssertionError("device-built coded symbols differ from "
+                                 "build_symbols_host")
+    out["launches"] = read_counters()
+    if min(out["launches"]["blake2b"], out["launches"]["merkle_level"]) == 0:
+        raise AssertionError(f"phase 10 launches {out['launches']}")
+    out["diff"] = (a_hh, a_hl, b_hh, b_hl)
+    return out
+
+
+def time_reconcile(device, run: dict) -> dict:
+    """Phase 10's times: the diff's entries/s (median of 10 warm reps,
+    packed-mask D2H and index extraction included, as bench_merkle
+    times it), B2 at the 2^21 -> 2^20 level beside its plain version and
+    bound, ``update_leaves`` ms and two warm repeats of the sketch
+    reconcile."""
+    import statistics
+
+    import torch
+
+    from dat_replication_protocol_tpu_torch.ops import merkle
+    from dat_replication_protocol_tpu_torch.ops import reconcile as rec
+    from dat_replication_protocol_tpu_torch.ops.merkle_cuda import (
+        merkle_level_kernel)
+
+    a_hh, a_hl, b_hh, b_hl = run["diff"]
+    n = a_hh.shape[0]
+
+    def diff():
+        bits, _, _ = merkle.diff_root_guided_packed(a_hh, a_hl, b_hh, b_hl)
+        return np.nonzero(merkle.unpack_mask(bits, n))[0]
+
+    diff()
+    reps = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        diff()
+        reps.append(time.perf_counter() - t0)
+    out = {"diff_s": reps, "diff_entries_s": n / statistics.median(reps)}
+
+    hh, hl = torch.cat([a_hh, b_hh]), torch.cat([a_hl, b_hl])
+    out["b2_ms"] = device_ms(lambda: merkle_level_kernel(hh, hl), 20)
+    out["b2_plain_ms"] = time_ms(lambda: merkle.merkle_level(hh, hl), reps=1)
+    out["b2_err"] = max_abs_err(merkle_level_kernel(hh, hl),
+                                merkle.merkle_level(hh, hl))
+    if out["b2_err"]:
+        raise AssertionError("B2 differs from its plain version at 2^21")
+    out["b2"] = b2_bound(n)
+    out["update_ms"] = time_ms(lambda: merkle.update_leaves(*run["update"]),
+                               reps=10)
+
+    srecs_a, keys_a, srecs_b, keys_b = run["sketch"]
+    # the summary's scatter-add alone, on the device, from A's digests
+    hh, hl = hash_records(srecs_a + keys_a, device)
+    out["summarize_ms"] = time_ms(lambda: rec._summarize(
+        hh, hl, len(srecs_a), SKETCH_LOG2_SLOTS), reps=5)
+    del hh, hl
+    out["reconcile_s"] = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        rec.reconcile(rec.LogSummary(srecs_a, keys_a, SKETCH_LOG2_SLOTS,
+                                     device=device),
+                      rec.LogSummary(srecs_b, keys_b, SKETCH_LOG2_SLOTS,
+                                     device=device))
+        out["reconcile_s"].append(time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1630,13 +1934,6 @@ def main() -> int:
     launches = {k: session["launches"][k] + side["launches"][k]
                 + ent["launches"][k] + cdc[k] + streamed[k]
                 for k in session["launches"] if k != "b1_blocks"}
-    buckets = b1_buckets(session["launches"], side["launches"],
-                         ent["launches"], cdc, streamed)
-    if sum(buckets.values()) != launches["blake2b"]:
-        raise AssertionError(f"B1's launches by bucket {buckets} do not sum "
-                             f"to its {launches['blake2b']} launches")
-    log(f"phase 9: B1's {launches['blake2b']} main-path launches by bucket "
-        f"{buckets}")
     sass = b1_sass()
     latency = chain_latency(device)
     log(f"phase 5: dependent-issue latency {latency['cycles']} cycles a "
@@ -1654,6 +1951,59 @@ def main() -> int:
     log(f"phase 9: B1 at phase 7's largest chunk bucket: plain "
         f"{chunk['plain_ms']} ms; chunks per bucket {chunk['buckets']}")
     rows += time_gear_kernels(device, launches)
+
+    t0 = time.perf_counter()
+    recon = run_reconcile(device)
+    p10 = recon["launches"]
+    log(f"phase 10: two snapshots of {recon['leaves']} change records "
+        f"(encoded in {recon['encode_s']:.2f} s), {recon['differing']} "
+        f"rewritten: diff_snapshots and the packed diff over the 2^21 "
+        f"concatenated leaves == the dense compare == the rewritten rows, "
+        f"roots == root_host; update_leaves of {N_UPDATES} leaves == a "
+        f"rebuild, input tree unchanged; {N_PROOFS} proofs verify, a "
+        f"flipped byte and a wrong index do not")
+    log(f"phase 10: sketch reconcile of {recon['sketch_records']} records "
+        f"(BASELINE configs[4], bench_merkle's shape, log2_slots "
+        f"{SKETCH_LOG2_SLOTS}) in {recon['reconcile_s']} s; tables and slots "
+        f"== hashlib + np.add.at; {recon['slots']} differing slots == the "
+        f"inserted keys' slots; tree_sync found the same slots in "
+        f"{recon['sync_messages']} messages, {recon['sync_bytes']} bytes")
+    log(f"phase 10: rateless over {recon['leaves']} digests, k "
+        f"{RATELESS_K}: decoded the exact symmetric difference with its "
+        f"signs from {recon['symbols']} symbols in {recon['decode_s']} s; "
+        f"device-built cells == build_symbols_host; launches {p10}")
+    times = time_reconcile(device, recon)
+    b2 = times["b2"]
+    log(f"phase 10: diff {times['diff_entries_s']} entries/s (median of 10 "
+        f"warm reps, packed-mask D2H and index extraction included; s "
+        f"{times['diff_s']})")
+    log(f"phase 10: B2 at {2 * recon['leaves']} -> {recon['leaves']}: "
+        f"device {times['b2_ms']} ms, plain {times['b2_plain_ms']} ms, "
+        f"max_abs_err {times['b2_err']}; bound {b2['bound_ms']} ms "
+        f"({b2['bound_by']}): bytes {b2['bytes_ms']}, operations "
+        f"{b2['ops_ms']} ms")
+    log(f"phase 10: update_leaves of {N_UPDATES} leaves: "
+        f"{times['update_ms']} ms; the sketch scatter-add of one 1M-record "
+        f"log on the device {times['summarize_ms']} ms; reconcile warm "
+        f"{times['reconcile_s']} s "
+        f"= {[recon['sketch_records'] / t for t in times['reconcile_s']]} "
+        f"records/s (first pass {recon['sketch_records'] / recon['reconcile_s']});"
+        f" rateless decode {recon['decode_s']} s")
+    log(f"phase 10: {time.perf_counter() - t0:.2f} s")
+    del recon, times
+
+    for k in launches:
+        launches[k] += p10[k]
+    for r in rows:
+        r["launches"] += p10[r["name"]]
+    buckets = b1_buckets(session["launches"], side["launches"],
+                         ent["launches"], cdc, streamed)
+    buckets["reconcile"] = sum(p10["b1_blocks"].values())
+    if sum(buckets.values()) != launches["blake2b"]:
+        raise AssertionError(f"B1's launches by bucket {buckets} do not sum "
+                             f"to its {launches['blake2b']} launches")
+    log(f"phase 9: B1's {launches['blake2b']} main-path launches by bucket "
+        f"{buckets}; B1 in phase 10 by block count {p10['b1_blocks']}")
     for r in rows:
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']} was not launched on the "

@@ -13,7 +13,14 @@ first four word pairs of :func:`.blake2b.digests_to_bytes`' layout.
 reference's ``_PALLAS_MIN_PARENTS`` floor is not carried over: there is
 no second device path); on the CPU the wrapper takes the plain version.
 
-``host_parent``/``host_tree``/``root_host`` are hashlib references.
+The diff builds A||B as one concatenated tree (every level on B2) and
+narrows a leaf mask top-down; :func:`update_leaves` recomputes only the
+K root paths, each level's parents on B2; :func:`prove` gathers the
+sibling path on the device.  The mask combines and gathers are torch
+ops, as the reference leaves them to XLA.
+
+``host_parent``/``host_tree``/``root_host``/``host_diff`` and
+:func:`verify_proof` are hashlib references.
 """
 
 from __future__ import annotations
@@ -92,8 +99,107 @@ def pad_leaves(hh, hl):
             torch.nn.functional.pad(hl, pad))
 
 
+def _node_neq(ahh, ahl, bhh, bhl):
+    """(N,) bool: per-node digest inequality."""
+    return ((ahh != bhh) | (ahl != bhl)).any(dim=1)
+
+
+def _check_snapshots(n: int, m: int) -> None:
+    if n == 0 or n & (n - 1):
+        raise ValueError(f"leaf count {n} is not a power of two; pad first")
+    if m != n:
+        raise ValueError(f"snapshot widths differ: {n} vs {m}; pad first")
+
+
+def diff_root_guided(a_leaf_hh, a_leaf_hl, b_leaf_hh, b_leaf_hl):
+    """Build both trees and diff them: ``(mask, a_root, b_root)``, the
+    mask (N,) bool over leaves, each root a (1, 4) hi/lo pair.
+
+    Both trees are built as one tree over A||B: with a power-of-two width
+    the sibling pairing never crosses the midpoint, so each level's two
+    halves are the two trees' levels, and every level is one B2 call.
+    The loop stops at two rows (the two roots); the mask is then narrowed
+    top-down, each level's inequality AND-ed with its parent's mask
+    repeated over the children.
+    """
+    from .merkle_cuda import merkle_level_kernel
+
+    _check_snapshots(a_leaf_hh.shape[0], b_leaf_hh.shape[0])
+    hh = torch.cat([a_leaf_hh, b_leaf_hh])
+    hl = torch.cat([a_leaf_hl, b_leaf_hl])
+    levels = []
+    while hh.shape[0] > 2:
+        levels.append((hh, hl))
+        hh, hl = merkle_level_kernel(hh, hl)
+    # hh/hl is now (2, 4): row 0 = A's root, row 1 = B's root
+    mask = _node_neq(hh[:1], hl[:1], hh[1:], hl[1:])
+    for lhh, lhl in reversed(levels):
+        half = lhh.shape[0] // 2
+        mask = mask.repeat_interleave(2) & _node_neq(
+            lhh[:half], lhl[:half], lhh[half:], lhl[half:])
+    return mask, (hh[:1], hl[:1]), (hh[1:], hl[1:])
+
+
+def pack_mask(mask):
+    """(N,) bool -> (ceil(N/32),) int32 words holding the mask's bits, LSB
+    first, zero-padded.  The sum runs in int64 (bit 31 overflows int32)
+    and keeps the low 32 bits."""
+    n = mask.shape[0]
+    m = torch.nn.functional.pad(mask.to(torch.int64), (0, -n % 32))
+    shifts = torch.arange(32, dtype=torch.int64, device=mask.device)
+    return (m.view(-1, 32) << shifts).sum(dim=1).to(torch.int32)
+
+
+def diff_root_guided_packed(a_leaf_hh, a_leaf_hl, b_leaf_hh, b_leaf_hl):
+    """:func:`diff_root_guided` with the leaf mask packed 32 to a word
+    (:func:`pack_mask`), so one bit per leaf crosses D2H; read it back
+    with :func:`unpack_mask`."""
+    mask, root_a, root_b = diff_root_guided(a_leaf_hh, a_leaf_hl,
+                                            b_leaf_hh, b_leaf_hl)
+    return pack_mask(mask), root_a, root_b
+
+
+def update_leaves(levels_hh, levels_hl, idx, new_hh, new_hl):
+    """Apply K leaf updates to a built tree, recomputing only the K root
+    paths: new level tuples, the caller's levels left unchanged.
+
+    ``idx``: (K,) leaf positions; ``new_hh``/``new_hl``: (K, 4) digests
+    on the levels' device.  Per level, the K parents' left and right
+    children are gathered and interleaved into one contiguous (2K, 4)
+    pair of halves for B2; duplicate parents are recomputed to the same
+    value.  Among duplicate leaf positions the winner is unspecified, as
+    in the reference.
+    """
+    from .merkle_cuda import merkle_level_kernel
+
+    leaf_hh = levels_hh[0]
+    n = leaf_hh.shape[0]
+    idx = torch.as_tensor(idx, dtype=torch.int64).reshape(-1)
+    if idx.numel() and not (0 <= int(idx.min()) and int(idx.max()) < n):
+        raise IndexError(f"leaf positions must lie in [0, {n})")
+    idx = idx.to(leaf_hh.device)
+    out_hh = [leaf_hh.clone()]
+    out_hl = [levels_hl[0].clone()]
+    out_hh[0][idx] = new_hh
+    out_hl[0][idx] = new_hl
+    for lvl in range(1, len(levels_hh)):
+        pidx = idx >> 1
+        pair = torch.stack([2 * pidx, 2 * pidx + 1], dim=1).reshape(-1)
+        p_hh, p_hl = merkle_level_kernel(out_hh[-1].index_select(0, pair),
+                                         out_hl[-1].index_select(0, pair))
+        out_hh.append(levels_hh[lvl].clone())
+        out_hl.append(levels_hl[lvl].clone())
+        out_hh[-1][pidx] = p_hh
+        out_hl[-1][pidx] = p_hl
+        idx = pidx
+    return tuple(out_hh), tuple(out_hl)
+
+
 def unpack_mask(bits, n: int) -> np.ndarray:
-    """Packed u32 words (LSB first; any 32-bit dtype) -> (n,) 0/1 uint8."""
+    """Packed u32 words (LSB first; any 32-bit dtype, numpy or a tensor on
+    any device) -> (n,) 0/1 uint8."""
+    if isinstance(bits, torch.Tensor):
+        bits = bits.cpu().numpy()
     words = np.ascontiguousarray(bits).view(np.uint32)
     return np.unpackbits(words.view(np.uint8), bitorder="little")[:n]
 
@@ -106,6 +212,67 @@ def digests_to_device(digests: list[bytes], device="cuda"):
     hh = torch.from_numpy(raw[:, 1::2].astype(np.uint32).view(np.int32))
     hl = torch.from_numpy(raw[:, 0::2].astype(np.uint32).view(np.int32))
     return hh.to(dev), hl.to(dev)
+
+
+def diff_leaves(a_digests: list[bytes], b_digests: list[bytes],
+                device="cuda") -> list[int]:
+    """Differing leaf indices of two equal-length digest lists, by the
+    tree diff on ``device`` (both zero-padded to a power of two)."""
+    if len(a_digests) != len(b_digests):
+        raise ValueError("snapshots must have equal leaf counts; pad first")
+    if not a_digests:
+        return []
+    a_hh, a_hl = pad_leaves(*digests_to_device(a_digests, device))
+    b_hh, b_hl = pad_leaves(*digests_to_device(b_digests, device))
+    mask, _, _ = diff_root_guided(a_hh, a_hl, b_hh, b_hl)
+    return torch.nonzero(mask[:len(a_digests)]).flatten().tolist()
+
+
+def diff_snapshots(a_hh, a_hl, b_hh, b_hl) -> np.ndarray:
+    """Differing leaf indices (ascending int64) between two equal,
+    power-of-two width snapshots, by the packed tree diff on the device
+    the tensors live on: one bit per leaf crosses to the host."""
+    n = a_hh.shape[0]
+    if b_hh.shape[0] != n:
+        raise ValueError("snapshots must have equal (padded) leaf counts")
+    bits, _, _ = diff_root_guided_packed(a_hh, a_hl, b_hh, b_hl)
+    return np.nonzero(unpack_mask(bits, n))[0]
+
+
+def prove(levels_hh, levels_hl, idx: int) -> list[bytes]:
+    """Inclusion proof for leaf ``idx`` of a :func:`build_tree` tree: the
+    sibling digest per level, bottom-up.  The siblings are gathered on the
+    device and cross to the host in one copy."""
+    n = levels_hh[0].shape[0]
+    if not 0 <= idx < n:
+        raise IndexError(f"leaf {idx} out of range [0, {n})")
+    nlev = len(levels_hh) - 1
+    if nlev == 0:
+        return []
+    sib_hh = torch.cat([levels_hh[lvl][((idx >> lvl) ^ 1)][None]
+                        for lvl in range(nlev)])
+    sib_hl = torch.cat([levels_hl[lvl][((idx >> lvl) ^ 1)][None]
+                        for lvl in range(nlev)])
+    return digests_from_device(sib_hh, sib_hl)
+
+
+def verify_proof(root: bytes, leaf: bytes, idx: int,
+                 path: list[bytes], nleaves: int) -> bool:
+    """Check an inclusion proof against a 32-byte root (hashlib).
+
+    ``nleaves`` pins the path length to the padded tree height, so an
+    interior digest cannot pass as a leaf and an index cannot alias
+    modulo the width."""
+    if nleaves <= 0 or not 0 <= idx < nleaves:
+        return False
+    depth = max(0, int(nleaves) - 1).bit_length()
+    if len(path) != depth:
+        return False
+    node = leaf
+    for lvl, sib in enumerate(path):
+        bit = (idx >> lvl) & 1
+        node = host_parent(sib, node) if bit else host_parent(node, sib)
+    return node == root
 
 
 def digest_matrix(hh, hl) -> np.ndarray:
@@ -154,3 +321,21 @@ def root_host(digests) -> bytes:
     p = 1 << (len(leaves) - 1).bit_length()
     leaves += [b"\0" * DIGEST_SIZE] * (p - len(leaves))
     return host_tree(leaves)[-1][0]
+
+
+def host_diff(a: list[bytes], b: list[bytes]) -> list[int]:
+    """Recursive descend-on-difference reference diff (ascending)."""
+    out: list[int] = []
+
+    def walk(ta, tb, lvl, idx):
+        if ta[lvl][idx] == tb[lvl][idx]:
+            return
+        if lvl == 0:
+            out.append(idx)
+            return
+        walk(ta, tb, lvl - 1, 2 * idx)
+        walk(ta, tb, lvl - 1, 2 * idx + 1)
+
+    ta, tb = host_tree(a), host_tree(b)
+    walk(ta, tb, len(ta) - 1, 0)
+    return out

@@ -1,7 +1,10 @@
-"""Content addressing on top of the device ops."""
+"""Content addressing and the tree-sync descent on top of the device
+ops."""
 
 from .content import (ContentSummary, content_address, content_digests,
                       delta, reassemble)
+from .tree_sync import TreeSyncSession
+from .tree_sync import sync as tree_sync
 
-__all__ = ["ContentSummary", "content_address", "content_digests", "delta",
-           "reassemble"]
+__all__ = ["ContentSummary", "TreeSyncSession", "content_address",
+           "content_digests", "delta", "reassemble", "tree_sync"]

@@ -7,7 +7,9 @@ package's ``build_tree`` output, as numpy ``uint32`` arrays, into the
 port's int32 tensors and back, and a summary's fields into the port's
 ``ContentSummary`` and back, bit for bit, so that both sides can be
 handed the same tree and a peer on either package can read the other's
-summary.
+summary.  Reconciliation state crosses the same way: a sketch table
+((nslots, 8) u32) or a coded-symbol block ((m, 11) or (m, 12) u32), and
+a whole ``LogSummary`` built on them.
 """
 
 from __future__ import annotations
@@ -59,3 +61,38 @@ def summary_to_numpy(summary):
     int, list of int, (nchunks, 32) uint8 array, 32 bytes."""
     return (int(summary.length), list(summary.cuts),
             np.array(summary.digests, dtype=np.uint8), bytes(summary.root))
+
+
+_TABLE_WIDTHS = (8, 11, 12)  # sketch cells, coded symbols, weighted ones
+
+
+def table_from_numpy(table, device="cuda"):
+    """A (rows, 8|11|12) ``uint32`` sketch table or coded-symbol block ->
+    an int32 tensor on ``device`` holding the same bits."""
+    arr = np.ascontiguousarray(table, dtype=np.uint32)
+    if arr.ndim != 2 or arr.shape[1] not in _TABLE_WIDTHS:
+        raise ValueError(f"expected (rows, 8|11|12) words, got {arr.shape}")
+    return torch.from_numpy(arr.view(np.int32).copy()).to(
+        resolve_device(device))
+
+
+def table_to_numpy(table) -> np.ndarray:
+    """An int32 table tensor -> the ``uint32`` numpy array of its bits."""
+    return table.detach().cpu().numpy().view(np.uint32)
+
+
+def log_summary_from_numpy(table, slots, keys, device="cuda"):
+    """A reconciliation summary's fields (as the JAX package's
+    ``LogSummary`` holds them: the table, each record's slot, the keys)
+    -> the port's ``LogSummary`` on ``device``."""
+    from .ops.reconcile import LogSummary
+
+    slots = np.asarray(slots, dtype=np.int64)
+    if len(slots) != len(keys) or np.shape(table)[1:] != (8,):
+        raise ValueError("a summary needs an (nslots, 8) table and one slot "
+                         "per key")
+    summary = LogSummary.__new__(LogSummary)
+    summary.table = table_from_numpy(table, device)
+    summary.slots = slots.copy()
+    summary.keys = list(keys)
+    return summary

@@ -12,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,7 +20,13 @@ import dat_replication_protocol_tpu_torch as protocol
 from dat_replication_protocol_tpu_torch.backend.cuda_backend import (
     DigestPipeline,
 )
-from dat_replication_protocol_tpu_torch.ops import fused_cdc_hash, rabin_cuda
+from dat_replication_protocol_tpu_torch.ops import (
+    fused_cdc_hash,
+    merkle,
+    rabin_cuda,
+    rateless,
+    reconcile,
+)
 from dat_replication_protocol_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
@@ -78,6 +85,28 @@ def test_port_session_loads_no_jax_package_module():
         "fn, args = entry.entry(device='cpu')\n"
         "fn(*args)\n"
         "assert len(got) == 2 and d.finished\n"
+        "import numpy as np\n"
+        "from dat_replication_protocol_tpu_torch.ops import rateless, reconcile\n"
+        "from dat_replication_protocol_tpu_torch.runtime.tree_sync import (\n"
+        "    TreeSyncSession, sync)\n"
+        "keys = [b'k%03d' % i for i in range(64)]\n"
+        "sa = reconcile.LogSummary([b'v' + k for k in keys], keys, 6,\n"
+        "                          device='cpu')\n"
+        "sb = reconcile.LogSummary([b'v' + k for k in keys[1:]], keys[1:], 6,\n"
+        "                          device='cpu')\n"
+        "slots = reconcile.reconcile(sa, sb)['slots'].tolist()\n"
+        "ta, tb = (TreeSyncSession(*merkle.build_tree(\n"
+        "    *reconcile.table_leaves(s.table))) for s in (sa, sb))\n"
+        "assert sync(ta, tb) == slots == [int(sa.slots[0])]\n"
+        "a = merkle.digests_to_device([bytes(32)] * 2, device='cpu')\n"
+        "b = merkle.digests_to_device([bytes(32), bytes([1]) * 32],\n"
+        "                             device='cpu')\n"
+        "assert merkle.diff_snapshots(*a, *b).tolist() == [1]\n"
+        "d = np.random.default_rng(0).integers(0, 256, (64, 32),\n"
+        "                                      dtype=np.uint8)\n"
+        "dec = rateless.PeelDecoder(d[1:], device='cpu')\n"
+        "dec.add_symbols(0, rateless.CodedSymbols(d, device='cpu').extend(16))\n"
+        "assert dec.try_decode()[0].tolist() == [d[0].tolist()]\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] == 'dat_replication_protocol_tpu')\n"
         "print(loaded)\n"
@@ -103,8 +132,19 @@ def _no_card():
     lambda: protocol.content_address(b"abc"),
     lambda: protocol.content_digests(b"abc"),
     lambda: protocol.chunk_stream(b"abc"),
+    lambda: merkle.diff_leaves([bytes(32)], [bytes(32)]),
+    lambda: reconcile.LogSummary([b"r"], [b"k"], 4),
+    lambda: reconcile.LogSummary([], [], 4),
+    lambda: rateless.CodedSymbols(np.zeros((1, 32), np.uint8)),
+    lambda: rateless.PeelDecoder(np.zeros((1, 32), np.uint8)),
+    lambda: rateless.WeightedSymbols(np.zeros((1, 32), np.uint8), [1]),
+    lambda: rateless.build_symbols_device(np.zeros((1, 11), np.uint32),
+                                          np.zeros(1, np.int64),
+                                          np.zeros(1, np.int64), 1),
 ], ids=["decode", "encode", "pipeline", "resolve", "resolve-index",
-        "content-address", "content-digests", "chunk-stream"])
+        "content-address", "content-digests", "chunk-stream", "diff-leaves",
+        "log-summary", "log-summary-empty", "coded-symbols", "peel-decoder",
+        "weighted-symbols", "build-symbols"])
 def test_cuda_without_a_card_raises(make):
     _no_card()
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -156,7 +196,8 @@ def test_new_modules_are_in_the_scan():
     names = {p.relative_to(PORT).as_posix() for p in _port_files()
              if PORT in p.parents}
     assert {"ops/rabin.py", "ops/rabin_cuda.py", "ops/fused_cdc_hash.py",
-            "batch/feed.py", "runtime/content.py"} <= names
+            "batch/feed.py", "runtime/content.py", "ops/reconcile.py",
+            "ops/rateless.py", "runtime/tree_sync.py"} <= names
 
 
 def test_port_reads_no_cdc_environment_switch():
