@@ -86,10 +86,31 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    ``build_symbols_host``.  Then the diff's entries/s (median of 10
    warm reps), B2 at the 2^21 -> 2^20 level beside its plain version
    and bound, ``update_leaves`` ms, the sketch scatter-add's device ms
-   and two warm reconcile repeats.
+   and two warm reconcile repeats;
+11. change-log replay at BASELINE.json configs[1], uncut: bench.py
+   bench_replay's block of 4,096 records repeated to 1,003,520 rows,
+   framed three ways (per record; ``encode_batch_frames`` at 65,536
+   rows a frame; per-record runs between batch frames with a blob).
+   ``replay_log`` of each must give the same rows (its
+   ``encode_change_columns`` is the per-record wire byte for byte), the
+   batch and mixed wires must be shorter than the per-record wire;
+   ``leaves_from_columns`` of the
+   per-record columns (wire extents, B1) and of the batch columns (the
+   canonical re-encode, B1) must equal ``hashlib`` of each payload, and
+   the root of the padded leaves (20 B2 levels) ``root_host``;
+   ``decode_batch_device`` of every batch frame must equal
+   ``decode_change_batch``; three digest sessions of the rows with four
+   blobs opened mid-run (a ``CudaEncoder`` negotiated to
+   ``CAP_CHANGE_BATCH`` piped into ``decode(backend="cuda")`` with a
+   ``change_batch`` handler, the same with a per-row ``change`` handler,
+   and the per-record session) must give the same change digests, in
+   order, on both ends, equal to ``hashlib``.  Then replay rows/s of each
+   wire, ``encode_change_columns`` rows/s, ``canonical_change_extents``
+   seconds, leaves + root ms with B1's and B2's device ms inside it,
+   ``decode_batch_device`` ms, the sessions' rows/s and the wire bytes.
 
 Every launch counter (B1's per variant and per block count too) is set
-to 0 just before each main-path phase (3, 4, 7, 8, 10) and read just
+to 0 just before each main-path phase (3, 4, 7, 8, 10, 11) and read just
 after; a kernel or B1 variant that the phases did not launch fails the
 run.
 The lines before the last carry the card, the per-kernel JSON and the
@@ -1835,6 +1856,253 @@ def time_reconcile(device, run: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: change-log replay at BASELINE.json configs[1]
+# ---------------------------------------------------------------------------
+
+REPLAY_BLOCK = 4096  # distinct records, as bench.py bench_replay builds
+REPLAY_REPS = 245  # the block repeated to 1,003,520 rows
+REPLAY_BATCH_ROWS = 65536  # rows a ChangeBatch frame (bench_wire_batch)
+SESSION_ROWS = REPLAY_BLOCK * REPLAY_REPS  # rows of each digest session
+SESSION_BLOBS = 4
+
+
+def replay_records() -> list[dict]:
+    """bench_replay's block of distinct Change records."""
+    return [{"key": f"key-{i:07d}", "change": i, "from": i, "to": i + 1,
+             "value": b"v" * (i % 48), "subset": "s" if i % 3 else None}
+            for i in range(REPLAY_BLOCK)]
+
+
+def same_rows(cols, wire: bytes, what: str) -> None:
+    """``cols`` holds the rows of the per-record ``wire``: its per-record
+    re-encode is that wire byte for byte."""
+    from dat_replication_protocol_tpu_torch.runtime import replay
+
+    if replay.encode_change_columns(cols) != wire:
+        raise AssertionError(f"the {what} wire's rows differ from the "
+                             "per-record wire's")
+
+
+def mixed_wire(wire: bytes, cols, frames) -> bytes:
+    """Runs of per-record frames (cut from ``wire``) between batch frames
+    of REPLAY_BATCH_ROWS rows, alternately, and one blob frame."""
+    from dat_replication_protocol_tpu_torch.runtime import replay
+    from dat_replication_protocol_tpu_torch.wire.framing import (
+        TYPE_BLOB, frame)
+
+    ends = (frames.starts + frames.lens).tolist()
+    parts = []
+    for k, lo in enumerate(range(0, len(cols), REPLAY_BATCH_ROWS)):
+        hi = min(len(cols), lo + REPLAY_BATCH_ROWS)
+        if k % 2:
+            parts.append(wire[ends[lo - 1]:ends[hi - 1]])
+        else:
+            parts.append(replay.encode_batch_frames(
+                replay._slice_columns(cols, lo, hi), REPLAY_BATCH_ROWS))
+        if k == 1:
+            parts.append(frame(TYPE_BLOB, b"a blob between the runs"))
+    return b"".join(parts)
+
+
+def replay_session(device, records, negotiated: bool, batch_handler: bool,
+                   n_rows: int) -> dict:
+    """A digest session of ``n_rows`` rows (``records`` repeated) with
+    SESSION_BLOBS blobs opened mid-run, through ``pipe`` into
+    ``decode(backend="cuda")``: the encoder negotiated to
+    CAP_CHANGE_BATCH with the default BatchPolicy, or not; the decoder
+    with a ``change_batch`` handler or a per-row ``change`` one."""
+    import dat_replication_protocol_tpu_torch as protocol
+
+    enc = protocol.encode(backend="cuda", device=device)
+    if negotiated:
+        enc.negotiate(protocol.CAP_CHANGE_BATCH)
+    dec = protocol.decode(backend="cuda", device=device)
+    sent, got = [], []
+    rows = 0
+
+    def on_batch(cols, done):
+        nonlocal rows
+        rows += len(cols)
+        done()
+
+    def on_change(_c, done):
+        nonlocal rows
+        rows += 1
+        done()
+
+    enc.on_digest(lambda kind, seq, d: sent.append((kind, seq, d)))
+    dec.on_digest(lambda kind, seq, d: got.append((kind, seq, d)))
+    if batch_handler:
+        dec.change_batch(on_batch)
+    dec.change(on_change)
+    blob_at = [n_rows * (i + 1) // (SESSION_BLOBS + 1) + 7
+               for i in range(SESSION_BLOBS)]
+    t0 = time.perf_counter()
+    protocol.pipe(enc, dec)
+    at = 0
+    while at < n_rows:
+        run = records[:min(len(records), n_rows - at)]
+        lo = 0
+        for cut in (b - at for b in blob_at if at <= b < at + len(run)):
+            # rows pending when the blob opens flush first
+            enc.change_many(run[lo:cut])
+            enc.blob(64 << 10).end(bytes(64 << 10))
+            lo = cut
+        if lo:
+            for r in run[lo:]:
+                enc.change(r)
+        else:
+            enc.change_many(run)
+        at += len(run)
+    enc.finalize()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    if not dec.finished or rows != n_rows:
+        raise AssertionError(f"the replay session delivered {rows} of "
+                             f"{n_rows} rows")
+    changes = [d for kind, _, d in got if kind == "change"]
+    if [d for kind, _, d in sent if kind == "change"] != changes:
+        raise AssertionError("encoder and decoder change digests differ")
+    if [s for kind, s, _ in got if kind == "change"] != list(range(n_rows)):
+        raise AssertionError("change digests out of order")
+    return {"seconds": seconds, "rows_s": n_rows / seconds,
+            "wire_bytes": dec.bytes, "changes": changes,
+            "blobs": [d for kind, _, d in got if kind == "blob"]}
+
+
+def run_replay(device, card: str) -> dict:
+    """Phase 11's main path, once: BASELINE configs[1] at full size."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch.batch import feed
+    from dat_replication_protocol_tpu_torch.ops import merkle
+    from dat_replication_protocol_tpu_torch.runtime import replay
+    from dat_replication_protocol_tpu_torch.wire import batch_codec
+
+    records = replay_records()
+    wire = replay.encode_change_log(records) * REPLAY_REPS
+    n = REPLAY_BLOCK * REPLAY_REPS
+    out = {"rows": n, "replay_s": {}, "wire_bytes": {"per-record": len(wire)}}
+
+    t0 = time.perf_counter()
+    cols, frames = replay.replay_log(np.frombuffer(wire, np.uint8))
+    out["replay_s"]["per-record"] = time.perf_counter() - t0
+    if len(cols) != n:
+        raise AssertionError(f"replayed {len(cols)} rows, want {n}")
+    t0 = time.perf_counter()
+    same_rows(cols, wire, "per-record")
+    out["encode_columns_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bwire = replay.encode_batch_frames(cols, REPLAY_BATCH_ROWS)
+    out["encode_batch_s"] = time.perf_counter() - t0
+    mwire = mixed_wire(wire, cols, frames)
+    replayed = {}
+    for what, w in (("batch", bwire), ("mixed", mwire)):
+        out["wire_bytes"][what] = len(w)
+        t0 = time.perf_counter()
+        replayed[what] = replay.replay_log(np.frombuffer(w, np.uint8))
+        out["replay_s"][what] = time.perf_counter() - t0
+        same_rows(replayed[what][0], wire, what)
+    if max(len(bwire), len(mwire)) >= len(wire):
+        raise AssertionError(f"wire bytes {out['wire_bytes']}: the batch "
+                             "and mixed wires must be shorter than the "
+                             "per-record wire")
+    bcols, bframes = replayed["batch"]
+    t0 = time.perf_counter()
+    ext = replay.canonical_change_extents(bcols)
+    out["canonical_s"] = time.perf_counter() - t0
+    if ext[0].tobytes() != wire:
+        raise AssertionError("canonical extents differ from the wire")
+
+    reset_counters()
+    t0 = time.perf_counter()
+    leaves = feed.leaves_from_columns(cols, frames, device=device)
+    hh, hl = merkle.digests_to_device([leaves.tobytes()], device=device)
+    root = merkle.digests_from_device(*merkle.root(
+        *merkle.pad_leaves(hh, hl)))[0]
+    out["leaves_root_ms"] = (time.perf_counter() - t0) * 1e3
+    leaves_b = feed.leaves_from_columns(bcols, bframes, device=device)
+    t0 = time.perf_counter()
+    dev_batches = [feed.decode_batch_device(
+        bwire[s:s + ln], device=device)
+        for s, ln in zip(bframes.starts.tolist(), bframes.lens.tolist())]
+    sync(device)
+    out["decode_device_ms"] = (time.perf_counter() - t0) * 1e3
+    out["batch_frames"] = len(dev_batches)
+    sessions = {}
+    for name, negotiated, whole in (("batch, change_batch", True, True),
+                                    ("batch, per-row change", True, False),
+                                    ("per-record", False, False)):
+        sessions[name] = replay_session(device, records, negotiated, whole,
+                                        SESSION_ROWS)
+    out["launches"] = read_counters()
+    if min(out["launches"]["blake2b"], out["launches"]["merkle_level"]) == 0:
+        raise AssertionError(f"phase 11 launches {out['launches']}")
+
+    # the references, on the host
+    data = memoryview(wire)
+    want = np.frombuffer(b"".join(
+        blake(data[s:s + ln]) for s, ln in zip(frames.starts.tolist(),
+                                               frames.lens.tolist())),
+        np.uint8).reshape(n, 32)
+    if not (np.array_equal(leaves, want) and np.array_equal(leaves_b, want)):
+        raise AssertionError("replay leaves differ from hashlib")
+    if root != merkle.root_host(list(map(bytes, want))):
+        raise AssertionError("the replay root differs from root_host")
+    out["root"] = root.hex()
+    for k, s, ln in zip(range(len(dev_batches)), bframes.starts.tolist(),
+                        bframes.lens.tolist()):
+        host = batch_codec.decode_change_batch(bwire[s:s + ln])
+        dev = dev_batches[k]
+        for name in ("change", "from_", "to", "val_off", "val_len"):
+            t = getattr(dev, name)
+            if t.device.type != torch.device(device).type or not np.array_equal(
+                    t.cpu().numpy(), getattr(host, name).astype(np.int64)):
+                raise AssertionError(f"decode_batch_device {name} differs")
+        if not torch.equal(dev.buf.cpu(), torch.from_numpy(host.buf.copy())):
+            raise AssertionError("decode_batch_device buf differs")
+    ref = sessions["per-record"]["changes"]
+    if ref != list(map(bytes, want[:SESSION_ROWS])):
+        raise AssertionError("per-record session digests differ from hashlib")
+    for name, sess in sessions.items():
+        if sess["changes"] != ref:
+            raise AssertionError(f"the {name} session's digests differ from "
+                                 "the per-record session's")
+        if sess["blobs"] != [blake(bytes(64 << 10))] * SESSION_BLOBS:
+            raise AssertionError(f"the {name} session's blob digests differ "
+                                 "from hashlib")
+        del sess["changes"], sess["blobs"]
+    out["sessions"] = sessions
+    out["leaves_args"] = (frames.buf, frames.starts, frames.lens, hh, hl)
+    return out
+
+
+def time_replay(device, run: dict) -> dict:
+    """B1's and B2's device ms inside phase 11's leaves + root: B1 on the
+    chunks ``hash_extents`` launches, B2 on the 20 levels, each from a
+    CUDA graph of the launches (CUDA events)."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch.batch import feed
+    from dat_replication_protocol_tpu_torch.ops import merkle
+    from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
+        blake2b_packed_kernel)
+
+    buf, offs, lens, hh, hl = run["leaves_args"]
+    b1_ms = 0.0
+    for nb, idx in feed.bucketed_extents(lens).items():
+        chunk = max(1, feed.PIPELINE_BYTES // (nb * feed.BLOCK_BYTES))
+        for c0 in range(0, len(idx), chunk):
+            sub = idx[c0:c0 + chunk]
+            args = [torch.from_numpy(a.view(np.int32)).to(device)
+                    for a in feed.pack_ragged(buf, offs[sub], lens[sub], nb)]
+            b1_ms += device_ms(lambda: blake2b_packed_kernel(*args), 2)
+    ph, pl = merkle.pad_leaves(hh, hl)
+    b2_ms = device_ms(lambda: merkle.build_tree(ph, pl), 2)
+    return {"b1_ms": b1_ms, "b2_ms": b2_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1992,18 +2260,52 @@ def main() -> int:
     log(f"phase 10: {time.perf_counter() - t0:.2f} s")
     del recon, times
 
+    t0 = time.perf_counter()
+    rep = run_replay(device, card)
+    p11 = rep["launches"]
+    n = rep["rows"]
+    log(f"phase 11: replay of {n} rows (BASELINE configs[1], uncut; "
+        f"bench_replay's {REPLAY_BLOCK}-record block x {REPLAY_REPS}): the "
+        f"per-record, batch ({REPLAY_BATCH_ROWS} rows a frame) and mixed "
+        f"wires replay to the same rows, encode_change_columns of each == "
+        f"the per-record wire; leaves of the per-record columns (wire "
+        f"extents) and of the batch columns (canonical re-encode) == hashlib,"
+        f" root {rep['root']} == root_host; decode_batch_device of the batch "
+        f"wire's {rep['batch_frames']} frames == decode_change_batch; "
+        f"launches {p11}")
+    log(f"phase 11: wire bytes {rep['wire_bytes']}; replay rows/s "
+        f"{ {k: n / v for k, v in rep['replay_s'].items()} } (s "
+        f"{rep['replay_s']}); encode_change_columns {n / rep['encode_columns_s']}"
+        f" rows/s; encode_batch_frames {rep['encode_batch_s']} s; "
+        f"canonical_change_extents {rep['canonical_s']} s; on {card}")
+    rt = time_replay(device, rep)
+    log(f"phase 11: leaves + root {rep['leaves_root_ms']} ms host clock, of "
+        f"it B1 {rt['b1_ms']} ms and B2 {rt['b2_ms']} ms on the device (CUDA "
+        f"events over a graph of the same launches); decode_batch_device of "
+        f"{n} rows {rep['decode_device_ms']} ms; on {card}")
+    for name, sess in rep["sessions"].items():
+        log(f"phase 11: digest session ({name}) of {SESSION_ROWS} rows and "
+            f"{SESSION_BLOBS} blobs: {sess['rows_s']} rows/s ({sess['seconds']}"
+            f" s, {sess['wire_bytes']} wire bytes); every change digest == "
+            f"the per-record session's == hashlib; on {card}")
+    log(f"phase 11: B1 launches by block count {p11['b1_blocks']}")
+    log(f"phase 11: {time.perf_counter() - t0:.2f} s")
+    del rep
+
     for k in launches:
-        launches[k] += p10[k]
+        launches[k] += p10[k] + p11[k]
     for r in rows:
-        r["launches"] += p10[r["name"]]
+        r["launches"] += p10[r["name"]] + p11[r["name"]]
     buckets = b1_buckets(session["launches"], side["launches"],
                          ent["launches"], cdc, streamed)
     buckets["reconcile"] = sum(p10["b1_blocks"].values())
+    buckets["replay"] = sum(p11["b1_blocks"].values())
     if sum(buckets.values()) != launches["blake2b"]:
         raise AssertionError(f"B1's launches by bucket {buckets} do not sum "
                              f"to its {launches['blake2b']} launches")
     log(f"phase 9: B1's {launches['blake2b']} main-path launches by bucket "
-        f"{buckets}; B1 in phase 10 by block count {p10['b1_blocks']}")
+        f"{buckets}; B1 in phase 10 by block count {p10['b1_blocks']}, in "
+        f"phase 11 {p11['b1_blocks']}")
     for r in rows:
         if r["launches"] == 0:
             raise AssertionError(f"{r['name']} was not launched on the "

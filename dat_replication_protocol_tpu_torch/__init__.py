@@ -18,6 +18,13 @@ index.js:1-2)::
 batched BLAKE2b-256 on ``device`` (default ``"cuda"``; without a card
 that raises).
 
+A receiver that advertised ``Decoder.capabilities()`` (which holds
+``CAP_CHANGE_BATCH``) is sent columnar batch frames by an encoder built
+with ``protocol.encode(peer_caps=CAP_CHANGE_BATCH)`` or told later by
+``enc.negotiate(...)``; ``runtime.replay_log`` replays a whole log of
+either framing to columns, and ``batch.leaves_from_columns`` hashes them
+to Merkle leaves on B1.
+
 Content addressing (dat's chunked dedup exchange)::
 
     s = protocol.content_address(blob)            # cuts, digests, root
@@ -30,9 +37,10 @@ from __future__ import annotations
 from .ops.rabin import chunk_stream
 from .runtime.content import (content_address, content_digests, delta,
                               reassemble)
-from .session import (BlobLengthError, BlobReader, BlobWriter, Decoder,
-                      Encoder, Pipe, pipe)
-from .wire import Change, ProtocolError, decode_change, encode_change
+from .session import (BatchPolicy, BlobLengthError, BlobReader, BlobWriter,
+                      Decoder, Encoder, Pipe, pipe)
+from .wire import (CAP_CHANGE_BATCH, Change, ProtocolError, decode_change,
+                   encode_change)
 
 __version__ = "0.1.0"
 
@@ -63,7 +71,8 @@ def decode(backend: str = "host", device="cuda", **kwargs) -> Decoder:
     raise ValueError(f"unknown backend {backend!r}")
 
 
-__all__ = ["BlobLengthError", "BlobReader", "BlobWriter", "Change",
+__all__ = ["BatchPolicy", "BlobLengthError", "BlobReader", "BlobWriter",
+           "CAP_CHANGE_BATCH", "Change",
            "Decoder", "Encoder", "Pipe", "ProtocolError", "chunk_stream",
            "content_address", "content_digests", "decode", "decode_change",
            "delta", "encode", "encode_change", "pipe", "reassemble"]

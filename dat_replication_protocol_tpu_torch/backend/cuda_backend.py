@@ -5,6 +5,12 @@ The counterpart of ``dat_replication_protocol_tpu/backend/tpu_backend.py``.
 and semantics and additionally content-hash every change payload and
 blob, batching them through :class:`DigestPipeline` onto the card.
 
+A change's digest is the BLAKE2b-256 of its per-record payload whatever
+framing carried it: rows of a negotiated ``ChangeBatch`` frame are
+re-encoded canonically and submitted in wire-row order, so a
+batch-framed session gives the digest stream of the per-record session
+of the same rows.
+
 Digests arrive through ``on_digest(kind, seq, digest)`` callbacks and are
 flushed before finalize: the finalize hook runs only once digests for all
 submitted work have been delivered (the analogue of the reference's
@@ -210,6 +216,20 @@ class CudaDecoder(_DigestTaps, Decoder):
         self._change_seq += 1
         super()._deliver_change(change, payload)
 
+    def _note_change_batch(self, cols, n: int) -> None:
+        # every row's digest is owed at acceptance, before any row reaches
+        # a handler: the canonical per-record encodings, in row order
+        if not self._digest_cbs:
+            self._change_seq += n
+            return
+        from ..runtime.replay import canonical_change_payloads
+
+        submit, emit = self._pipeline.submit, self._emit_change_digest
+        for seq, payload in enumerate(canonical_change_payloads(cols),
+                                      self._change_seq):
+            submit(payload, emit, seq)
+        self._change_seq += n
+
     def _open_blob_if_ready(self) -> None:
         if self._digest_cbs:
             # self._missing is the blob's wire length at header time
@@ -266,6 +286,30 @@ class CudaEncoder(_DigestTaps, Encoder):
         self._change_seq += 1
         return super()._frame_change(payload, on_flush)
 
+    def _note_change_run(self, payloads) -> None:
+        # a per-record change_many run: one digest per row, as the rows
+        # framed one by one would give (the reference's change_many skips
+        # them)
+        if self._digest_cbs:
+            submit, emit = self._pipeline.submit, self._emit_change_digest
+            for seq, payload in enumerate(payloads, self._change_seq):
+                submit(payload, emit, seq)
+        self._change_seq += len(payloads)
+
+    def _note_batch_rows(self, rows, payload) -> None:
+        # a batch flush: each row's canonical per-record encoding, in the
+        # seq stream _frame_change would have given, before the frame is
+        # queued; the rows are re-encoded from the frame's own columns
+        if self._digest_cbs:
+            from ..runtime.replay import canonical_change_payloads
+            from ..wire.batch_codec import decode_change_batch
+
+            submit, emit = self._pipeline.submit, self._emit_change_digest
+            for seq, row in enumerate(canonical_change_payloads(
+                    decode_change_batch(payload)), self._change_seq):
+                submit(row, emit, seq)
+        self._change_seq += len(rows)
+
     def blob(self, length: int, on_flush=None):
         ws = super().blob(length, on_flush)
         if self._digest_cbs:
@@ -302,5 +346,10 @@ class CudaEncoder(_DigestTaps, Encoder):
         return ws
 
     def finalize(self, on_flush=None) -> None:
+        # pending batch rows are framed first, so their digests are among
+        # those flushed before finalize (the reference flushes the
+        # pipeline first and leaves the last batch's digests queued)
+        if self._batch_rows:
+            self.flush_batch()
         self._pipeline.flush()  # flush-before-finalize
         super().finalize(on_flush)

@@ -2,18 +2,26 @@
 
 The counterpart of ``dat_replication_protocol_tpu/batch/feed.py``
 (``pack_ragged`` :51, ``bucketed_extents`` :104, ``hash_extents`` /
-``hash_extents_device`` :115-244).  Every bucket goes to kernel B1's
+``hash_extents_device`` :115-244, ``DeviceChangeBatch`` /
+``decode_batch_device`` :248-297, ``leaves_from_change_columns`` /
+``leaves_from_columns`` :300-344).  Every bucket goes to kernel B1's
 wrapper, staged in pinned host memory and copied without blocking on
-CUDA; there is no item floor and no buffer donation.
+CUDA; there is no item floor and no buffer donation.  Replayed change
+records become Merkle leaves here: a leaf is the BLAKE2b-256 of the
+record's per-record payload, whatever framing carried it.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from ..ops import blake2b
 from ..utils.device import resolve_device
+from ..wire.batch_codec import ragged_copy
 
 BLOCK_BYTES = blake2b.BLOCK_BYTES
 PIPELINE_BYTES = 64 << 20  # padded message bytes per B1 launch, at most
@@ -39,12 +47,8 @@ def pack_ragged(buf: np.ndarray, offs, lens, nblocks: int | None = None):
         for i in range(B):
             out[i, :lens[i]] = buf[offs[i]:offs[i] + lens[i]]
     elif total:
-        # ragged scatter: within-item ranks, then source and destination
-        ranks = np.arange(total, dtype=np.int64) - np.repeat(
-            np.cumsum(lens) - lens, lens)
-        src = np.repeat(offs, lens) + ranks
-        dst = np.repeat(np.arange(B, dtype=np.int64) * width, lens) + ranks
-        out.reshape(-1)[dst] = buf[src]
+        ragged_copy(out.reshape(-1), np.arange(B, dtype=np.int64) * width,
+                    buf, offs, lens)
     words = out.view("<u4").reshape(B, nblocks, 32)
     return (np.ascontiguousarray(words[:, :, 1::2]),
             np.ascontiguousarray(words[:, :, 0::2]),
@@ -118,3 +122,109 @@ def hash_extents(buf: np.ndarray, offs, lens, device="cuda",
         return np.empty((0, 32), dtype=np.uint8)
     return digest_matrix(*hash_extents_device(buf, offs, lens, device,
                                               pipeline_bytes))
+
+
+@dataclasses.dataclass
+class DeviceChangeBatch:
+    """A decoded ``ChangeBatch`` resident on a device.
+
+    ``change`` / ``from_`` / ``to`` are (n,) int64 tensors holding the
+    wire's uint32 values; ``buf`` is the payload as a uint8 tensor, with
+    ``val_off`` / ``val_len`` (int64; -1 = absent) addressing the value
+    heap inside it.  Key and subset dictionaries stay in ``buf``: kernels
+    address bytes, not strings.
+    """
+
+    change: torch.Tensor
+    from_: torch.Tensor
+    to: torch.Tensor
+    buf: torch.Tensor
+    val_off: torch.Tensor
+    val_len: torch.Tensor
+
+    def __len__(self) -> int:
+        return int(self.change.shape[0])
+
+
+def decode_batch_device(payload, base: int = 0,
+                        device="cuda") -> DeviceChangeBatch:
+    """Decode one ChangeBatch payload straight into tensors on
+    ``device``.
+
+    The wire's columns are already the device layout: each column goes
+    over in one copy from a zero-copy numpy view, the uint32 ones as
+    int32 bits widened on the device.  Structural corruption raises
+    ``ValueError``, as :func:`..wire.batch_codec.decode_change_batch`
+    does.
+    """
+    from ..wire.batch_codec import decode_change_batch
+
+    dev = resolve_device(device)
+    cols = decode_change_batch(payload, base=base)
+
+    def put(arr):
+        # the payload's views are read-only: nothing writes through the
+        # tensor before it is copied
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "The given NumPy array")
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t.to(dev) if dev.type == "cuda" else t.clone()
+
+    def words(col):
+        return put(np.ascontiguousarray(col).view(np.int32)).to(
+            torch.int64) & 0xFFFFFFFF
+
+    return DeviceChangeBatch(
+        change=words(cols.change), from_=words(cols.from_),
+        to=words(cols.to), buf=put(cols.buf), val_off=put(cols.val_off),
+        val_len=put(cols.val_len))
+
+
+def leaves_from_change_columns(cols, device="cuda") -> np.ndarray:
+    """Merkle leaf digests for decoded change columns WITHOUT a matching
+    per-record frame index — the batch-framed replay path.
+
+    The leaf contract is framing-independent: a row's leaf is the
+    BLAKE2b-256 of its canonical per-record payload encoding, so a
+    batch-framed log and a per-record log of the same rows produce
+    identical trees.  Rows are re-encoded canonically by numpy and the
+    payload extents hashed on B1."""
+    from ..runtime.replay import canonical_change_extents
+
+    dev = resolve_device(device)
+    buf, offs, lens = canonical_change_extents(cols)
+    return hash_extents(buf, offs, lens, dev)
+
+
+def leaves_from_columns(cols, frames=None, device="cuda") -> np.ndarray:
+    """Merkle leaf digests for replayed change records, in log order,
+    as (N, 32) uint8.
+
+    A leaf is the BLAKE2b-256 of the record's serialized payload bytes.
+    ``cols`` is a :class:`..runtime.replay.ChangeColumns`; if ``frames``
+    (the matching FrameIndex) is given and holds one ``Change`` frame per
+    row, the raw framed payload extents are hashed directly, else (batch
+    frames present) the canonical re-encoding.  Without ``frames`` each
+    row is re-encoded as ``cols.row(i)`` materializes it, absent
+    optionals as present-empty (the reference's behavior), and hashed
+    with ``blake2b_batch``.
+    """
+    dev = resolve_device(device)
+    if frames is not None:
+        from ..wire.framing import TYPE_CHANGE
+
+        sel = frames.ids == TYPE_CHANGE
+        if int(sel.sum()) == len(cols):
+            return hash_extents(frames.buf, frames.starts[sel],
+                                frames.lens[sel], dev)
+        # batch frames carry rows the per-record extents don't cover:
+        # hash the canonical re-encoding (identical digests either way)
+        return leaves_from_change_columns(cols, dev)
+    from ..runtime.replay import _encode_columns_per_record
+
+    buf, offs, lens = _encode_columns_per_record(cols, present_empty=True)
+    data = buf.tobytes()
+    payloads = [data[o:o + n] for o, n in zip(offs.tolist(), lens.tolist())]
+    return np.frombuffer(
+        b"".join(blake2b.blake2b_batch(payloads, device=dev)),
+        dtype=np.uint8).reshape(len(payloads), 32)

@@ -1,9 +1,10 @@
 """Session layer: Encoder / Decoder and the loopback pipe."""
 
 from .decoder import BlobReader, Decoder, DecoderDestroyedError
-from .encoder import BlobLengthError, BlobWriter, Encoder, EncoderDestroyedError
+from .encoder import (BatchPolicy, BlobLengthError, BlobWriter, Encoder,
+                      EncoderDestroyedError)
 from .pipe import Pipe, pipe
 
-__all__ = ["BlobLengthError", "BlobReader", "BlobWriter", "Decoder",
-           "DecoderDestroyedError", "Encoder", "EncoderDestroyedError",
-           "Pipe", "pipe"]
+__all__ = ["BatchPolicy", "BlobLengthError", "BlobReader", "BlobWriter",
+           "Decoder", "DecoderDestroyedError", "Encoder",
+           "EncoderDestroyedError", "Pipe", "pipe"]

@@ -15,12 +15,17 @@ parser, header -> (change | blob payload) -> header ...
   consumed, then the session finishes.
 * Unknown frame type ids destroy the session with
   :class:`~..wire.framing.ProtocolError` (decode.js:159-161).
+* Negotiated ``ChangeBatch`` frames (:meth:`capabilities` advertises
+  ``CAP_CHANGE_BATCH``) deliver whole columns to a :meth:`change_batch`
+  handler with one ``done``, or row by row to the :meth:`change`
+  handler, the stream a per-record peer would give.
 
 Only the streaming scanner is carried: the JAX package's native bulk
-index, batch/reconcile/snapshot frames, checkpoints and telemetry are
-not part of this slice.  Subclasses tap payloads through
-:meth:`_deliver_change` and the blob hooks (:meth:`_open_blob_if_ready`,
-:meth:`_note_blob_bytes`, :meth:`_end_blob`).
+index, reconcile/snapshot frames, checkpoints and telemetry are not.
+Subclasses tap payloads through :meth:`_deliver_change`,
+:meth:`_note_change_batch` and the blob hooks
+(:meth:`_open_blob_if_ready`, :meth:`_note_blob_bytes`,
+:meth:`_end_blob`).
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ from collections import deque
 from typing import Callable, Optional
 
 from ..wire.change_codec import Change, decode_change
-from ..wire.framing import (MAX_HEADER_LEN, TYPE_BLOB, TYPE_CHANGE,
-                            TYPE_HEADER, ProtocolError)
+from ..wire.framing import (LOCAL_CAPS, MAX_HEADER_LEN, TYPE_BLOB,
+                            TYPE_CHANGE, TYPE_CHANGE_BATCH, TYPE_HEADER,
+                            ProtocolError)
 from ..wire.varint import decode_uvarint
 
 OnDone = Optional[Callable[[], None]]
@@ -119,6 +125,49 @@ class BlobReader:
             cb()
 
 
+class _FastAck:
+    """One-shot ``done`` for a change handler: the pending counter is
+    only taken if the handler did NOT ack before returning, and never if
+    it raised, so a raise consumes its change and later frames still
+    deliver (the reference decoder's ``_FastAck``).
+
+    States: 0 fresh -> 1 acked before the handler returned (no pending
+    ever taken) / 2 armed (the handler kept it; pending taken by the
+    delivery site) -> 3 done (pending released).  Transitions run under
+    the decoder's ``_ack_lock``, so an ack from another thread between
+    the handler returning and the arming is neither lost nor counted
+    twice.
+    """
+
+    __slots__ = ("dec", "state")
+
+    def __init__(self, dec: "Decoder") -> None:
+        self.dec = dec
+        self.state = 0
+
+    def __call__(self) -> None:
+        dec = self.dec
+        with dec._ack_lock:
+            st = self.state
+            if st == 0:
+                self.state = 1  # acked before the handler returned
+                return
+            if st != 2:
+                return  # a second ack is a no-op
+            self.state = 3
+            dec._pending -= 1
+        dec._resume()
+
+    def arm(self) -> None:
+        """After the handler returned: take pending unless it acked."""
+        if self.state != 1:
+            dec = self.dec
+            with dec._ack_lock:
+                if self.state == 0:
+                    self.state = 2
+                    dec._pending += 1
+
+
 def _drain_blob(blob: BlobReader, done: Callable[[], None]) -> None:
     """Default blob handler: consume and discard (decode.js:58-61)."""
     blob.on_data(lambda _chunk: None)
@@ -135,6 +184,7 @@ class Decoder:
         self.destroyed = False
         self.finished = False
         self._on_change: Callable[[Change, Callable[[], None]], None] | None = None
+        self._on_change_batch = None  # whole-batch columnar handler
         self._on_blob: Callable[[BlobReader, Callable[[], None]], None] | None = None
         self._on_finalize: Callable[[Callable[[], None]], None] | None = None
         self._error_cbs: list[Callable[[Exception | None], None]] = []
@@ -146,6 +196,14 @@ class Decoder:
         self._missing = 0  # payload bytes still to consume
         self._payload_parts: list[bytes] | None = None  # change split across chunks
         self._current_blob: BlobReader | None = None
+        # parked ChangeBatch delivery cursor: a batch whose rows could not
+        # all be delivered (async ack / pause) resumes here, and nothing
+        # after it is parsed until it drains
+        self._pbatch: dict | None = None
+        # a ChangeBatch is ONE frame whatever its rows: these take its
+        # rows back out of ``changes`` when counting frames
+        self._batch_rows_seen = 0
+        self._batch_frames_done = 0
 
         # flow control
         self._pending = 0
@@ -165,6 +223,24 @@ class Decoder:
     def change(self, cb: Callable[[Change, Callable[[], None]], None]) -> "Decoder":
         self._on_change = cb
         return self
+
+    def change_batch(self, cb) -> "Decoder":
+        """Register a whole-batch handler: ``cb(cols, done)`` receives a
+        negotiated ``ChangeBatch`` frame's decoded columns (a
+        :class:`~..runtime.replay.ChangeColumns`: ``len()`` rows,
+        ``row(i)`` lazy materialization, numpy columns for bulk work) and
+        ONE ``done`` for the whole frame.  Without this handler, batch
+        rows go to the per-record :meth:`change` handler one
+        :class:`Change` at a time, the stream a per-record peer gives.
+        Per-record frames always go to :meth:`change`."""
+        self._on_change_batch = cb
+        return self
+
+    @staticmethod
+    def capabilities() -> int:
+        """The capability mask this decoder parses: what a receiver
+        advertises during session setup."""
+        return LOCAL_CAPS
 
     def blob(self, cb: Callable[[BlobReader, Callable[[], None]], None]) -> "Decoder":
         self._on_blob = cb
@@ -257,7 +333,9 @@ class Decoder:
             cb()
 
     def _protocol_error(self, message: str) -> ProtocolError:
-        frames = (self.changes + self.blobs
+        # frames delivered: blobs count at open, a batch once when done
+        frames = (self.changes - self._batch_rows_seen
+                  + self._batch_frames_done + self.blobs
                   - (1 if self._current_blob is not None else 0))
         return ProtocolError(message, frame=frames, offset=self.bytes)
 
@@ -265,24 +343,6 @@ class Decoder:
 
     def _stalled(self) -> bool:
         return self._pending > 0 or self._paused_readers > 0
-
-    def _up(self) -> Callable[[], None]:
-        """A one-shot ``done`` for an app callback; parsing pauses while
-        any are outstanding."""
-        with self._ack_lock:
-            self._pending += 1
-        fired = False
-
-        def done() -> None:
-            nonlocal fired
-            with self._ack_lock:
-                if fired:
-                    return
-                fired = True
-                self._pending -= 1
-            self._resume()
-
-        return done
 
     def _resume(self) -> None:
         # a nested resume while _consume is live is a no-op: the outer
@@ -296,7 +356,8 @@ class Decoder:
 
     def _maybe_finalize(self) -> None:
         if (not self._end_queued or self.finished or self.destroyed
-                or self._overflow or self._stalled() or self._consuming):
+                or self._overflow or self._pbatch is not None
+                or self._stalled() or self._consuming):
             return
         if self._state != TYPE_HEADER or self._header:
             self.destroy(self._protocol_error("stream ended mid-frame"))
@@ -325,7 +386,15 @@ class Decoder:
             return
         self._consuming = True
         try:
-            while self._overflow and not self._stalled() and not self.destroyed:
+            while not self._stalled() and not self.destroyed:
+                if self._pbatch is not None:
+                    # resume a parked ChangeBatch from its row cursor
+                    self._run_pending_batch()
+                    if self._pbatch is not None:
+                        return  # still stalled mid-batch
+                    continue
+                if not self._overflow:
+                    break
                 chunk = self._overflow.popleft()
                 rest = self._consume_chunk(chunk)
                 if self.destroyed:
@@ -336,7 +405,8 @@ class Decoder:
             self._consuming = False
         # fully drained and nothing outstanding: release parked writers
         # and run a queued finalization
-        if not self.destroyed and not self._overflow and not self._stalled():
+        if (not self.destroyed and not self._overflow
+                and self._pbatch is None and not self._stalled()):
             cbs, self._write_cbs = self._write_cbs, []
             for cb in cbs:
                 cb()
@@ -355,6 +425,8 @@ class Decoder:
             return self._scan_header(chunk)
         if self._state == TYPE_CHANGE:
             return self._change_data(chunk)
+        if self._state == TYPE_CHANGE_BATCH:
+            return self._batch_data(chunk)
         return self._blob_data(chunk)
 
     def _scan_header(self, chunk: memoryview) -> memoryview | None:
@@ -380,6 +452,9 @@ class Decoder:
                 if type_id == TYPE_CHANGE:
                     self._state = TYPE_CHANGE
                     self._payload_parts = None
+                elif type_id == TYPE_CHANGE_BATCH:
+                    self._state = TYPE_CHANGE_BATCH
+                    self._payload_parts = None
                 elif type_id == TYPE_BLOB:
                     self._state = TYPE_BLOB
                     try:
@@ -398,13 +473,20 @@ class Decoder:
         return None
 
     def _change_data(self, chunk: memoryview) -> memoryview | None:
+        return self._sized_payload_data(chunk, self._finish_change)
+
+    def _sized_payload_data(self, chunk: memoryview,
+                            finish) -> memoryview | None:
+        """Accumulate one whole-payload frame across transport chunks and
+        hand the complete payload to ``finish`` (change and ChangeBatch
+        frames)."""
         if self._payload_parts is None and len(chunk) >= self._missing:
             # whole payload inside one chunk: zero-copy slice
             payload = chunk[: self._missing]
             rest = chunk[self._missing:]
             self._missing = 0
             try:
-                self._finish_change(payload)
+                finish(payload)
             except BaseException:
                 self._requeue_tail(rest)
                 raise
@@ -418,7 +500,7 @@ class Decoder:
         if self._missing == 0:
             parts, self._payload_parts = self._payload_parts, None
             try:
-                self._finish_change(b"".join(parts))
+                finish(b"".join(parts))
             except BaseException:
                 self._requeue_tail(rest)
                 raise
@@ -438,8 +520,101 @@ class Decoder:
         self.changes += 1
         self._state = TYPE_HEADER
         if self._on_change is not None:
-            self._on_change(change, self._up())
+            ack = _FastAck(self)
+            self._on_change(change, ack)
+            ack.arm()
         # default: drop (decode.js:54-56)
+
+    # -- ChangeBatch frames ----------------------------------------------------
+
+    def _batch_data(self, chunk: memoryview) -> memoryview | None:
+        return self._sized_payload_data(chunk, self._finish_change_batch)
+
+    def _finish_change_batch(self, payload) -> None:
+        """Decode one complete ChangeBatch payload and start delivering
+        its rows.  A structurally corrupt payload (bad width, truncated
+        column, out-of-range index, non-UTF-8 dictionary) destroys the
+        session with a ProtocolError, as a corrupt Change payload does."""
+        from ..wire import batch_codec
+
+        try:
+            cols = batch_codec.decode_change_batch(payload)
+        except ValueError as e:
+            self.destroy(self._protocol_error(str(e)))
+            return
+        n = len(cols.change)
+        self._state = TYPE_HEADER
+        # digest tap: the whole frame's rows are owed at acceptance, before
+        # any row reaches a handler, keeping submit order = wire order
+        self._note_change_batch(cols, n)
+        self._pbatch = {"cols": cols, "row": 0, "n": n, "bbuf": None}
+        self._run_pending_batch()
+
+    def _note_change_batch(self, cols, n: int) -> None:
+        """Hook: one call per accepted ChangeBatch frame with its decoded
+        columns, before any row is delivered (the digest decoder submits
+        each row's canonical per-record encoding here).  Base: no-op."""
+
+    def _run_pending_batch(self) -> None:
+        """Deliver rows from the parked batch cursor until done or
+        stalled: the columns whole to a ``change_batch`` handler, else
+        one :class:`Change` a row to the ``change`` handler."""
+        pb = self._pbatch
+        cols, n, row = pb["cols"], pb["n"], pb["row"]
+        on_batch = self._on_change_batch
+        if on_batch is not None and row == 0:
+            # whole-batch delivery: one handler call, one ack
+            self._pbatch = None
+            self.changes += n
+            self._batch_rows_seen += n
+            self._batch_frames_done += 1
+            ack = _FastAck(self)
+            on_batch(cols, ack)
+            ack.arm()
+            return
+        on_change = self._on_change
+        if on_change is None:
+            # no handler: rows drop (decode.js:54-56); the payload was
+            # already structurally validated at decode
+            k = n - row
+            self._pbatch = None
+            self.changes += k
+            self._batch_rows_seen += k
+            self._batch_frames_done += 1
+            return
+        if pb["bbuf"] is None:
+            pb["bbuf"] = cols.buf.tobytes()  # one copy per batch
+        bbuf = pb["bbuf"]
+        ko, kl = cols.key_off, cols.key_len
+        so, sl = cols.sub_off, cols.sub_len
+        vo, vl = cols.val_off, cols.val_len
+        cg, fr, tv = cols.change, cols.from_, cols.to
+        try:
+            while row < n:
+                # dictionary UTF-8 was validated at decode
+                c = Change(
+                    key=bbuf[ko[row]: ko[row] + kl[row]].decode("utf-8"),
+                    change=int(cg[row]), from_=int(fr[row]), to=int(tv[row]),
+                    value=(bbuf[vo[row]: vo[row] + vl[row]]
+                           if vl[row] >= 0 else b""),
+                    subset=(bbuf[so[row]: so[row] + sl[row]].decode("utf-8")
+                            if sl[row] >= 0 else ""))
+                # delivery consumes the row BEFORE the handler can raise:
+                # a caught raise-then-resume re-enters at the next row
+                row += 1
+                self.changes += 1
+                self._batch_rows_seen += 1
+                ack = _FastAck(self)
+                on_change(c, ack)
+                ack.arm()
+                if (self.destroyed or self._pending > 0
+                        or self._paused_readers > 0):
+                    return
+        finally:
+            pb["row"] = row
+            if row >= n and self._pbatch is pb:
+                self._pbatch = None
+                self._batch_frames_done += 1
 
     def _open_blob_if_ready(self) -> None:
         """Create the reader and invoke the app handler.

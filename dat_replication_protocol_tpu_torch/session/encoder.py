@@ -15,22 +15,48 @@ A trimmed copy of ``dat_replication_protocol_tpu/session/encoder.py``
   callbacks fire when their bytes have been pulled, and ``write``/
   ``change`` return False above the high-water mark.
 * ``finalize()`` marks EOF; :meth:`read` returns ``None`` once drained.
+* Negotiated ``ChangeBatch`` framing: with ``CAP_CHANGE_BATCH`` in
+  ``peer_caps`` (at construction or by :meth:`negotiate`), changes
+  accumulate into columnar ``TYPE_CHANGE_BATCH`` frames behind a
+  :class:`BatchPolicy`.  With ``peer_caps=0`` the wire is the
+  reference's, byte for byte.
 
-Telemetry, capability negotiation, batch framing and journals are not
-carried in this slice.
+Telemetry, journals and the reconcile/snapshot frames are not carried.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections import deque
+from time import monotonic as _now
 from typing import Callable, Optional
 
-from ..wire.change_codec import Change, encode_change
-from ..wire.framing import TYPE_BLOB, TYPE_CHANGE, frame_header
+from ..wire.change_codec import Change, _check_uint32, encode_change
+from ..wire.framing import CAP_CHANGE_BATCH, TYPE_BLOB, TYPE_CHANGE, \
+    TYPE_CHANGE_BATCH, frame_header
 
 OnDone = Optional[Callable[[], None]]
 
 DEFAULT_HIGH_WATER = 64 * 1024
+
+
+@dataclasses.dataclass
+class BatchPolicy:
+    """Flush policy for negotiated columnar ``ChangeBatch`` framing.
+
+    Rows accumulate until any bound trips: ``max_rows`` / ``max_bytes``
+    (approximate payload volume), ``max_delay`` seconds since the first
+    pending row (checked on the next submit — there is no timer thread;
+    latency-sensitive producers call :meth:`Encoder.flush_batch`), or an
+    *uncork*: a consumer pulling :meth:`Encoder.read` while the queue is
+    otherwise dry flushes what is pending, so a drained transport never
+    waits on a half-full batch.  A blob open or ``finalize()`` always
+    flushes first (frame order is submission order).
+    """
+
+    max_rows: int = 4096
+    max_bytes: int = 1 << 20
+    max_delay: float | None = None
 
 
 class EncoderDestroyedError(Exception):
@@ -144,10 +170,23 @@ class BlobWriter:
 class Encoder:
     """Pull-based frame producer.  See module docstring for semantics."""
 
-    def __init__(self, high_water: int = DEFAULT_HIGH_WATER):
+    def __init__(self, high_water: int = DEFAULT_HIGH_WATER,
+                 peer_caps: int = 0,
+                 batch_policy: BatchPolicy | None = None):
         self.bytes = 0
         self.changes = 0
         self.blobs = 0
+        # capability mask the RECEIVING peer advertised; 0 = assume a
+        # reference peer and emit the reference wire byte for byte
+        self.peer_caps = peer_caps
+        self._batch_policy = (batch_policy if batch_policy is not None
+                              else BatchPolicy())
+        # pending ChangeBatch rows (prepared tuples) and their flush
+        # callbacks; their volume counts toward the high-water mark
+        self._batch_rows: list[tuple] = []
+        self._batch_cbs: list[Callable[[], None]] = []
+        self._batch_pending_bytes = 0
+        self._batch_t0: float | None = None
         self.destroyed = False
         self.finalized = False
         self.finished = False  # terminal: drained past finalize, or destroyed
@@ -176,18 +215,201 @@ class Encoder:
     def _detach_readable(self) -> None:
         self._on_readable = None
 
+    # -- capability negotiation ---------------------------------------------
+
+    def negotiate(self, peer_caps: int) -> None:
+        """Adopt the receiving peer's advertised capability mask (learned
+        out of band).  Takes effect for subsequent submissions; revoking
+        ``CAP_CHANGE_BATCH`` re-frames any pending rows as per-record
+        ``Change`` frames — the peer can no longer parse a batch frame,
+        so none may be emitted after the revocation."""
+        had_batch = self._batching
+        self.peer_caps = peer_caps
+        if had_batch and not self._batching:
+            self._flush_pending_per_record()
+
+    @property
+    def _batching(self) -> bool:
+        return bool(self.peer_caps & CAP_CHANGE_BATCH) and not self.destroyed
+
     def change(self, change: Change | dict, on_flush: OnDone = None) -> bool:
-        """Frame a Change; parked behind any open blob."""
+        """Frame a Change; parked behind any open blob.
+
+        With ``CAP_CHANGE_BATCH`` negotiated and no blob open, the change
+        joins the pending columnar batch instead (validated now, framed
+        at flush — see :class:`BatchPolicy`)."""
         if self.destroyed:
             raise EncoderDestroyedError("change after destroy")
         if self.finalized:
             raise EncoderDestroyedError("change after finalize")
+        if self._batching and not self._open_blobs:
+            self._batch_append(self._prepare_row(change), on_flush)
+            return not self._above_high_water()
         payload = encode_change(change)
         if self._open_blobs:
             self._parked_changes.append((payload, on_flush))
             self._parked_bytes += len(payload)
             return not self._above_high_water()
         return self._frame_change(payload, on_flush)
+
+    def change_many(self, records, on_flush: OnDone = None) -> bool:
+        """Submit a run of changes with per-run, not per-row, overhead:
+        the framed bytes land in ONE queue entry and ``on_flush`` fires
+        when the run's bytes drain.  Wire bytes are identical to calling
+        :meth:`change` per record."""
+        if self.destroyed:
+            raise EncoderDestroyedError("change after destroy")
+        if self.finalized:
+            raise EncoderDestroyedError("change after finalize")
+        if not isinstance(records, (list, tuple)):
+            records = list(records)
+        if self._open_blobs:
+            # ordering behind the blob FIFO is per-record machinery
+            ok = True
+            for i, rec in enumerate(records):
+                ok = self.change(
+                    rec, on_flush if i == len(records) - 1 else None)
+            return ok
+        if self._batching:
+            prepared = [self._prepare_row(r) for r in records]
+            for i, row in enumerate(prepared):
+                self._batch_append(
+                    row, on_flush if i == len(prepared) - 1 else None,
+                    defer_flush=True)
+            self._maybe_flush_batch()
+            return not self._above_high_water()
+        payloads = [encode_change(rec) for rec in records]
+        self._note_change_run(payloads)
+        out = bytearray()
+        for payload in payloads:
+            out += frame_header(len(payload), TYPE_CHANGE)
+            out += payload
+        if not records:
+            if on_flush is not None:
+                self._after_flush(on_flush)
+            return not self._above_high_water()
+        self.changes += len(records)
+        return self._push(bytes(out), on_flush)
+
+    # -- ChangeBatch accumulation -------------------------------------------
+
+    @staticmethod
+    def _prepare_row(change: Change | dict) -> tuple:
+        """Validate and normalize one record at SUBMIT time, so bad input
+        raises at the call that supplied it, not at a later flush.  Field
+        extraction and error classes are :func:`encode_change`'s."""
+        if isinstance(change, dict):
+            if "from" in change:
+                fr = change["from"]
+            elif "from_" in change:
+                fr = change["from_"]
+            else:
+                raise KeyError("from")  # required, same as from_dict
+            key = change["key"]
+            cg = change["change"]
+            to = change["to"]
+            value = change.get("value")
+            subset = change.get("subset")
+        else:
+            key = change.key
+            cg = change.change
+            fr = change.from_
+            to = change.to
+            value = change.value
+            subset = change.subset
+        if key is None:
+            raise ValueError("Change.key is required")
+        return (
+            key.encode("utf-8"),
+            _check_uint32("change", cg),
+            _check_uint32("from", fr),
+            _check_uint32("to", to),
+            None if value is None else bytes(value),
+            None if subset is None else subset.encode("utf-8"),
+        )
+
+    def _note_change_run(self, payloads: list[bytes]) -> None:
+        """Hook: the payloads of a per-record :meth:`change_many` run, in
+        order, before its bytes are queued (the digest encoder submits
+        them here, as :meth:`_frame_change` does one).  Base: no-op."""
+
+    def _note_batch_rows(self, rows: list[tuple], payload: bytes) -> None:
+        """Hook: one call per batch flush with the prepared row tuples and
+        the frame's payload, before the frame reaches the queue (the
+        digest encoder submits each row's canonical per-record encoding
+        here).  Base: no-op."""
+
+    def _flush_pending_per_record(self) -> None:
+        """Capability revocation: pending rows re-frame as per-record
+        ``Change`` frames; their flush callbacks fire when the run
+        drains, as a batch flush would have fired them."""
+        rows, self._batch_rows = self._batch_rows, []
+        if not rows:
+            return
+        cbs, self._batch_cbs = self._batch_cbs, []
+        self._batch_pending_bytes = 0
+        self._batch_t0 = None
+
+        def all_cbs():
+            for cb in cbs:
+                cb()
+
+        last = len(rows) - 1
+        for i, (key, cg, fr, to, val, sub) in enumerate(rows):
+            payload = encode_change({
+                "key": key.decode("utf-8"), "change": cg, "from": fr,
+                "to": to, "value": val,
+                "subset": None if sub is None else sub.decode("utf-8")})
+            self._frame_change(payload,
+                               all_cbs if (i == last and cbs) else None)
+
+    def _batch_append(self, row: tuple, on_flush: OnDone,
+                      defer_flush: bool = False) -> None:
+        if not self._batch_rows:
+            self._batch_t0 = _now()
+        self._batch_rows.append(row)
+        if on_flush is not None:
+            self._batch_cbs.append(on_flush)
+        # approximate pending volume: heap bytes + fixed columns
+        self._batch_pending_bytes += (
+            len(row[0]) + (len(row[4]) if row[4] is not None else 0)
+            + (len(row[5]) if row[5] is not None else 0) + 24)
+        if not defer_flush:
+            self._maybe_flush_batch()
+
+    def _maybe_flush_batch(self) -> None:
+        pol = self._batch_policy
+        if (len(self._batch_rows) >= pol.max_rows
+                or self._batch_pending_bytes >= pol.max_bytes
+                or (pol.max_delay is not None and self._batch_t0 is not None
+                    and _now() - self._batch_t0 >= pol.max_delay)):
+            self.flush_batch()
+
+    def flush_batch(self) -> None:
+        """Frame every pending batch row NOW as one ``TYPE_CHANGE_BATCH``
+        frame (no-op when nothing is pending)."""
+        from ..wire import batch_codec
+
+        rows, self._batch_rows = self._batch_rows, []
+        if not rows:
+            return
+        cbs, self._batch_cbs = self._batch_cbs, []
+        self._batch_pending_bytes = 0
+        self._batch_t0 = None
+        payload = batch_codec.encode_rows(rows)
+        # flush-side tap BEFORE the frame is queued, the batch twin of
+        # _frame_change's submit-before-frame ordering
+        self._note_batch_rows(rows, payload)
+        self.changes += len(rows)
+        if len(cbs) > 1:
+            def all_cbs(cbs=cbs):
+                for cb in cbs:
+                    cb()
+            cb = all_cbs
+        else:
+            cb = cbs[0] if cbs else None
+        self._push(frame_header(len(payload), TYPE_CHANGE_BATCH) + payload,
+                   cb)
 
     def _frame_change(self, payload: bytes, on_flush: OnDone) -> bool:
         self.changes += 1
@@ -202,6 +424,10 @@ class Encoder:
             raise EncoderDestroyedError("blob after finalize")
         if not isinstance(length, int) or length <= 0:
             raise ValueError("blob length is required and must be > 0")
+        # frame order is submission order: rows accumulated before this
+        # blob reach the wire before its header
+        if self._batch_rows:
+            self.flush_batch()
         ws = BlobWriter(self, length, on_flush)
         self.blobs += 1
         header = frame_header(length, TYPE_BLOB)
@@ -220,6 +446,8 @@ class Encoder:
         if self._open_blobs:
             raise EncoderDestroyedError(
                 f"finalize with {len(self._open_blobs)} blob(s) still open")
+        if self._batch_rows:
+            self.flush_batch()
         self.finalized = True
         self._finalize_cb = on_flush
         if not self._queue:
@@ -239,6 +467,10 @@ class Encoder:
         """
         if self.destroyed:
             raise EncoderDestroyedError("read after destroy")
+        if not self._queue and self._batch_rows:
+            # uncork: a consumer pulling a dry queue gets what is
+            # pending instead of waiting out the batch policy
+            self.flush_batch()
         if not self._queue:
             return None if self.finalized else b""
         out = bytearray()
@@ -314,6 +546,9 @@ class Encoder:
         self._queued_bytes = 0
         self._parked_bytes = 0
         self._parked_changes.clear()
+        self._batch_rows.clear()
+        self._batch_cbs.clear()
+        self._batch_pending_bytes = 0
         for cb in self._error_cbs:
             cb(err)
         # wake a producer gated on the drain signal so it sees the destroy
@@ -323,7 +558,8 @@ class Encoder:
         self._fire_finish()
 
     def _above_high_water(self) -> bool:
-        return self._queued_bytes + self._parked_bytes >= self._high_water
+        return (self._queued_bytes + self._parked_bytes
+                + self._batch_pending_bytes >= self._high_water)
 
     def _push(self, data, on_consumed: OnDone) -> bool:
         data = bytes(data)

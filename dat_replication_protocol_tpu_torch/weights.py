@@ -9,7 +9,10 @@ port's int32 tensors and back, and a summary's fields into the port's
 handed the same tree and a peer on either package can read the other's
 summary.  Reconciliation state crosses the same way: a sketch table
 ((nslots, 8) u32) or a coded-symbol block ((m, 11) or (m, 12) u32), and
-a whole ``LogSummary`` built on them.
+a whole ``LogSummary`` built on them.  Replayed change records cross as
+a dict of a ``ChangeColumns``' numpy arrays (the log buffer and its
+columns), so either package's replay can be held field by field against
+the other's.
 """
 
 from __future__ import annotations
@@ -96,3 +99,32 @@ def log_summary_from_numpy(table, slots, keys, device="cuda"):
     summary.slots = slots.copy()
     summary.keys = list(keys)
     return summary
+
+
+# ChangeColumns fields and their dtypes, in the dataclass's order
+_COLUMNS = (("buf", np.uint8), ("change", np.uint32), ("from_", np.uint32),
+            ("to", np.uint32), ("key_off", np.int64), ("key_len", np.int64),
+            ("sub_off", np.int64), ("sub_len", np.int64),
+            ("val_off", np.int64), ("val_len", np.int64))
+
+
+def columns_from_numpy(d: dict):
+    """A dict of change-column arrays (the fields of either package's
+    ``ChangeColumns``) -> the port's ``ChangeColumns`` over copies."""
+    from .runtime.replay import ChangeColumns
+
+    missing = [name for name, _ in _COLUMNS if name not in d]
+    if missing:
+        raise KeyError(f"change columns lack {missing}")
+    cols = {name: np.array(d[name], dtype=dt) for name, dt in _COLUMNS}
+    n = len(cols["change"])
+    if any(len(cols[name]) != n for name, _ in _COLUMNS[1:]):
+        raise ValueError("change columns differ in length")
+    return ChangeColumns(**cols)
+
+
+def columns_to_numpy(cols) -> dict:
+    """Either package's ``ChangeColumns`` -> a dict of its arrays, each
+    in its field's dtype."""
+    return {name: np.asarray(getattr(cols, name), dtype=dt)
+            for name, dt in _COLUMNS}

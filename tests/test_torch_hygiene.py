@@ -20,6 +20,9 @@ import dat_replication_protocol_tpu_torch as protocol
 from dat_replication_protocol_tpu_torch.backend.cuda_backend import (
     DigestPipeline,
 )
+from dat_replication_protocol_tpu_torch.batch import feed
+from dat_replication_protocol_tpu_torch.runtime import replay
+from dat_replication_protocol_tpu_torch.wire import batch_codec
 from dat_replication_protocol_tpu_torch.ops import (
     fused_cdc_hash,
     merkle,
@@ -107,6 +110,15 @@ def test_port_session_loads_no_jax_package_module():
         "dec = rateless.PeelDecoder(d[1:], device='cpu')\n"
         "dec.add_symbols(0, rateless.CodedSymbols(d, device='cpu').extend(16))\n"
         "assert dec.try_decode()[0].tolist() == [d[0].tolist()]\n"
+        "from dat_replication_protocol_tpu_torch.batch import feed\n"
+        "from dat_replication_protocol_tpu_torch.runtime import replay\n"
+        "e = protocol.encode(peer_caps=protocol.CAP_CHANGE_BATCH)\n"
+        "e.change_many([{'key': 'k%d' % i, 'change': i, 'from': 0,\n"
+        "                'to': 1} for i in range(9)])\n"
+        "e.finalize()\n"
+        "cols, frames = replay.replay_log(e.read())\n"
+        "assert len(feed.leaves_from_columns(cols, frames,\n"
+        "                                    device='cpu')) == 9\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] == 'dat_replication_protocol_tpu')\n"
         "print(loaded)\n"
@@ -141,10 +153,18 @@ def _no_card():
     lambda: rateless.build_symbols_device(np.zeros((1, 11), np.uint32),
                                           np.zeros(1, np.int64),
                                           np.zeros(1, np.int64), 1),
+    lambda: feed.leaves_from_columns(*replay.replay_log(b"")),
+    lambda: feed.leaves_from_columns(replay.replay_log(b"")[0]),
+    lambda: feed.leaves_from_change_columns(replay.replay_log(b"")[0]),
+    lambda: feed.decode_batch_device(batch_codec.encode_rows([])),
+    lambda: protocol.encode(backend="cuda",
+                            peer_caps=protocol.CAP_CHANGE_BATCH),
 ], ids=["decode", "encode", "pipeline", "resolve", "resolve-index",
         "content-address", "content-digests", "chunk-stream", "diff-leaves",
         "log-summary", "log-summary-empty", "coded-symbols", "peel-decoder",
-        "weighted-symbols", "build-symbols"])
+        "weighted-symbols", "build-symbols", "leaves-frames",
+        "leaves-rows", "leaves-canonical", "decode-batch-device",
+        "encode-negotiated"])
 def test_cuda_without_a_card_raises(make):
     _no_card()
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -197,7 +217,8 @@ def test_new_modules_are_in_the_scan():
              if PORT in p.parents}
     assert {"ops/rabin.py", "ops/rabin_cuda.py", "ops/fused_cdc_hash.py",
             "batch/feed.py", "runtime/content.py", "ops/reconcile.py",
-            "ops/rateless.py", "runtime/tree_sync.py"} <= names
+            "ops/rateless.py", "runtime/tree_sync.py", "wire/batch_codec.py",
+            "runtime/replay.py"} <= names
 
 
 def test_port_reads_no_cdc_environment_switch():
