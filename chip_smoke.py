@@ -109,8 +109,37 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    seconds, leaves + root ms with B1's and B2's device ms inside it,
    ``decode_batch_device`` ms, the sessions' rows/s and the wire bytes.
 
-Every launch counter (B1's per variant and per block count too) is set
-to 0 just before each main-path phase (3, 4, 7, 8, 10, 11) and read just
+12. the streaming hasher and the mesh.  12a: ``Blake2bStream`` over a
+   256 MiB stream made from the seed, in 4 MiB segments fed in 1 MiB
+   pieces, and streams of 0, 1, 127, 128, 129, 4 MiB and 4 MiB + 1 bytes,
+   each against ``hashlib``; B1's chained entry (``dat_blake2b_update``)
+   against its plain version on the card, both variants, byte for byte:
+   at the stream's own shape (its first segment, one item of 32,768
+   blocks, then a last segment of 1 MiB + 129 bytes bucketed to 16,384
+   blocks), on 64 items of a 4 MiB segment (then a last one of 1 B to
+   4 MiB, against ``hashlib``), and at 64 items of 256 blocks with t_hi
+   0 and 1 and counters that carry.  At 32,768 blocks the plain version
+   runs as its own calls over 64-block pieces replayed from a CUDA graph
+   (eager, its launches cost the host about 10 ms a block).  Then the
+   row's times at the stream's shape, the stream's MiB/s beside
+   ``hashlib``'s on this host, the 64-item batch's and one item's, and
+   the chain bound of a segment.  12b: a one-rank ``nccl`` group (a
+   ``FileStore`` in a temp dir) and ``make_mesh(1)``:
+   ``digest_root_step`` over phase 4's 2^20 payloads (leaves ==
+   ``hashlib``, root == ``root_host``, exact byte count),
+   ``sharded_hash_begin`` over phase 3's changes and 32 of its blobs (==
+   ``hashlib``), ``sharded_diff`` over phase 10's snapshots (mask == the
+   dense compare, roots == ``root_host``), ``sharded_sketch`` over phase
+   10's first log of 1M records (== ``sketch_table``) and
+   ``sharded_gear_scan`` over phase 7's blob in 128 KiB tiles (== B3
+   over ``candidates_begin``'s rows), each also equal to its
+   single-device counterpart; then each call's warm ms beside the
+   counterpart's.  With one card the collectives run across one rank
+   only; the tests run them across 2 and 4 ``gloo`` ranks on the CPU.
+
+Every launch counter (B1's per variant and per block count, and its
+chained entry's per variant, too) is set to 0 just before each main-path
+phase (3, 4, 7, 8, 10, 11, 12a's stream, 12b's mesh calls) and read just
 after; a kernel or B1 variant that the phases did not launch fails the
 run.
 The lines before the last carry the card, the per-kernel JSON and the
@@ -143,6 +172,8 @@ SM_HZ = 1.98e9
 # the two variants of kernel B1 (csrc/blake2b.cu), by the name their
 # launch counts are reported under, and their lanes per item
 B1_VARIANTS = {"blake2b_thread": 1, "blake2b_quad": 4}
+# read_counters' entries that are breakdowns, not launch counts
+NOT_COUNTS = ("b1_blocks", "b1u_lanes")
 
 # phase 3 shape: 32 changes, then one blob, 2,048 times
 N_BLOBS = 2048
@@ -167,7 +198,7 @@ def _wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its launch count is
     reported under."""
     from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
-        blake2b_packed_kernel)
+        blake2b_packed_kernel, blake2b_update_kernel)
     from dat_replication_protocol_tpu_torch.ops.fused_cdc_hash import (
         gear_window_first_checked_kernel)
     from dat_replication_protocol_tpu_torch.ops.merkle_cuda import (
@@ -176,6 +207,7 @@ def _wrappers() -> dict:
         gear_candidates_kernel, gear_first_kernel, gear_window_first_kernel)
 
     return {"blake2b": blake2b_packed_kernel,
+            "blake2b_update": blake2b_update_kernel,
             "merkle_level": merkle_level_kernel,
             "gear_candidates": gear_candidates_kernel,
             "gear_first": gear_first_kernel,
@@ -187,20 +219,22 @@ def reset_counters() -> None:
     wrappers = _wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-    b1 = wrappers["blake2b"]
-    b1.launches_by_lanes = dict.fromkeys(b1.launches_by_lanes, 0)
-    b1.launches_by_blocks = {}
+    for b1 in (wrappers["blake2b"], wrappers["blake2b_update"]):
+        b1.launches_by_lanes = dict.fromkeys(b1.launches_by_lanes, 0)
+    wrappers["blake2b"].launches_by_blocks = {}
 
 
 def read_counters() -> dict:
     """Launches of every kernel wrapper, and of each B1 variant; B1's by
-    block count under ``b1_blocks``."""
+    block count under ``b1_blocks``, its chained entry's by lanes per item
+    under ``b1u_lanes``."""
     wrappers = _wrappers()
     out = {name: fn.launches for name, fn in wrappers.items()}
     b1 = wrappers["blake2b"]
     out.update({name: b1.launches_by_lanes[lanes]
                 for name, lanes in B1_VARIANTS.items()})
     out["b1_blocks"] = dict(sorted(b1.launches_by_blocks.items()))
+    out["b1u_lanes"] = dict(wrappers["blake2b_update"].launches_by_lanes)
     return out
 
 
@@ -392,7 +426,8 @@ def run_session(device, n_blobs=N_BLOBS, blob_bytes=BLOB_BYTES,
     return {"seconds": seconds, "wire_bytes": dec.bytes,
             "gib_per_s": dec.bytes / seconds / (1 << 30),
             "changes": len(changes), "blobs": n_blobs,
-            "dispatches": pipeline.dispatches, "launches": launches}
+            "dispatches": pipeline.dispatches, "launches": launches,
+            "inputs": (blobs, changes)}
 
 
 def profile_session(device, n_blobs=256) -> dict:
@@ -490,12 +525,14 @@ def run_entry(device, n_leaves=ENTRY_LEAVES) -> dict:
     launches = read_counters()
 
     root = merkle.digests_from_device(root_hh, root_hl)[0]
-    if root != merkle.root_host([blake(p) for p in payloads]):
+    digests = [blake(p) for p in payloads]
+    if root != merkle.root_host(digests):
         raise AssertionError("entry() root differs from root_host")
     if launches["merkle_level"] == 0 or launches["blake2b"] == 0:
         raise AssertionError(f"entry() launches {launches}")
     return {"seconds": seconds, "leaves": n_leaves, "launches": launches,
-            "root": root.hex(), "step": (fn, args)}
+            "root": root.hex(), "step": (fn, args), "digests": digests,
+            "total": int(lens.sum())}
 
 
 # ---------------------------------------------------------------------------
@@ -526,15 +563,18 @@ def largest(**times_ms) -> tuple[float, str]:
     return ms, by
 
 
-def b1_bound(lengths, sass: dict, latency: float) -> dict:
+def b1_bound(lengths, sass: dict, latency: float, item_bytes: int = 68,
+             min_blocks: int = 1) -> dict:
     """Least ms for B1 over items of ``lengths`` bytes: the largest of
-    bytes (messages read once, lengths read, digests written), operations
-    (one thread per item as B1's SASS issues them, each pipe over its
-    rate) and the chain (the longest item's blocks, one after another,
-    each the dependent path of one compression at ``latency`` cycles a
-    step).  ``bound_by`` says which."""
-    blocks = np.maximum(1, -(-np.asarray(lengths, dtype=np.int64) // 128))
-    nbytes = int(blocks.sum()) * 128 + 4 * len(blocks) + 64 * len(blocks)
+    bytes (messages read once, and ``item_bytes`` an item: lengths read,
+    digests written), operations (one thread per item as B1's SASS issues
+    them, each pipe over its rate) and the chain (the longest item's
+    blocks, one after another, each the dependent path of one compression
+    at ``latency`` cycles a step).  An item compresses at least
+    ``min_blocks`` blocks.  ``bound_by`` says which."""
+    blocks = np.maximum(min_blocks,
+                        -(-np.asarray(lengths, dtype=np.int64) // 128))
+    nbytes = int(blocks.sum()) * 128 + item_bytes * len(blocks)
     cycles = max((len(blocks) * sass["per_item"][k]
                   + int(blocks.sum()) * sass["per_block"][k]) / LANES[k]
                  for k in LANES)
@@ -590,15 +630,15 @@ def device_ms(fn, reps: int) -> float:
 def b1_inputs(device, payloads):
     """A bucket staged as ``blake2b_batch_begin`` stages it: power-of-two
     batch and block count, split into hi/lo halves on the card."""
+    import torch
+
     from dat_replication_protocol_tpu_torch.ops import blake2b as b2b
 
     nb = b2b._bucket_nblocks(b2b._need_blocks(max(map(len, payloads))))
     batch = list(payloads) + [b""] * (b2b._bucket_nblocks(len(payloads))
                                       - len(payloads))
-    raw, lengths = b2b._stage_bytes(batch, nb, pin=False)
-    raw, lengths = raw.to(device), lengths.to(device)
-    mh, ml = b2b._split_halves(raw, nb)
-    return (mh, ml, lengths), [len(p) for p in batch]
+    return (b2b.stage_batch(batch, nb, torch.device(device)),
+            [len(p) for p in batch])
 
 
 def time_b1(label: str, args, lengths, sass: dict, latency: float,
@@ -1236,15 +1276,17 @@ def sass_chain(insts) -> int:
     return longest
 
 
-def b1_sass() -> dict:
+def b1_sass(thread: str = "blake2b_thread_kernel",
+            quad: str = "blake2b_quad_kernel") -> dict:
     """B1's one-thread variant from its SASS: what one thread issues, by
     pipe, as a part per item and a part per block (the walk is linear in
     the loop's trips), and the dependent path of one compression (the
     loop body is one block); and the instructions of the four-lane
-    variant's block loop, one lane's share of a compression."""
-    insts = parse_sass(sass_listing("blake2b"), "blake2b_thread_kernel")
+    variant's block loop, one lane's share of a compression.  The chained
+    entry's kernels are walked by naming them."""
+    insts = parse_sass(sass_listing("blake2b"), thread)
     one, two = sass_path(insts, 1), sass_path(insts, 2)
-    quad = parse_sass(sass_listing("blake2b"), "blake2b_quad_kernel")
+    quad = parse_sass(sass_listing("blake2b"), quad)
     return {"per_block": {k: two[k] - one[k] for k in LANES},
             "per_item": {k: 2 * one[k] - two[k] for k in LANES},
             "chain": sass_chain(insts),
@@ -1795,6 +1837,7 @@ def run_reconcile(device, n=DIFF_LEAVES, rows=SKETCH_ROWS,
     if min(out["launches"]["blake2b"], out["launches"]["merkle_level"]) == 0:
         raise AssertionError(f"phase 10 launches {out['launches']}")
     out["diff"] = (a_hh, a_hl, b_hh, b_hl)
+    out["dense"], out["roots"] = dense, roots
     return out
 
 
@@ -2103,6 +2146,475 @@ def time_replay(device, run: dict) -> dict:
     return {"b1_ms": b1_ms, "b2_ms": b2_ms}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the streaming hasher on B1's chained entry, and the mesh
+# ---------------------------------------------------------------------------
+
+STREAM12_BYTES = 256 << 20
+SEGMENT_BYTES = 4 << 20
+BATCH12_ITEMS = 64
+# the extra checks' segment: 64 items of 256 blocks, t_hi 0 and 1
+EDGE12_BLOCKS = 256
+# the last segment after the stream's first: 8,194 blocks, bucketed to
+# 16,384
+TAIL12_BYTES = MIB + 129
+# blocks of each call of the plain version in its CUDA graph
+PLAIN12_CHUNK = 64
+
+
+def plain_update_graphed(args, chunk: int = PLAIN12_CHUNK):
+    """The plain version of B1's chained entry, ``blake2b_update``, over
+    one segment on the card, run as its own calls over the segment's
+    ``chunk``-block pieces in turn, replayed from a CUDA graph of one
+    call.  By the chaining rule the stream rests on, the pieces' updates
+    in turn are the segment's: a piece's length is the part of the item's
+    length inside it, and the item's last flag goes on the piece that
+    holds its last byte (piece 0 for an empty last segment).  Pieces past
+    every item's end change nothing and are not run.  Eager, the plain
+    version's launches cost the host about 10 ms a block, minutes at a
+    4 MiB segment's 32,768 blocks; the graph replays the same launches
+    without the host.  Returns the outputs and the device ms of the whole
+    chain, the pieces' copies included."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch.ops import blake2b as b2b
+
+    hh, hl, t_hi, t_lo, mh, ml, seg, last = args
+    B, nblocks, _ = mh.shape
+    chunk = min(chunk, nblocks)
+    if nblocks % chunk:
+        raise ValueError(f"{nblocks} blocks do not split into {chunk}")
+    span = chunk * 128
+    seg64 = seg.to(torch.int64) & 0xFFFFFFFF
+    ends = torch.clamp_min((seg64 + span - 1) // span - 1, 0)
+    pieces = int(ends.max()) + 1
+    state = [t.clone() for t in (hh, hl, t_hi, t_lo)]
+    s_mh = torch.empty((B, chunk, 16), dtype=torch.int32, device=mh.device)
+    s_ml = torch.empty_like(s_mh)
+    s_len = torch.empty_like(seg)
+    s_last = torch.empty_like(last)
+
+    def load(j: int) -> None:
+        s_mh.copy_(mh[:, j * chunk:(j + 1) * chunk])
+        s_ml.copy_(ml[:, j * chunk:(j + 1) * chunk])
+        s_len.copy_((seg64 - j * span).clamp(0, span))
+        s_last.copy_(last & (ends == j))
+
+    def step() -> None:
+        out = b2b.blake2b_update(*state, s_mh, s_ml, s_len, s_last)
+        for dst, src in zip(state, out):
+            dst.copy_(src)
+
+    load(0)
+    step()  # warm-up: the plain version's constants land on the card
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    for dst, src in zip(state, (hh, hl, t_hi, t_lo)):
+        dst.copy_(src)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for j in range(pieces):
+        load(j)
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return tuple(state), start.elapsed_time(end)
+
+
+def update_args(device, rng, t_hi: int, nblocks: int = EDGE12_BLOCKS,
+                items: int = BATCH12_ITEMS) -> tuple:
+    """Chained-entry operands: random states, counters at ``t_hi`` with
+    low words that carry within the segment, ragged segment lengths (whole
+    blocks where not last, zero-length and bucketed-past tails where last)
+    and random words in the blocks past each length."""
+    import torch
+
+    last = rng.integers(0, 2, items).astype(bool)
+    lengths = np.where(last, rng.integers(0, nblocks * 128 + 1, items),
+                       rng.integers(0, nblocks + 1, items) * 128)
+    lengths[:4] = (0, 1, nblocks * 128, nblocks * 64 + 3)
+    last[:4] = True
+    words = rng.integers(0, 1 << 32, (2, items, nblocks, 16), dtype=np.uint64)
+    raw = np.zeros((items, nblocks, 32), np.uint32)
+    raw[..., 1::2], raw[..., 0::2] = words.astype(np.uint32)
+    raw8 = raw.view(np.uint8).reshape(items, -1)
+    for i, n in enumerate(lengths):
+        raw8[i, n:-(-n // 128) * 128] = 0
+    state = rng.integers(0, 1 << 32, (2, items, 8), dtype=np.uint64)
+    t_lo = rng.integers(0, 1 << 32, items, dtype=np.uint64) & ~np.uint64(127)
+    t_lo[:8] = (1 << 32) - 128
+    # the empty message where t_hi is 0: one zero block compressed
+    t_lo[8], lengths[8], last[8] = 0, 0, True
+    cols = [state[0], state[1], np.full(items, t_hi), t_lo,
+            raw[..., 1::2], raw[..., 0::2], lengths]
+    args = [torch.from_numpy(np.ascontiguousarray(c).astype(np.uint32)
+                             .view(np.int32)).to(device) for c in cols]
+    return (*args[:7], torch.from_numpy(last).to(device))
+
+
+def check_update_edges(device) -> dict:
+    """B1's chained entry against its plain version (eager) on the card,
+    both variants, byte for byte, at 64 items of 256 blocks: states at
+    t_hi = 0 and 1 (a stream past 4 GiB), counters that carry into t_hi
+    inside the segment, the empty message, empty and bucketed-past last
+    segments.  Returns the largest error and the eager plain ms at t_hi
+    = 1."""
+    from dat_replication_protocol_tpu_torch.ops import blake2b as b2b
+    from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
+        LANES, launch_update)
+
+    rng = np.random.default_rng(SEED + 60)
+    err = 0
+    for t_hi in (0, 1):
+        args = update_args(device, rng, t_hi)
+        t0 = time.perf_counter()
+        plain = b2b.blake2b_update(*args)
+        sync(device)
+        plain_s = time.perf_counter() - t0
+        for lanes in LANES:
+            e = max_abs_err(launch_update(*args, lanes), plain)
+            if e:
+                raise AssertionError(f"B1's chained entry ({lanes} lanes) "
+                                     f"differs from its plain version at "
+                                     f"t_hi {t_hi}")
+            err = max(err, e)
+    return {"max_abs_err": err, "plain_eager_ms": plain_s * 1e3,
+            "shape": [BATCH12_ITEMS, EDGE12_BLOCKS]}
+
+
+def check_update_stream_shape(device, data: np.ndarray, sass: dict,
+                              latency: float) -> dict:
+    """B1's chained entry at the stream's own shape against its plain
+    version on the card (:func:`plain_update_graphed`), both variants,
+    byte for byte: the stream's first segment (one item of 32,768 blocks
+    from h0 at t = 0, not last), then a last segment of
+    ``TAIL12_BYTES`` bucketed to a power of two of blocks, chained on; the
+    digest also == hashlib.  Then the row at the first segment's shape:
+    each variant's device ms, the plain version's, and the bound."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch.ops import blake2b as b2b
+    from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
+        LANES, launch_update, lanes_per_item)
+
+    dev = torch.device(device)
+    head = data[:SEGMENT_BYTES].tobytes()
+    tail = data[SEGMENT_BYTES:SEGMENT_BYTES + TAIL12_BYTES].tobytes()
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    first = (*b2b.initial_state(1, device=dev), zero, zero,
+             *b2b.stage_batch([head], SEGMENT_BYTES // 128, dev),
+             torch.zeros(1, dtype=torch.bool, device=dev))
+    tail_blocks = b2b._bucket_nblocks(b2b._need_blocks(len(tail)))
+    last = (*b2b.stage_batch([tail], tail_blocks, dev),
+            torch.ones(1, dtype=torch.bool, device=dev))
+    plain_first, plain_ms = plain_update_graphed(first)
+    plain_last, _ = plain_update_graphed((*plain_first, *last))
+    err = 0
+    for lanes in LANES:
+        got = launch_update(*first, lanes)
+        e = max_abs_err(got, plain_first)
+        got = launch_update(*got, *last, lanes)
+        e = max(e, max_abs_err(got, plain_last))
+        if e:
+            raise AssertionError(f"B1's chained entry ({lanes} lanes) differs "
+                                 f"from its plain version at the stream's "
+                                 f"shape")
+        err = max(err, e)
+    if b2b.digests_to_bytes(plain_last[0].cpu(), plain_last[1].cpu()) != \
+            [blake(head + tail)]:
+        raise AssertionError("the plain chain differs from hashlib")
+    lanes = lanes_per_item(1)
+    ms = {k: device_ms(lambda: launch_update(*first, k), 3) for k in LANES}
+    # per item: length and last flag read, state and counter in and out
+    bound = b1_bound([SEGMENT_BYTES], sass, latency, item_bytes=149,
+                     min_blocks=0)
+    return {"name": "blake2b_update", "route": "cuda",
+            "source": "dat_replication_protocol_tpu_torch/csrc/blake2b.cu",
+            "replaces": "dat_replication_protocol_tpu/ops/blake2b.py:383",
+            "launches": 0, "max_abs_err": err, "ms": ms[lanes],
+            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": None,
+            "shape": [1, SEGMENT_BYTES // 128], "ms_by_lanes": ms,
+            "lanes": lanes, "tail_blocks": tail_blocks,
+            **{k: bound[k] for k in ("bytes_ms", "ops_ms", "chain_ms")}}
+
+
+def stream_digest(device, data, pieces: int = 1) -> bytes:
+    from dat_replication_protocol_tpu_torch.ops.blake2b import Blake2bStream
+
+    s = Blake2bStream(segment_bytes=SEGMENT_BYTES, device=device)
+    view = memoryview(data)
+    step = -(-len(view) // pieces) if len(view) else 1
+    for at in range(0, len(view), step):
+        s.update(view[at:at + step])
+    return s.digest()
+
+
+def run_stream(device, data: np.ndarray) -> dict:
+    """Phase 12a's main path: ``Blake2bStream`` over the stream in 4 MiB
+    segments, fed in 1 MiB pieces, against hashlib; the launch counters
+    are set to 0 before it and read after."""
+    sync(device)
+    reset_counters()
+    t0 = time.perf_counter()
+    got = stream_digest(device, data, pieces=len(data) // MIB)
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    t0 = time.perf_counter()
+    want = blake(data)
+    host_s = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError("Blake2bStream differs from hashlib")
+    if launches["blake2b_update"] != len(data) // SEGMENT_BYTES:
+        raise AssertionError(f"the stream launched the chained entry "
+                             f"{launches['blake2b_update']} times")
+    edges = (0, 1, 127, 128, 129, SEGMENT_BYTES, SEGMENT_BYTES + 1)
+    rng = np.random.default_rng(SEED + 61)
+    for n in edges:
+        part = rng.bytes(n)
+        for pieces in (1, 3):
+            if stream_digest(device, part, pieces) != blake(part):
+                raise AssertionError(f"a stream of {n} B in {pieces} "
+                                     f"pieces differs from hashlib")
+    return {"seconds": seconds, "mib_s": len(data) / MIB / seconds,
+            "hashlib_mib_s": len(data) / MIB / host_s, "edges": edges,
+            "launches": launches}
+
+
+def run_update_batch(device, sass: dict, latency: float) -> dict:
+    """64 items of two segments each (a 4 MiB middle segment, then a last
+    one of 1 B to 4 MiB) through each variant of the chained entry: the
+    middle segment against its plain version on the card
+    (:func:`plain_update_graphed`), byte for byte, and the digests against
+    hashlib.  The middle segment's device ms gives the batch's MiB/s, one
+    item's alone the stream's kernel rate."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch.ops import blake2b as b2b
+    from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
+        LANES, launch_update)
+
+    rng = np.random.default_rng(SEED + 62)
+    n = BATCH12_ITEMS
+    tails = rng.integers(1, SEGMENT_BYTES + 1, n)
+    items = [rng.bytes(SEGMENT_BYTES + int(k)) for k in tails]
+    want = [blake(p) for p in items]
+    nb = SEGMENT_BYTES // 128
+    segs = []
+    for cut, last in ((slice(0, SEGMENT_BYTES), False),
+                      (slice(SEGMENT_BYTES, None), True)):
+        mh, ml, lengths = b2b.stage_batch([p[cut] for p in items], nb,
+                                          torch.device(device))
+        segs.append((mh, ml, lengths,
+                     torch.full((n,), last, device=device)))
+    hh, hl = b2b.initial_state(n, device=device)
+    zero = torch.zeros(n, dtype=torch.int32, device=device)
+    plain, plain_ms = plain_update_graphed((hh, hl, zero, zero, *segs[0]))
+    ms = {}
+    for lanes in LANES:
+        state = launch_update(hh, hl, zero, zero, *segs[0], lanes)
+        if max_abs_err(state, plain):
+            raise AssertionError(f"B1's chained entry ({lanes} lanes) "
+                                 f"differs from its plain version on the "
+                                 f"64 x 4 MiB segment")
+        state = launch_update(*state, *segs[1], lanes)
+        if b2b.digests_to_bytes(state[0].cpu(), state[1].cpu()) != want:
+            raise AssertionError(f"B1's chained entry ({lanes} lanes) "
+                                 f"differs from hashlib on the 64-item batch")
+        ms[lanes] = device_ms(
+            lambda: launch_update(hh, hl, zero, zero, *segs[0], lanes), 3)
+    one = b2b.stage_batch([items[0][:SEGMENT_BYTES]], nb,
+                          torch.device(device))
+    last = torch.zeros(1, dtype=torch.bool, device=device)
+    one_ms = {lanes: device_ms(lambda: launch_update(
+        hh[:1], hl[:1], zero[:1], zero[:1], *one, last, lanes), 3)
+        for lanes in LANES}
+    chain_ms = nb * sass["chain"] * latency / SM_HZ * 1e3
+    return {"ms": ms, "mib_s": {k: n * SEGMENT_BYTES / MIB / (v / 1e3)
+                                for k, v in ms.items()},
+            "plain_ms": plain_ms,
+            "one_ms": one_ms, "one_mib_s": {
+                k: SEGMENT_BYTES / MIB / (v / 1e3) for k, v in one_ms.items()},
+            "chain_ms": chain_ms,
+            "chain_mib_s": SEGMENT_BYTES / MIB / (chain_ms / 1e3)}
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean host-clock ms of ``fn()`` run to completion on the card, after
+    a warm-up: for calls that read results back themselves."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def mesh_inputs(device, session: dict, ent: dict, recon: dict,
+                blob: np.ndarray) -> dict:
+    """Phase 12b's inputs, the earlier phases' own: phase 4's staged
+    batch, digests, root and byte count; phase 3's change payloads and its
+    first 32 blobs; phase 10's two snapshots, dense compare and roots, and
+    its first sketch log's records hashed on B1 with their key slots;
+    phase 7's blob as words on the card."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch import encode_change
+    from dat_replication_protocol_tpu_torch.ops import reconcile as rec
+
+    blobs, changes = session["inputs"]
+    hashes = [encode_change(c) for c in changes] + [
+        bytes(blobs[i * BLOB_BYTES:(i + 1) * BLOB_BYTES]) for i in range(32)]
+    srecs, keys = recon["sketch"][:2]
+    rec_hh, rec_hl = hash_records(srecs, device)
+    _, key_hl = hash_records(keys, device)
+    return {"entry": {"args": ent["step"][1][:3], "digests": ent["digests"],
+                      "root": ent["root"], "total": ent["total"]},
+            "hash_payloads": hashes, "hash_want": [blake(p) for p in hashes],
+            "diff": recon["diff"], "dense": recon["dense"],
+            "roots": recon["roots"],
+            "sketch": (rec_hh, rec_hl,
+                       rec.key_slots(key_hl, SKETCH_LOG2_SLOTS)),
+            "gear_words": torch.from_numpy(blob.view(np.int32)).to(device)}
+
+
+def mesh_pass(mesh, device, mesh_in: dict) -> dict:
+    """The five mesh calls on ``mesh_in`` over a one-rank mesh, each held
+    against the same work on the card without the mesh (and against
+    hashlib or root_host where the inputs carry them); the launch counters
+    are set to 0 before the first calls and read after them.  Then each
+    call's warm ms beside its single-device counterpart."""
+    import torch
+
+    from dat_replication_protocol_tpu_torch.ops import merkle, rabin
+    from dat_replication_protocol_tpu_torch.ops import reconcile as rec
+    from dat_replication_protocol_tpu_torch.ops.blake2b import (
+        blake2b_batch_begin)
+    from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
+        blake2b_packed_kernel)
+    from dat_replication_protocol_tpu_torch.ops.rabin_cuda import (
+        gear_candidates_kernel)
+    from dat_replication_protocol_tpu_torch.parallel import (
+        digest_root_step, sharded_diff, sharded_gear_scan,
+        sharded_hash_begin, sharded_sketch)
+
+    ent = mesh_in["entry"]
+    step_args = ent["args"]
+    hashes = mesh_in["hash_payloads"]
+    a_hh, a_hl, b_hh, b_hl = mesh_in["diff"]
+    rec_hh, rec_hl, slots = mesh_in["sketch"]
+    words = mesh_in["gear_words"]
+    T = words.shape[0] // (TILE_BYTES // 4)
+    payload = words.view(T, TILE_BYTES // 4)
+    pre = torch.zeros(rabin._PREFIX_WORDS, dtype=torch.int32, device=device)
+
+    def one_digest_root():
+        hh, hl = blake2b_packed_kernel(*step_args)
+        leaves = hh[:, :4].contiguous(), hl[:, :4].contiguous()
+        return leaves, merkle.root(*leaves)
+
+    calls = {
+        "digest_root_step": (lambda: digest_root_step(mesh, *step_args),
+                             one_digest_root),
+        "sharded_hash_begin": (
+            lambda: sharded_hash_begin(mesh, hashes)(),
+            lambda: blake2b_batch_begin(hashes, device=device)()),
+        "sharded_diff": (
+            lambda: sharded_diff(mesh, a_hh, a_hl, b_hh, b_hl),
+            lambda: merkle.diff_root_guided(a_hh, a_hl, b_hh, b_hl)),
+        "sharded_sketch": (
+            lambda: sharded_sketch(mesh, rec_hh, rec_hl, slots,
+                                   SKETCH_LOG2_SLOTS),
+            lambda: rec.sketch_table(rec_hh, rec_hl, slots,
+                                     1 << SKETCH_LOG2_SLOTS)),
+        "sharded_gear_scan": (
+            lambda: sharded_gear_scan(mesh, payload, avg_bits=CDC_AVG_BITS),
+            lambda: gear_candidates_kernel(rabin._build_rows(
+                words, pre, T, TILE_BYTES), CDC_AVG_BITS)),
+    }
+    out = {}
+    sync(device)
+    reset_counters()
+    got = {name: mesh_fn() for name, (mesh_fn, _) in calls.items()}
+    sync(device)
+    out["launches"] = read_counters()
+    single = {name: one() for name, (_, one) in calls.items()}
+
+    leaf_hh, leaf_hl, root_hh, root_hl, total = got["digest_root_step"]
+    (one_hh, one_hl), one_root = single["digest_root_step"]
+    if not (torch.equal(leaf_hh, one_hh) and torch.equal(leaf_hl, one_hl)
+            and merkle.digests_from_device(leaf_hh, leaf_hl)
+            == ent["digests"]):
+        raise AssertionError("digest_root_step leaves differ from hashlib")
+    root = merkle.digests_from_device(root_hh, root_hl)[0]
+    if (root.hex() != ent["root"]
+            or root != merkle.digests_from_device(*one_root)[0]):
+        raise AssertionError("digest_root_step root differs from root_host")
+    if total != ent["total"]:
+        raise AssertionError(f"digest_root_step counts {total} bytes, not "
+                             f"{ent['total']}")
+    if not (got["sharded_hash_begin"] == single["sharded_hash_begin"]
+            == mesh_in["hash_want"]):
+        raise AssertionError("sharded_hash_begin differs from hashlib")
+    mask, ra, rb = got["sharded_diff"]
+    if not (np.array_equal(np.nonzero(mask.cpu().numpy())[0],
+                           mesh_in["dense"])
+            and torch.equal(mask, single["sharded_diff"][0])):
+        raise AssertionError("sharded_diff's mask differs from the dense "
+                             "compare")
+    if [merkle.digests_from_device(*r)[0] for r in (ra, rb)] != \
+            mesh_in["roots"]:
+        raise AssertionError("sharded_diff's roots differ from root_host")
+    if not torch.equal(got["sharded_sketch"], single["sharded_sketch"]):
+        raise AssertionError("sharded_sketch differs from sketch_table")
+    if not torch.equal(got["sharded_gear_scan"],
+                       single["sharded_gear_scan"]):
+        raise AssertionError("sharded_gear_scan differs from B3 over "
+                             "candidates_begin's rows")
+    del got, single
+    reps = {"sharded_gear_scan": 3, "sharded_hash_begin": 2}
+    out["ms"] = {name: (wall_ms(mesh_fn, reps.get(name, 5)),
+                        wall_ms(one, reps.get(name, 5)))
+                 for name, (mesh_fn, one) in calls.items()}
+    return out
+
+
+def run_mesh(device, mesh_in: dict) -> dict:
+    """Phase 12b's main path: :func:`mesh_pass` over a one-rank ``nccl``
+    group on a ``FileStore`` in a temp dir, its bootstrap socket on the
+    loopback interface."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from dat_replication_protocol_tpu_torch.parallel import make_mesh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        store = dist.FileStore(f"{tmp}/store", 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300),
+                                device_id=torch.device(device, 0))
+        init_s = time.perf_counter() - t0
+        try:
+            out = mesh_pass(make_mesh(1, device=device), device, mesh_in)
+        finally:
+            dist.destroy_process_group()
+    out["init_s"] = init_s
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2184,7 +2696,7 @@ def main() -> int:
         f"exactly; chunk counts, delta and roots == the JAX package's; "
         f"launches {cdc}")
     for name, n in cdc.items():
-        if n == 0 and name not in B1_VARIANTS:
+        if n == 0 and name not in B1_VARIANTS and name != "blake2b_update":
             raise AssertionError(f"phase 7 never launched {name}")
 
     reset_counters()
@@ -2201,7 +2713,7 @@ def main() -> int:
 
     launches = {k: session["launches"][k] + side["launches"][k]
                 + ent["launches"][k] + cdc[k] + streamed[k]
-                for k in session["launches"] if k != "b1_blocks"}
+                for k in session["launches"] if k not in NOT_COUNTS}
     sass = b1_sass()
     latency = chain_latency(device)
     log(f"phase 5: dependent-issue latency {latency['cycles']} cycles a "
@@ -2215,6 +2727,7 @@ def main() -> int:
                         latency["cycles"])
     chunk = time_chunk_bucket(device, blob[:CONTENT_BYTES], s.cuts, sass,
                               latency["cycles"])
+    content_blob = blob[:CONTENT_BYTES].copy()  # phase 12's gear scan
     del blob
     log(f"phase 9: B1 at phase 7's largest chunk bucket: plain "
         f"{chunk['plain_ms']} ms; chunks per bucket {chunk['buckets']}")
@@ -2258,6 +2771,7 @@ def main() -> int:
         f"records/s (first pass {recon['sketch_records'] / recon['reconcile_s']});"
         f" rateless decode {recon['decode_s']} s")
     log(f"phase 10: {time.perf_counter() - t0:.2f} s")
+    mesh_recon = {k: recon[k] for k in ("diff", "dense", "roots", "sketch")}
     del recon, times
 
     t0 = time.perf_counter()
@@ -2292,14 +2806,91 @@ def main() -> int:
     log(f"phase 11: {time.perf_counter() - t0:.2f} s")
     del rep
 
+    t0 = time.perf_counter()
+    sass_u = b1_sass("blake2b_update_thread_kernel",
+                     "blake2b_update_quad_kernel")
+    data = make_blob(STREAM12_BYTES, seed=SEED + 63)
+    st = run_stream(device, data)
+    p12a = st["launches"]
+    log(f"phase 12: Blake2bStream over {STREAM12_BYTES} B in "
+        f"{SEGMENT_BYTES} B segments, fed in 1 MiB pieces, == hashlib: "
+        f"{st['mib_s']} MiB/s ({st['seconds']} s), hashlib "
+        f"{st['hashlib_mib_s']} MiB/s on this host; streams of "
+        f"{list(st['edges'])} B in 1 and 3 pieces == hashlib; the chained "
+        f"entry launched {p12a['blake2b_update']} times, by lanes per item "
+        f"{p12a['b1u_lanes']}")
+    t1 = time.perf_counter()
+    upd = check_update_stream_shape(device, data, sass_u, latency["cycles"])
+    del data
+    upd["launches"] = p12a["blake2b_update"]
+    log(f"phase 12: B1's chained entry byte-exact vs plain with "
+        f"{list(upd['ms_by_lanes'])} lanes per item at the stream's shape: "
+        f"its first segment {upd['shape']} (items x blocks), not last, then "
+        f"a last segment of {TAIL12_BYTES} B bucketed to "
+        f"{upd['tail_blocks']} blocks; the plain chain == hashlib; "
+        f"{time.perf_counter() - t1:.2f} s; device ms by lanes "
+        f"{upd['ms_by_lanes']}, the rule picks {upd['lanes']}; plain "
+        f"{upd['plain_ms']} ms (its launches from a CUDA graph, "
+        f"{PLAIN12_CHUNK} blocks a call); bound {upd['bound_ms']} ms "
+        f"({upd['bound_by']}): bytes {upd['bytes_ms']}, operations "
+        f"{upd['ops_ms']}, chain {upd['chain_ms']} ms; its SASS, one thread: "
+        f"{sass_u['per_block']} a block, a compression's dependent path "
+        f"{sass_u['chain']} steps; the four-lane variant issues "
+        f"{sass_u['quad_per_block']} a block per lane; on {card}")
+    t1 = time.perf_counter()
+    batch = run_update_batch(device, sass_u, latency["cycles"])
+    log(f"phase 12: {BATCH12_ITEMS} items of a 4 MiB segment == the plain "
+        f"version ({batch['plain_ms']} ms from its graph) and with a last "
+        f"one of 1 B-4 MiB == hashlib, each variant; "
+        f"{time.perf_counter() - t1:.2f} s; one 4 MiB segment "
+        f"of the {BATCH12_ITEMS} items: device ms by lanes {batch['ms']} = "
+        f"{batch['mib_s']} MiB/s; of one item {batch['one_ms']} = "
+        f"{batch['one_mib_s']} MiB/s; chain bound of a segment "
+        f"{batch['chain_ms']} ms = {batch['chain_mib_s']} MiB/s a stream; "
+        f"on {card}")
+    edges = check_update_edges(device)
+    log(f"phase 12: B1's chained entry byte-exact vs plain (eager, "
+        f"{edges['plain_eager_ms']} ms at t_hi 1) at {edges['shape']}, both "
+        f"variants, t_hi 0 and 1, counters carrying into t_hi, the empty "
+        f"message, empty and bucketed-past last segments")
+    rows.append(upd)
+    log(f"phase 12a: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    mesh_in = mesh_inputs(device, session, ent, mesh_recon, content_blob)
+    del content_blob, mesh_recon
+    mesh = run_mesh(device, mesh_in)
+    del mesh_in
+    p12 = mesh["launches"]
+    log(f"phase 12: a one-rank nccl group (FileStore, initialized in "
+        f"{mesh['init_s']:.2f} s) and make_mesh(1): digest_root_step over "
+        f"phase 4's {ENTRY_LEAVES} payloads (leaves == hashlib, root == "
+        f"root_host, total bytes exact), sharded_hash_begin over phase 3's "
+        f"{session['changes']} changes and 32 of its blobs (== hashlib == "
+        f"blake2b_batch_begin), sharded_diff over phase 10's snapshots (mask "
+        f"== the dense compare, roots == root_host), sharded_sketch over "
+        f"phase 10's {SKETCH_ROWS} records (== sketch_table) and "
+        f"sharded_gear_scan over phase 7's {CONTENT_BYTES} B (== B3 over "
+        f"candidates_begin's rows); launches {p12}")
+    for name, (mesh_ms, one_ms) in mesh["ms"].items():
+        log(f"phase 12: {name} warm {mesh_ms} ms on the one-rank mesh, "
+            f"{one_ms} ms on one device without it ({mesh_ms / one_ms} x); "
+            f"on {card}")
+    for name in ("blake2b", "merkle_level", "gear_candidates"):
+        if p12[name] == 0:
+            raise AssertionError(f"phase 12's mesh calls never launched "
+                                 f"{name}")
+    log(f"phase 12b: {time.perf_counter() - t0:.2f} s")
+
     for k in launches:
-        launches[k] += p10[k] + p11[k]
+        launches[k] += p10[k] + p11[k] + p12[k]
     for r in rows:
-        r["launches"] += p10[r["name"]] + p11[r["name"]]
+        r["launches"] += p10[r["name"]] + p11[r["name"]] + p12[r["name"]]
     buckets = b1_buckets(session["launches"], side["launches"],
                          ent["launches"], cdc, streamed)
     buckets["reconcile"] = sum(p10["b1_blocks"].values())
     buckets["replay"] = sum(p11["b1_blocks"].values())
+    buckets["mesh"] = sum(p12["b1_blocks"].values())
     if sum(buckets.values()) != launches["blake2b"]:
         raise AssertionError(f"B1's launches by bucket {buckets} do not sum "
                              f"to its {launches['blake2b']} launches")

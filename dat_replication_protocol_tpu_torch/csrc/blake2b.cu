@@ -48,6 +48,18 @@
 //   shared-memory ring with cp.async, kStage blocks an item at a time in
 //   coalesced 256-byte runs, and each lane reads its words through the RFC
 //   7693 schedule from there.
+//
+// The chained entry, dat_blake2b_update, replaces the reference's streaming
+// core dat_replication_protocol_tpu/ops/blake2b.py blake2b_update (:383), a
+// jax.jit scan over compress_soa rather than a Pallas kernel.  It runs the
+// same two variants on the same round code (the kChained instances of the
+// bodies below): each item starts from its own chaining state and 64-bit
+// byte counter instead of the IV, sets the final flag only when its segment
+// is the last, and hands back all eight state words and the advanced
+// counter.  Its rules are the reference's: block k's counter is
+// t + min(seg_len, (k+1)*128); non-final segments are whole blocks; the
+// empty message (a zero-length last segment at t = 0) compresses one zero
+// block, and blocks past a segment's end are not compressed.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,9 +73,52 @@ using dat::rotr64;
 constexpr int kThreads = 128;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__device__ __forceinline__ int item_block_count(uint64_t len) {
+// Blocks an item compresses: ceil(len/128), and one for the empty message
+// (a zero-length last segment at counter 0).  The one-shot hash is the case
+// t0 = 0, last.
+__device__ __forceinline__ int item_block_count(uint64_t len, uint64_t t0,
+                                                bool last) {
   const int n = static_cast<int>((len + 127) >> 7);
-  return n < 1 ? 1 : n;  // the empty message is one block
+  return n == 0 && last && t0 == 0 ? 1 : n;
+}
+
+// The chained entry's operands per item; unused by the one-shot hash.
+struct Chain {
+  const uint32_t* state_h;  // (B, 8) chaining state in
+  const uint32_t* state_l;
+  const int32_t* t_hi;      // (B,) byte counter in
+  const int32_t* t_lo;
+  const uint8_t* is_last;   // (B,) bool
+  int32_t* out_t_hi;        // (B,) byte counter out
+  int32_t* out_t_lo;
+};
+
+// item i's starting state, counter and last flag
+template <bool kChained>
+__device__ __forceinline__ void item_start(const Chain& ch, int i,
+                                           int digest_size, uint64_t (&h)[8],
+                                           uint64_t& t0, bool& last) {
+  if (kChained) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w)
+      h[w] = dat::join64(ch.state_h[i * 8 + w], ch.state_l[i * 8 + w]);
+    t0 = dat::join64(static_cast<uint32_t>(ch.t_hi[i]),
+                     static_cast<uint32_t>(ch.t_lo[i]));
+    last = ch.is_last[i] != 0;
+  } else {
+    dat::blake2b_init(h, digest_size);
+    t0 = 0;
+    last = true;
+  }
+}
+
+template <bool kChained>
+__device__ __forceinline__ void item_counter_out(const Chain& ch, int i,
+                                                 uint64_t t) {
+  if (kChained) {
+    ch.out_t_hi[i] = static_cast<int32_t>(t >> 32);
+    ch.out_t_lo[i] = static_cast<int32_t>(t);
+  }
 }
 
 __device__ __forceinline__ void load_block(const uint4* ph, const uint4* pl,
@@ -76,23 +131,24 @@ __device__ __forceinline__ void load_block(const uint4* ph, const uint4* pl,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-blake2b_thread_kernel(const uint32_t* __restrict__ mh,
-                      const uint32_t* __restrict__ ml,
-                      const int32_t* __restrict__ lengths,
-                      uint32_t* __restrict__ out_h,
-                      uint32_t* __restrict__ out_l, int batch, int nblocks,
-                      int digest_size) {
+template <bool kChained>
+__device__ __forceinline__ void thread_body(const uint32_t* __restrict__ mh,
+                                            const uint32_t* __restrict__ ml,
+                                            const int32_t* __restrict__ lengths,
+                                            uint32_t* __restrict__ out_h,
+                                            uint32_t* __restrict__ out_l,
+                                            int batch, int nblocks,
+                                            int digest_size, const Chain& ch) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= batch) return;
   const uint64_t len = static_cast<uint32_t>(lengths[i]);
-  const int item_blocks = item_block_count(len);
+  uint64_t h[8], t0;
+  bool last;
+  item_start<kChained>(ch, i, digest_size, h, t0, last);
+  const int item_blocks = item_block_count(len, t0, last);
   // a length past the padded width never reaches its final block, as in
   // the reference's masked scan
   const int steps = item_blocks < nblocks ? item_blocks : nblocks;
-
-  uint64_t h[8];
-  dat::blake2b_init(h, digest_size);
 
   const size_t row = static_cast<size_t>(i) * nblocks * 16;
   const uint4* ph = reinterpret_cast<const uint4*>(mh + row);
@@ -112,8 +168,8 @@ blake2b_thread_kernel(const uint32_t* __restrict__ mh,
     // block k+1's message is in flight while block k is compressed
     if (k + 1 < steps) load_block(ph, pl, k + 1, bh, bl);
     const uint64_t cap = static_cast<uint64_t>(k + 1) << 7;
-    const uint64_t t = cap < len ? cap : len;
-    dat::blake2b_compress(h, m, t, k == item_blocks - 1);
+    const uint64_t t = t0 + (cap < len ? cap : len);
+    dat::blake2b_compress(h, m, t, last && k == item_blocks - 1);
   }
 
 #pragma unroll
@@ -121,6 +177,28 @@ blake2b_thread_kernel(const uint32_t* __restrict__ mh,
     out_h[i * 8 + w] = static_cast<uint32_t>(h[w] >> 32);
     out_l[i * 8 + w] = static_cast<uint32_t>(h[w]);
   }
+  item_counter_out<kChained>(ch, i, t0 + len);
+}
+
+__global__ void __launch_bounds__(kThreads)
+blake2b_thread_kernel(const uint32_t* __restrict__ mh,
+                      const uint32_t* __restrict__ ml,
+                      const int32_t* __restrict__ lengths,
+                      uint32_t* __restrict__ out_h,
+                      uint32_t* __restrict__ out_l, int batch, int nblocks,
+                      int digest_size) {
+  thread_body<false>(mh, ml, lengths, out_h, out_l, batch, nblocks,
+                     digest_size, Chain{});
+}
+
+__global__ void __launch_bounds__(kThreads)
+blake2b_update_thread_kernel(const uint32_t* __restrict__ mh,
+                             const uint32_t* __restrict__ ml,
+                             const int32_t* __restrict__ lengths,
+                             uint32_t* __restrict__ out_h,
+                             uint32_t* __restrict__ out_l, int batch,
+                             int nblocks, Chain ch) {
+  thread_body<true>(mh, ml, lengths, out_h, out_l, batch, nblocks, 0, ch);
 }
 
 // ---------------------------------------------------------------------------
@@ -190,13 +268,14 @@ __device__ __forceinline__ void stage_chunk(uint32_t* slot_base,
   __pipeline_commit();
 }
 
-__global__ void __launch_bounds__(32)
-blake2b_quad_kernel(const uint32_t* __restrict__ mh,
-                    const uint32_t* __restrict__ ml,
-                    const int32_t* __restrict__ lengths,
-                    uint32_t* __restrict__ out_h,
-                    uint32_t* __restrict__ out_l, int batch, int nblocks,
-                    int digest_size) {
+template <bool kChained>
+__device__ __forceinline__ void quad_body(const uint32_t* __restrict__ mh,
+                                          const uint32_t* __restrict__ ml,
+                                          const int32_t* __restrict__ lengths,
+                                          uint32_t* __restrict__ out_h,
+                                          uint32_t* __restrict__ out_l,
+                                          int batch, int nblocks,
+                                          int digest_size, const Chain& ch) {
   __shared__ __align__(16) uint32_t ring[2][kQuadItems * kItemWords];
   const int lane = threadIdx.x;
   const int col = lane & 3;
@@ -205,7 +284,14 @@ blake2b_quad_kernel(const uint32_t* __restrict__ mh,
   const int i = item0 + slot;
   const bool live = i < batch;
   const uint64_t len = live ? static_cast<uint32_t>(lengths[i]) : 0;
-  const int item_blocks = item_block_count(len);
+  uint64_t t0 = 0;
+  bool last = true;
+  if (kChained && live) {
+    t0 = dat::join64(static_cast<uint32_t>(ch.t_hi[i]),
+                     static_cast<uint32_t>(ch.t_lo[i]));
+    last = ch.is_last[i] != 0;
+  }
+  const int item_blocks = item_block_count(len, t0, last);
   const int steps = !live ? 0 : item_blocks < nblocks ? item_blocks : nblocks;
   int warp_steps = steps;
 #pragma unroll
@@ -230,10 +316,19 @@ blake2b_quad_kernel(const uint32_t* __restrict__ mh,
   }
 
   // column col of the chaining state: h[col] and h[4 + col]
-  uint64_t h0 = kIV[col] ^ (col == 0 ? 0x01010000ULL ^
-                                           static_cast<uint64_t>(digest_size)
-                                     : 0ULL);
-  uint64_t h1 = kIV[4 + col];
+  uint64_t h0, h1;
+  if (kChained) {
+    h0 = live ? dat::join64(ch.state_h[i * 8 + col], ch.state_l[i * 8 + col])
+              : 0;
+    h1 = live ? dat::join64(ch.state_h[i * 8 + 4 + col],
+                            ch.state_l[i * 8 + 4 + col])
+              : 0;
+  } else {
+    h0 = kIV[col] ^
+         (col == 0 ? 0x01010000ULL ^ static_cast<uint64_t>(digest_size)
+                   : 0ULL);
+    h1 = kIV[4 + col];
+  }
   const uint64_t iv_c = kIV[col];
   const uint64_t iv_d = kIV[4 + col];
 
@@ -250,10 +345,10 @@ blake2b_quad_kernel(const uint32_t* __restrict__ mh,
       if (k >= warp_steps) break;
       const uint32_t* bh = staged + j * 16;
       const uint64_t cap = static_cast<uint64_t>(k + 1) << 7;
-      const uint64_t t = cap < len ? cap : len;
+      const uint64_t t = t0 + (cap < len ? cap : len);
       uint64_t a = h0, b = h1, cc = iv_c;
       uint64_t d = iv_d ^ (col == 0 ? t : 0ULL) ^
-                   (col == 2 && k == item_blocks - 1 ? ~0ULL : 0ULL);
+                   (col == 2 && last && k == item_blocks - 1 ? ~0ULL : 0ULL);
 #pragma unroll
       for (int r = 0; r < 12; ++r) {
         const uint32_t q = sched[r >> 1] >> ((r & 1) * 16);
@@ -288,7 +383,29 @@ blake2b_quad_kernel(const uint32_t* __restrict__ mh,
     out_l[i * 8 + col] = static_cast<uint32_t>(h0);
     out_h[i * 8 + 4 + col] = static_cast<uint32_t>(h1 >> 32);
     out_l[i * 8 + 4 + col] = static_cast<uint32_t>(h1);
+    if (col == 0) item_counter_out<kChained>(ch, i, t0 + len);
   }
+}
+
+__global__ void __launch_bounds__(32)
+blake2b_quad_kernel(const uint32_t* __restrict__ mh,
+                    const uint32_t* __restrict__ ml,
+                    const int32_t* __restrict__ lengths,
+                    uint32_t* __restrict__ out_h,
+                    uint32_t* __restrict__ out_l, int batch, int nblocks,
+                    int digest_size) {
+  quad_body<false>(mh, ml, lengths, out_h, out_l, batch, nblocks, digest_size,
+                   Chain{});
+}
+
+__global__ void __launch_bounds__(32)
+blake2b_update_quad_kernel(const uint32_t* __restrict__ mh,
+                           const uint32_t* __restrict__ ml,
+                           const int32_t* __restrict__ lengths,
+                           uint32_t* __restrict__ out_h,
+                           uint32_t* __restrict__ out_l, int batch,
+                           int nblocks, Chain ch) {
+  quad_body<true>(mh, ml, lengths, out_h, out_l, batch, nblocks, 0, ch);
 }
 
 }  // namespace
@@ -313,6 +430,43 @@ extern "C" int dat_blake2b_packed(const void* mh, const void* ml,
     const int grid = (batch + kQuadItems - 1) / kQuadItems;
     blake2b_quad_kernel<<<grid, 32, 0, s>>>(h, l, n, oh, ol, batch, nblocks,
                                             digest_size);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chained entry: advance B chaining states over one packed segment each.
+// state_h/state_l (B, 8) and t_hi/t_lo (B,) in; out_h/out_l (B, 8) and
+// out_t_hi/out_t_lo (B,) out; is_last (B,) bool.  lanes: 1
+// (blake2b_update_thread_kernel) or 4 (blake2b_update_quad_kernel).
+extern "C" int dat_blake2b_update(const void* state_h, const void* state_l,
+                                  const void* t_hi, const void* t_lo,
+                                  const void* mh, const void* ml,
+                                  const void* seg_lengths, const void* is_last,
+                                  void* out_h, void* out_l, void* out_t_hi,
+                                  void* out_t_lo, int batch, int nblocks,
+                                  int lanes, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* h = static_cast<const uint32_t*>(mh);
+  const auto* l = static_cast<const uint32_t*>(ml);
+  const auto* n = static_cast<const int32_t*>(seg_lengths);
+  auto* oh = static_cast<uint32_t*>(out_h);
+  auto* ol = static_cast<uint32_t*>(out_l);
+  const Chain ch{static_cast<const uint32_t*>(state_h),
+                 static_cast<const uint32_t*>(state_l),
+                 static_cast<const int32_t*>(t_hi),
+                 static_cast<const int32_t*>(t_lo),
+                 static_cast<const uint8_t*>(is_last),
+                 static_cast<int32_t*>(out_t_hi),
+                 static_cast<int32_t*>(out_t_lo)};
+  if (lanes != 1 && lanes != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch > 0 && lanes == 1) {
+    const int grid = (batch + kThreads - 1) / kThreads;
+    blake2b_update_thread_kernel<<<grid, kThreads, 0, s>>>(h, l, n, oh, ol,
+                                                           batch, nblocks, ch);
+  } else if (batch > 0) {
+    const int grid = (batch + kQuadItems - 1) / kQuadItems;
+    blake2b_update_quad_kernel<<<grid, 32, 0, s>>>(h, l, n, oh, ol, batch,
+                                                   nblocks, ch);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,10 @@ rebuilt and a stale one is never loaded.
 Every pointer and the stream cross as ``ctypes.c_void_p``; every C entry
 returns ``cudaGetLastError()``, which the wrappers check.  A failed build
 raises: nothing here falls back to the plain versions.
+
+``SIGNATURES`` maps each source's name to the C entry points it holds and
+their argument types; loading a source binds all of them (B1's
+``blake2b.cu`` holds the one-shot hash and the chained update).
 """
 
 from __future__ import annotations
@@ -32,20 +36,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry point and argument types of each kernel library
+# C entry points and argument types of each kernel library
 SIGNATURES = {
-    "blake2b": ("dat_blake2b_packed",
-                (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "blake2b": {
+        "dat_blake2b_packed": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # state, counter, message, lengths and last flags in; state and
+        # counter out; batch, nblocks, lanes
+        "dat_blake2b_update": (_P,) * 12 + (_I, _I, _I, _P),
+    },
     # a latency probe for chip_smoke.py's chain bound, not a port kernel
-    "chain_latency": ("dat_chain_latency", (_P, _P, _I, _I, _P)),
-    "merkle_level": ("dat_merkle_level", (_P, _P, _P, _P, _I, _P)),
-    "gear_candidates": ("dat_gear_candidates", (_P, _P, _I, _I, _I, _P)),
+    "chain_latency": {"dat_chain_latency": (_P, _P, _I, _I, _P)},
+    "merkle_level": {"dat_merkle_level": (_P, _P, _P, _P, _I, _P)},
+    "gear_candidates": {"dat_gear_candidates": (_P, _P, _I, _I, _I, _P)},
     # the staged B4 also takes its launch geometry: CTAs, spans
-    "gear_first": ("dat_gear_first", (_P, _P, _I, _I, _I, _I, _I, _P)),
-    "gear_window_first": ("dat_gear_window_first",
-                          (_P, _P, _I, _I, _I, _I, _P)),
-    "gear_window_first_checked": ("dat_gear_window_first_checked",
-                                  (_P, _P, _P, _I, _I, _I, _I, _P)),
+    "gear_first": {"dat_gear_first": (_P, _P, _I, _I, _I, _I, _I, _P)},
+    "gear_window_first": {
+        "dat_gear_window_first": (_P, _P, _I, _I, _I, _I, _P)},
+    "gear_window_first_checked": {
+        "dat_gear_window_first_checked": (_P, _P, _P, _I, _I, _I, _I, _P)},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -62,7 +70,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by sources and flags."""
+    """Where source ``name`` builds to: keyed by sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
@@ -70,10 +78,11 @@ def library_path(name: str) -> Path:
 
 
 def build(names=tuple(SIGNATURES)) -> dict[str, dict]:
-    """Compile every named library that is not built yet, one ``nvcc``
-    per source, all started together.  Returns ``{name: {"seconds": s,
-    "log": ptxas report}}`` for the libraries compiled by this call;
-    raises ``RuntimeError`` with the compiler's output on any failure."""
+    """Compile every named source that is not built yet, one ``nvcc`` per
+    source, all started together.  Returns ``{source:
+    {"seconds": s, "log": ptxas report}}`` for the libraries compiled by
+    this call; raises ``RuntimeError`` with the compiler's output on any
+    failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -100,14 +109,14 @@ def build(names=tuple(SIGNATURES)) -> dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The bound library for ``name``, built at first use."""
+    """The bound library of source ``name``, built at first use."""
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))
         lib = ctypes.CDLL(str(library_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib

@@ -1,8 +1,12 @@
-"""Batched BLAKE2b: the plain PyTorch formulation and the batch API.
+"""Batched and streaming BLAKE2b: the plain PyTorch formulation, the
+batch API and the chaining hasher.
 
 The counterpart of ``dat_replication_protocol_tpu/ops/blake2b.py``
-(``compress``/``initial_state``/``blake2b_packed``, :231-343, and the host
-edge with ``blake2b_batch_begin``, :529-677).  Byte-exact RFC 7693.
+(``compress``/``initial_state``/``blake2b_packed``, :231-343,
+``blake2b_update`` and ``Blake2bStream``, :383-526, and the host edge with
+``blake2b_batch_begin``, :529-677).  Byte-exact RFC 7693.  The
+reference's ``donation_supported`` (:367) is not ported: buffer donation
+is a JAX notion, and the port's wrappers allocate their own outputs.
 
 * The public layout is the reference's: message words as ``(B, nblocks,
   16)`` hi/lo uint32 halves, digests as ``(B, 8)`` hi/lo halves.  PyTorch
@@ -21,8 +25,13 @@ edge with ``blake2b_batch_begin``, :529-677).  Byte-exact RFC 7693.
   the kernel: unlike the reference's ``_PALLAS_MIN_ITEMS`` floor there is
   no second device path.  On the CPU the wrapper takes this module's
   plain version.
+* :func:`blake2b_update` is the plain version of B1's chained entry: it
+  advances per-item chaining states and 64-bit byte counters over one
+  segment each.  :class:`Blake2bStream` hashes one stream of any length
+  through that entry in bounded segments.
 
-Per-item payloads are limited to < 2 GiB (byte counters in 32 bits).
+Per-item payloads of the batch API are limited to < 2 GiB (byte counters
+in 32 bits); a stream's counter has 64 bits.
 """
 
 from __future__ import annotations
@@ -89,18 +98,32 @@ def split_words(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return (w >> 32).to(torch.int32), w.to(torch.int32)
 
 
+_CONSTANTS: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _constants(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The IV and the message schedule as tensors on ``device``, made once:
+    a compression then copies nothing from the host, so a CUDA graph can
+    capture it."""
+    if device not in _CONSTANTS:
+        _CONSTANTS[device] = (
+            torch.tensor(_IV_S64, dtype=torch.int64, device=device),
+            torch.tensor(_SCHEDULE, dtype=torch.int64, device=device))
+    return _CONSTANTS[device]
+
+
 def _compress_words(h, m, t, final):
     """One compression on whole words: ``h`` (8, B) int64 state, ``m``
     (16, B) int64 block, ``t`` (B,) int64 byte counter after this block,
     ``final`` (B,) bool.  Returns the new (8, B) state."""
     B = h.shape[1]
-    iv = torch.tensor(_IV_S64, dtype=torch.int64, device=h.device)
+    iv, schedule = _constants(h.device)
     a, b = h[0:4], h[4:8]
     c = iv[0:4, None].expand(4, B)
     zero = torch.zeros_like(t)
     flag = torch.where(final, torch.full_like(t, -1), zero)
     d = iv[4:8, None] ^ torch.stack([t, zero, flag, zero])
-    sched = m[torch.tensor(_SCHEDULE, device=h.device)].view(12, 4, 4, B)
+    sched = m[schedule].view(12, 4, 4, B)
     for r in range(12):
         for half in (0, 1):
             x, y = sched[r, 2 * half], sched[r, 2 * half + 1]
@@ -121,10 +144,11 @@ def _compress_words(h, m, t, final):
 
 
 def initial_state(batch: int, digest_size: int = DIGEST_SIZE,
-                  device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+                  device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """h0 = IV ^ parameter block (sequential mode, no key), as (B, 8)
-    hi/lo int32 halves."""
-    h = torch.tensor(_IV_S64, dtype=torch.int64, device=device)
+    hi/lo int32 halves on ``device``."""
+    h = torch.tensor(_IV_S64, dtype=torch.int64,
+                     device=resolve_device(device))
     h[0] ^= 0x01010000 ^ digest_size
     hh, hl = split_words(h)
     return hh.expand(batch, 8).contiguous(), hl.expand(batch, 8).contiguous()
@@ -166,6 +190,42 @@ def blake2b_packed(mh, ml, lengths, digest_size: int = DIGEST_SIZE):
         nh = _compress_words(h, m, t, item_blocks == k + 1)
         h = torch.where(item_blocks > k, nh, h)
     return split_words(h.T.contiguous())
+
+
+def blake2b_update(hh, hl, t_hi, t_lo, mh, ml, seg_lengths, is_last):
+    """Advance chaining states over one packed segment per item — the
+    plain version of B1's chained entry (the reference's
+    ``blake2b_update``, :383).
+
+    ``hh``/``hl``: (B, 8) chaining state; ``t_hi``/``t_lo``: (B,) halves
+    of the 64-bit count of bytes already compressed; ``mh``/``ml``: (B,
+    nblocks, 16) segment words; ``seg_lengths``: (B,) bytes in this
+    segment (whole blocks unless the segment is the last); ``is_last``:
+    (B,) bool.  Block k's counter is ``t + min(seg_len, (k+1)*128)``, the
+    final flag goes on the last block of a last segment, and the empty
+    message (a zero-length last segment at t = 0) compresses one zero
+    block; blocks past a segment's end are not compressed.  Returns
+    ``(hh, hl, t_hi, t_lo)`` advanced past the segment, all int32.
+
+    Every block position is stepped, masked where inactive, as the
+    reference's scan steps them: nothing is read back to the host, so a
+    CUDA graph can capture a call on the card.
+    """
+    nblocks = mh.shape[1]
+    seg = seg_lengths.to(torch.int64) & _MASK32
+    last = is_last.to(torch.bool)
+    t = join_words(t_hi, t_lo)
+    raw = (seg + 127) >> 7
+    item_blocks = torch.where(last & (raw == 0) & (t == 0), 1, raw)
+    h = join_words(hh, hl).T.contiguous()
+    for k in range(nblocks):
+        m = join_words(mh[:, k, :], ml[:, k, :]).T
+        bt = t + torch.clamp_max(seg, (k + 1) * BLOCK_BYTES)
+        nh = _compress_words(h, m, bt, last & (item_blocks == k + 1))
+        h = torch.where(item_blocks > k, nh, h)
+    hh, hl = split_words(h.T.contiguous())
+    t_hi, t_lo = split_words(t + seg)
+    return hh, hl, t_hi, t_lo
 
 
 # ---------------------------------------------------------------------------
@@ -249,22 +309,42 @@ def blake2b_batch_begin(payloads, digest_size: int = DIGEST_SIZE,
     from .blake2b_cuda import blake2b_packed_kernel
 
     dev = resolve_device(device)
-    on_cuda = dev.type == "cuda"
+    handles = []
+    for nb, idxs in bucket_by_blocks(payloads).items():
+        batch = [payloads[i] for i in idxs]
+        batch += [b""] * (_bucket_nblocks(len(batch)) - len(batch))
+        mh, ml, lengths = stage_batch(batch, nb, dev)
+        hh, hl = blake2b_packed_kernel(mh, ml, lengths, digest_size)
+        handles.append((idxs, hh[: len(idxs)], hl[: len(idxs)]))
+    return digest_collector(len(payloads), handles, digest_size, dev)
+
+
+def bucket_by_blocks(payloads) -> dict[int, list[int]]:
+    """Payload indices by power-of-two block count, in first-seen order."""
     buckets: dict[int, list[int]] = {}
     for i, p in enumerate(payloads):
         buckets.setdefault(_bucket_nblocks(_need_blocks(len(p))), []).append(i)
-    handles = []
-    for nb, idxs in buckets.items():
-        batch = [payloads[i] for i in idxs]
-        batch += [b""] * (_bucket_nblocks(len(batch)) - len(batch))
-        raw, lengths = _stage_bytes(batch, nb, pin=on_cuda)
-        if on_cuda:
-            raw = raw.to(dev, non_blocking=True)
-            lengths = lengths.to(dev, non_blocking=True)
-        mh, ml = _split_halves(raw, nb)
-        hh, hl = blake2b_packed_kernel(mh, ml, lengths, digest_size)
-        handles.append((idxs, hh[: len(idxs)], hl[: len(idxs)]))
+    return buckets
 
+
+def stage_batch(payloads, nblocks: int, dev: torch.device):
+    """``(mh, ml, lengths)`` of ``payloads`` at ``nblocks`` on ``dev``: on
+    CUDA staged in pinned host memory, copied without blocking and split
+    into hi/lo halves on the card."""
+    on_cuda = dev.type == "cuda"
+    raw, lengths = _stage_bytes(payloads, nblocks, pin=on_cuda)
+    if on_cuda:
+        raw = raw.to(dev, non_blocking=True)
+        lengths = lengths.to(dev, non_blocking=True)
+    mh, ml = _split_halves(raw, nblocks)
+    return mh, ml, lengths
+
+
+def digest_collector(n: int, handles, digest_size: int, dev: torch.device):
+    """``collect()`` over per-bucket ``(idxs, hh, hl)`` digest words of
+    ``n`` payloads, with ``collect.start_d2h``: the readback contract of
+    :func:`blake2b_batch_begin`."""
+    on_cuda = dev.type == "cuda"
     readback: list = []
 
     def start_d2h() -> None:
@@ -291,7 +371,7 @@ def blake2b_batch_begin(payloads, digest_size: int = DIGEST_SIZE,
             ready = readback[:-1]
         else:
             ready = handles
-        out: list[bytes | None] = [None] * len(payloads)
+        out: list[bytes | None] = [None] * n
         for idxs, hh, hl in ready:
             for i, d in zip(idxs, digests_to_bytes(hh, hl, digest_size)):
                 out[i] = d
@@ -307,3 +387,87 @@ def blake2b_batch(payloads, digest_size: int = DIGEST_SIZE,
     if not payloads:
         return []
     return blake2b_batch_begin(payloads, digest_size, device)()
+
+
+class Blake2bStream:
+    """Incremental BLAKE2b of one stream in bounded segments — the
+    counterpart of the reference's ``Blake2bStream`` (:442).
+
+    ``update(data)`` buffers until it holds more than one segment and
+    sends each full segment through B1's chained entry
+    (:func:`.blake2b_cuda.blake2b_update_kernel`), which advances the
+    chaining state and 64-bit byte counter on ``device``; ``digest()``
+    sends the rest with the final flag.  A segment that lands exactly on
+    the boundary is held for ``digest()``, since the final block must
+    carry the flag.  Middle segments share one padded shape; the tail is
+    padded to a power of two of blocks, which are not compressed.
+
+    On CUDA each segment is staged in pinned host memory and copied
+    without blocking, and a CUDA event marks its launch.  Host memory in
+    flight stays bounded: once ``max_inflight`` segments are queued the
+    stream waits on the oldest one's event, never the newest, so the
+    next segment's upload is not held behind the whole queue.
+    ``update()`` after ``digest()`` raises.
+    """
+
+    def __init__(self, digest_size: int = DIGEST_SIZE,
+                 segment_bytes: int = 1 << 22, max_inflight: int = 2,
+                 device="cuda"):
+        if segment_bytes <= 0 or segment_bytes % BLOCK_BYTES:
+            raise ValueError(f"segment_bytes must be a positive multiple of "
+                             f"{BLOCK_BYTES}")
+        self._dev = resolve_device(device)
+        self._digest_size = digest_size
+        self._seg = segment_bytes
+        self._max_inflight = max(1, max_inflight)
+        self._fences: list = []  # oldest first: one CUDA event a segment
+        hh, hl = initial_state(1, digest_size, self._dev)
+        zero = torch.zeros(1, dtype=torch.int32, device=self._dev)
+        self._state = (hh, hl, zero, zero)
+        self._flags = {last: torch.tensor([last], device=self._dev)
+                       for last in (False, True)}
+        self._pending = bytearray()
+        self._digest: bytes | None = None
+        self.length = 0
+
+    def update(self, data) -> "Blake2bStream":
+        if self._digest is not None:
+            raise RuntimeError("update() after digest()")
+        data = memoryview(data)
+        self._pending += data
+        self.length += data.nbytes
+        # strictly more than a segment: the last byte stays for digest()
+        k = max(0, len(self._pending) - 1) // self._seg
+        with memoryview(self._pending) as view:
+            for j in range(k):
+                self._advance(view[j * self._seg:(j + 1) * self._seg]
+                              .tobytes(), last=False)
+        del self._pending[:k * self._seg]
+        return self
+
+    def _advance(self, seg, last: bool) -> None:
+        from .blake2b_cuda import blake2b_update_kernel
+
+        nblocks = _need_blocks(len(seg))
+        if last:
+            nblocks = _bucket_nblocks(nblocks)
+        mh, ml, lengths = stage_batch([seg], nblocks, self._dev)
+        self._state = blake2b_update_kernel(*self._state, mh, ml, lengths,
+                                            self._flags[last])
+        if self._dev.type != "cuda":
+            return
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self._dev))
+        self._fences.append(done)
+        while len(self._fences) >= self._max_inflight:
+            self._fences.pop(0).synchronize()
+
+    def digest(self) -> bytes:
+        if self._digest is None:
+            self._advance(self._pending, last=True)
+            self._pending.clear()
+            self._fences.clear()
+            hh, hl, _, _ = self._state
+            self._digest = digests_to_bytes(hh.cpu(), hl.cpu(),
+                                            self._digest_size)[0]
+        return self._digest

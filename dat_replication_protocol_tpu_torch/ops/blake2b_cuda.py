@@ -8,8 +8,15 @@ the source note says what bounds each.  The wrapper keeps the
 reference's public layout: (B, nblocks, 16) hi/lo message words in,
 (B, 8) hi/lo digest words out, as int32 tensors holding uint32 bits.
 
-CPU tensors take the plain version, :func:`.blake2b.blake2b_packed`; a
-CUDA tensor launches the kernel or raises.
+The chained entry (``dat_blake2b_update`` in the same source, on the
+same round code and in the same two variants) advances per-item chaining
+states and 64-bit byte counters over one segment each; its wrapper is
+:func:`blake2b_update_kernel`, the counterpart of the reference's
+``blake2b_update`` (``ops/blake2b.py:383``), a ``jax.jit`` scan.
+
+CPU tensors take the plain versions, :func:`.blake2b.blake2b_packed` and
+:func:`.blake2b.blake2b_update`; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .blake2b import DIGEST_SIZE, blake2b_packed
+from .blake2b import DIGEST_SIZE, blake2b_packed, blake2b_update
 
 LANES = (1, 4)
 # An H100 has 132 SMs x 4 schedulers: at one warp of 32 items each, 16,896
@@ -112,3 +119,73 @@ def blake2b_packed_kernel(mh, ml, lengths, digest_size: int = DIGEST_SIZE):
 blake2b_packed_kernel.launches = 0
 blake2b_packed_kernel.launches_by_lanes = dict.fromkeys(LANES, 0)
 blake2b_packed_kernel.launches_by_blocks = {}
+
+
+def _check_update(hh, hl, t_hi, t_lo, mh, ml, seg_lengths, is_last):
+    _check(mh, ml, seg_lengths, DIGEST_SIZE)
+    B = mh.shape[0]
+    for name, t, shape, dtype in (
+            ("hh", hh, (B, 8), torch.int32), ("hl", hl, (B, 8), torch.int32),
+            ("t_hi", t_hi, (B,), torch.int32),
+            ("t_lo", t_lo, (B,), torch.int32),
+            ("is_last", is_last, (B,), torch.bool)):
+        if t.device != mh.device:
+            raise ValueError(f"{name} is on {t.device}, mh on {mh.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape}, got "
+                             f"{tuple(t.shape)}")
+
+
+def launch_update(hh, hl, t_hi, t_lo, mh, ml, seg_lengths, is_last,
+                  lanes: int):
+    """Launch the chained entry's variant with ``lanes`` lanes per item on
+    CUDA tensors (no plain fallback); counts the launch."""
+    if mh.device.type != "cuda":
+        raise ValueError(f"unsupported device {mh.device}")
+    if lanes not in LANES:
+        raise ValueError(f"lanes must be one of {LANES}, got {lanes}")
+    _check_update(hh, hl, t_hi, t_lo, mh, ml, seg_lengths, is_last)
+    B, nblocks, _ = mh.shape
+    out = (torch.empty((B, 8), dtype=torch.int32, device=mh.device),
+           torch.empty((B, 8), dtype=torch.int32, device=mh.device),
+           torch.empty((B,), dtype=torch.int32, device=mh.device),
+           torch.empty((B,), dtype=torch.int32, device=mh.device))
+    if B == 0:
+        return out
+    lib = _build.load("blake2b")
+    with torch.cuda.device(mh.device):
+        stream = torch.cuda.current_stream(mh.device).cuda_stream
+        rc = lib.dat_blake2b_update(
+            *(t.data_ptr() for t in (hh, hl, t_hi, t_lo, mh, ml, seg_lengths,
+                                     is_last) + out),
+            B, nblocks, lanes, stream)
+    if rc != 0:
+        raise RuntimeError(f"blake2b update kernel launch failed: "
+                           f"cudaError {rc}")
+    blake2b_update_kernel.launches += 1
+    blake2b_update_kernel.launches_by_lanes[lanes] += 1
+    return out
+
+
+def blake2b_update_kernel(hh, hl, t_hi, t_lo, mh, ml, seg_lengths, is_last):
+    """Advance chaining states over one segment per item: B1's chained
+    entry on CUDA, :func:`.blake2b.blake2b_update` on CPU.
+
+    Same contract as the plain version: (B, 8) int32 state halves, (B,)
+    int32 counter halves, (B, nblocks, 16) segment halves, (B,) int32
+    segment lengths and (B,) bool last flags in; ``(hh, hl, t_hi, t_lo)``
+    out.  The variant is :func:`lanes_per_item`'s.  Counts its launches in
+    ``blake2b_update_kernel.launches`` and by variant in
+    ``blake2b_update_kernel.launches_by_lanes``.
+    """
+    if mh.device.type == "cpu":
+        return blake2b_update(hh, hl, t_hi, t_lo, mh, ml, seg_lengths,
+                              is_last)
+    return launch_update(hh, hl, t_hi, t_lo, mh, ml, seg_lengths, is_last,
+                         lanes_per_item(mh.shape[0]))
+
+
+blake2b_update_kernel.launches = 0
+blake2b_update_kernel.launches_by_lanes = dict.fromkeys(LANES, 0)

@@ -104,7 +104,7 @@ def window_reduce(words: torch.Tensor, firsts: torch.Tensor,
 
 def _launch(name: str, rows: torch.Tensor, outs, *ints) -> None:
     lib = _build.load(name)
-    fn = getattr(lib, _build.SIGNATURES[name][0])
+    fn = getattr(lib, f"dat_{name}")
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         rc = fn(rows.data_ptr(), *(o.data_ptr() for o in outs),

@@ -28,17 +28,21 @@ DIGEST_WORDS = 8  # 32-byte digests as 8 uint32 words
 _MASK32 = 0xFFFFFFFF
 
 
-def scatter_add_words(nrows: int, index, words):
-    """(nrows, W) int32 table of word-wise wrapping-u32 sums: row
-    ``index[j]`` gets ``words[j]`` added, repeated indices accumulating.
-
-    ``index_add_`` accumulates repeats (``t[idx] += v`` would not); the
-    sums run in int64 over the words' unsigned values and keep the low
-    32 bits, so the table equals ``np.add.at`` on ``uint32``."""
+def scatter_add_sums(nrows: int, index, words):
+    """(nrows, W) int64 table of word-wise sums of the words' unsigned
+    values: row ``index[j]`` gets ``words[j]`` added, repeated indices
+    accumulating (``index_add_`` does; ``t[idx] += v`` would not)."""
     acc = torch.zeros((nrows, words.shape[1]), dtype=torch.int64,
                       device=words.device)
     acc.index_add_(0, index, words.to(torch.int64) & _MASK32)
-    return acc.to(torch.int32)
+    return acc
+
+
+def scatter_add_words(nrows: int, index, words):
+    """(nrows, W) int32 table of word-wise wrapping-u32 sums: the low 32
+    bits of :func:`scatter_add_sums`, so the table equals ``np.add.at`` on
+    ``uint32``."""
+    return scatter_add_sums(nrows, index, words).to(torch.int32)
 
 
 def table_leaves(table):
@@ -65,15 +69,22 @@ def key_slots(key_hl, log2_slots: int):
     return key_hl[:, 0] & ((1 << log2_slots) - 1)
 
 
-def sketch_table(rec_hh, rec_hl, slots, nslots: int):
+def sketch_sums(rec_hh, rec_hl, slots, nslots: int):
     """(B, 4) record digest halves + (B,) cell indices -> (nslots, 8)
-    int32 table of wrapping-u32 sums, words interleaved [lo k, hi k].
+    int64 table of the words' unsigned sums, words interleaved [lo k,
+    hi k]: tables built apart add up exactly before they are cut to u32.
 
     Slots are masked to the table width here, so an out-of-range value
     can neither alias nor be dropped."""
     words = torch.stack([rec_hl, rec_hh], dim=2).reshape(-1, DIGEST_WORDS)
     slots = (slots & (nslots - 1)).to(torch.int64)
-    return scatter_add_words(nslots, slots, words)
+    return scatter_add_sums(nslots, slots, words)
+
+
+def sketch_table(rec_hh, rec_hl, slots, nslots: int):
+    """The (nslots, 8) int32 sketch table of wrapping-u32 sums: the low 32
+    bits of :func:`sketch_sums`."""
+    return sketch_sums(rec_hh, rec_hl, slots, nslots).to(torch.int32)
 
 
 def _summarize(all_hh, all_hl, n: int, log2_slots: int):

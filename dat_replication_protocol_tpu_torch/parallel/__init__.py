@@ -1,0 +1,28 @@
+"""Multi-device scale-out on ``torch.distributed``: the mesh and the
+sharded digest, Merkle, diff, sketch and gear-scan steps."""
+
+from .cdc_mesh import sharded_gear_scan
+from .mesh import (
+    DATA_AXIS,
+    Mesh,
+    digest_root_step,
+    make_mesh,
+    pad_batch,
+    shard,
+    sharded_diff,
+    sharded_hash_begin,
+    sharded_sketch,
+)
+
+__all__ = [
+    "DATA_AXIS",
+    "Mesh",
+    "digest_root_step",
+    "make_mesh",
+    "pad_batch",
+    "shard",
+    "sharded_diff",
+    "sharded_gear_scan",
+    "sharded_hash_begin",
+    "sharded_sketch",
+]

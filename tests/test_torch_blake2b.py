@@ -85,7 +85,7 @@ def test_pack_payloads_matches_jax_layout():
 
 def test_initial_state_matches_jax():
     jh, jl = jax_b2b.initial_state(3, 32)
-    th, tl = b2b.initial_state(3, 32)
+    th, tl = b2b.initial_state(3, 32, device="cpu")
     assert np.array_equal(th.numpy().view(np.uint32), np.asarray(jh))
     assert np.array_equal(tl.numpy().view(np.uint32), np.asarray(jl))
 
@@ -93,7 +93,7 @@ def test_initial_state_matches_jax():
 def test_compress_one_block_matches_hashlib():
     payloads = _payloads((5, 128))
     mh, ml, lengths = b2b.pack_payloads(payloads)
-    hh, hl = b2b.initial_state(2)
+    hh, hl = b2b.initial_state(2, device="cpu")
     hh, hl = b2b.compress(hh, hl, mh[:, 0], ml[:, 0], lengths,
                           torch.ones(2, dtype=torch.bool))
     assert b2b.digests_to_bytes(hh, hl) == _hashlib(payloads)

@@ -196,8 +196,9 @@ def test_args_are_the_c_entries_order():
     geom = staged_geometry(4, 256 + 4096)
     assert tuple(geom) == (geom.ctas, geom.total_spans)
     _I = rabin_cuda._build.ctypes.c_int
-    assert rabin_cuda._build.SIGNATURES["gear_first"][1][5:7] == (_I, _I)
-    assert len(rabin_cuda._build.SIGNATURES["gear_first"][1]) == 8
+    argtypes = rabin_cuda._build.SIGNATURES["gear_first"]["dat_gear_first"]
+    assert argtypes[5:7] == (_I, _I)
+    assert len(argtypes) == 8
 
 
 @pytest.fixture

@@ -24,12 +24,14 @@ from dat_replication_protocol_tpu_torch.batch import feed
 from dat_replication_protocol_tpu_torch.runtime import replay
 from dat_replication_protocol_tpu_torch.wire import batch_codec
 from dat_replication_protocol_tpu_torch.ops import (
+    blake2b,
     fused_cdc_hash,
     merkle,
     rabin_cuda,
     rateless,
     reconcile,
 )
+from dat_replication_protocol_tpu_torch.parallel import mesh as pmesh
 from dat_replication_protocol_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
@@ -119,13 +121,30 @@ def test_port_session_loads_no_jax_package_module():
         "cols, frames = replay.replay_log(e.read())\n"
         "assert len(feed.leaves_from_columns(cols, frames,\n"
         "                                    device='cpu')) == 9\n"
+        "import hashlib, tempfile\n"
+        "import torch.distributed as dist\n"
+        "from dat_replication_protocol_tpu_torch.ops import blake2b\n"
+        "from dat_replication_protocol_tpu_torch.parallel import (\n"
+        "    make_mesh, sharded_gear_scan, sharded_hash_begin)\n"
+        "want = hashlib.blake2b(b'abc', digest_size=32).digest()\n"
+        "s = blake2b.Blake2bStream(segment_bytes=128, device='cpu')\n"
+        "assert s.update(b'abc').digest() == want\n"
+        "dist.init_process_group('gloo', rank=0, world_size=1,\n"
+        "    init_method='file://' + tempfile.mkdtemp() + '/store')\n"
+        "m = make_mesh(device='cpu')\n"
+        "assert sharded_hash_begin(m, [b'abc'])() == [want]\n"
+        "import torch\n"
+        "rows = torch.zeros((2, 64), dtype=torch.int32)\n"
+        "assert sharded_gear_scan(m, rows).shape == (2, 16)\n"
+        "dist.destroy_process_group()\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] == 'dat_replication_protocol_tpu')\n"
         "print(loaded)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=REPO,
-                         env={**os.environ, "PYTHONPATH": str(REPO)})
+                         env={**os.environ, "PYTHONPATH": str(REPO),
+                              "GLOO_SOCKET_IFNAME": "lo"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
 
@@ -159,12 +178,17 @@ def _no_card():
     lambda: feed.decode_batch_device(batch_codec.encode_rows([])),
     lambda: protocol.encode(backend="cuda",
                             peer_caps=protocol.CAP_CHANGE_BATCH),
+    lambda: blake2b.initial_state(1),
+    lambda: blake2b.Blake2bStream(),
+    lambda: pmesh.make_mesh(),
+    lambda: pmesh.make_mesh(1),
 ], ids=["decode", "encode", "pipeline", "resolve", "resolve-index",
         "content-address", "content-digests", "chunk-stream", "diff-leaves",
         "log-summary", "log-summary-empty", "coded-symbols", "peel-decoder",
         "weighted-symbols", "build-symbols", "leaves-frames",
         "leaves-rows", "leaves-canonical", "decode-batch-device",
-        "encode-negotiated"])
+        "encode-negotiated", "initial-state", "blake2b-stream", "make-mesh",
+        "make-mesh-1"])
 def test_cuda_without_a_card_raises(make):
     _no_card()
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -187,7 +211,7 @@ def test_unknown_backend_is_refused():
 
 def test_kernel_wrappers_refuse_other_devices():
     from dat_replication_protocol_tpu_torch.ops.blake2b_cuda import (
-        blake2b_packed_kernel)
+        blake2b_packed_kernel, blake2b_update_kernel)
     from dat_replication_protocol_tpu_torch.ops.merkle_cuda import (
         merkle_level_kernel)
 
@@ -195,6 +219,11 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         blake2b_packed_kernel(words, words, torch.zeros(
             2, dtype=torch.int32, device="meta"))
+    state = torch.zeros((2, 8), dtype=torch.int32, device="meta")
+    count = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        blake2b_update_kernel(state, state, count, count, words, words, count,
+                              torch.zeros(2, dtype=torch.bool, device="meta"))
     digests = torch.zeros((2, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         merkle_level_kernel(digests, digests)
@@ -218,7 +247,21 @@ def test_new_modules_are_in_the_scan():
     assert {"ops/rabin.py", "ops/rabin_cuda.py", "ops/fused_cdc_hash.py",
             "batch/feed.py", "runtime/content.py", "ops/reconcile.py",
             "ops/rateless.py", "runtime/tree_sync.py", "wire/batch_codec.py",
-            "runtime/replay.py"} <= names
+            "runtime/replay.py", "parallel/__init__.py", "parallel/mesh.py",
+            "parallel/cdc_mesh.py"} <= names
+
+
+@pytest.mark.parametrize("backend,device", [("nccl", "cpu"),
+                                            ("gloo", "cuda")])
+def test_mesh_refuses_a_backend_that_cannot_hold_its_device(
+        backend, device, monkeypatch):
+    # make_mesh resolves the device, then checks the group's backend
+    # before it touches the group; the card is faked for the gloo case
+    monkeypatch.setattr(pmesh.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(pmesh.dist, "get_backend", lambda group=None: backend)
+    monkeypatch.setattr(pmesh, "resolve_device", torch.device)
+    with pytest.raises(ValueError, match=f"a {backend} group cannot hold"):
+        pmesh.make_mesh(1, device=device)
 
 
 def test_port_reads_no_cdc_environment_switch():

@@ -234,3 +234,18 @@ def test_log_summary_on_card_matches_cpu(cuda_device):
     other = rec.LogSummary(*_log(keys[1:]), 12, device=cuda_device)
     out = rec.reconcile(card, other)
     assert out["a_keys"] and keys[0] in out["a_keys"]
+
+
+def test_sketch_sums_are_exact_and_cut_to_the_table():
+    # the int64 sums of unsigned words do not wrap; their low 32 bits are
+    # the sketch table (exact integers: no tolerance)
+    words = np.full((2, 3, 4), 0xFFFFFFFF, np.uint32)
+    slots = np.zeros(3, np.int32)
+    args = [torch.from_numpy(words[0].view(np.int32)),
+            torch.from_numpy(words[1].view(np.int32)),
+            torch.from_numpy(slots)]
+    sums = rec.sketch_sums(*args, 4)
+    assert sums.dtype == torch.int64
+    assert sums[0].tolist() == [3 * 0xFFFFFFFF] * 8
+    assert sums[1:].eq(0).all()
+    assert torch.equal(sums.to(torch.int32), rec.sketch_table(*args, 4))
