@@ -9,7 +9,9 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
 
 1. build: compile every kernel of ``dat_replication_protocol_tpu_torch``
    from ``csrc/`` with ``nvcc`` (one process per source, all started
-   together) and print the card's name and power limit;
+   together) and print the card's name and power limit; the bring-up
+   and the build run inside ``obs.BackendInitWatchdog`` (telemetry off),
+   whose stage timeline is printed;
 2. kernels against their plain PyTorch versions on the card, byte-exact:
    both variants of B1 (batched BLAKE2b: one thread or four lanes per
    item) at edge lengths across four buckets and on buckets of 1, 31, 32
@@ -136,12 +138,33 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    single-device counterpart; then each call's warm ms beside the
    counterpart's.  With one card the collectives run across one rank
    only; the tests run them across 2 and 4 ``gloo`` ranks on the CPU.
+13. telemetry, the only phase with the obs gate on (phases 1-12 run with
+   it off).  13a: phase 3's session at 256 blobs, five times with the
+   gate off and five times with it on, alternating; the medians and
+   their ratio are the gate's cost on this host.  13b: one gated run
+   whose span ring is widened to hold it whole: the counters must equal the session's truth (``decoder.changes``/``blobs``/
+   ``bytes`` and ``encoder.bytes`` its counts and wire bytes,
+   ``decoder.digests`` the digests held against ``hashlib``,
+   ``device.dispatch.batches`` the pipeline's dispatches), each kernel
+   site's calls its wrapper's launches, and both ends' frame tags must
+   tile the wire; then the host split of the session (seconds inside
+   ``device.dispatch``, inside ``device.deliver``, the rest) and the
+   device gauges.  One more gated run under ``torch.profiler``
+   (``utils.trace.trace_to``): the same counters, and every
+   ``utils.trace.span`` name among the profiler's events.  13c: a gated
+   ``content_address`` of phase 7's blob on ``fused1p``, twice (summary
+   == phase 7's, ``cdc.fused.*`` == its bytes and chunks, sites ==
+   launches, and in 13b and 13c no ``device.jit.recompile_budget``
+   event) and each call's split by span, with the ``cdc.hash``
+   engine note.  13d: the
+   rings of 13b exported with ``export_chrome_trace`` beside the
+   profiler's trace under ``build/phase13/``; their record counts.
 
 Every launch counter (B1's per variant and per block count, and its
 chained entry's per variant, too) is set to 0 just before each main-path
-phase (3, 4, 7, 8, 10, 11, 12a's stream, 12b's mesh calls) and read just
-after; a kernel or B1 variant that the phases did not launch fails the
-run.
+phase (3, 4, 7, 8, 10, 11, 12a's stream, 12b's mesh calls, 13's gated
+runs) and read just after; a kernel or B1 variant that the phases did
+not launch fails the run.
 The lines before the last carry the card, the per-kernel JSON and the
 times; the last line is ``{"ok": true, "device": {...}}``.  Without a
 card it exits 2 and prints no result.
@@ -152,6 +175,7 @@ from __future__ import annotations
 import hashlib
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -424,6 +448,7 @@ def run_session(device, n_blobs=N_BLOBS, blob_bytes=BLOB_BYTES,
     if launches["blake2b"] == 0:
         raise AssertionError("phase 3 never launched B1")
     return {"seconds": seconds, "wire_bytes": dec.bytes,
+            "enc_bytes": enc.bytes,
             "gib_per_s": dec.bytes / seconds / (1 << 30),
             "changes": len(changes), "blobs": n_blobs,
             "dispatches": pipeline.dispatches, "launches": launches,
@@ -2615,6 +2640,232 @@ def run_mesh(device, mesh_in: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: telemetry
+# ---------------------------------------------------------------------------
+
+# the bring-up and build's deadline: the records show builds of ~3 s and
+# runs of 220-440 s, so only a wedged init reaches it
+INIT_DEADLINE_S = 300.0
+P13_BLOBS = 256  # phase 3's profiled session
+P13_REPS = 5
+# span records a gated P13_BLOBS session leaves: two frame tags a frame
+# (8,448 frames), the dispatch spans and their profiler twins
+P13_SPAN_CAPACITY = 1 << 15
+P13_OUT = "build/phase13"  # .gitignore lists build/
+# kernel-sentinel site -> the name _wrappers() reports its launches under
+SITE_WRAPPERS = {
+    "ops.blake2b_cuda.packed": "blake2b",
+    "ops.blake2b_cuda.update": "blake2b_update",
+    "ops.merkle_cuda.level": "merkle_level",
+    "ops.rabin_cuda.candidates": "gear_candidates",
+    "ops.rabin_cuda.first": "gear_first",
+    "ops.rabin_cuda.window_first": "gear_window_first",
+    "ops.fused_cdc_hash.window_first_checked": "gear_window_first_checked",
+}
+
+
+def obs_reset() -> None:
+    """Zero the port's registry, rings, sentinel and engine notes."""
+    from dat_replication_protocol_tpu_torch import obs
+
+    obs.REGISTRY.reset()
+    obs.EVENTS.clear()
+    obs.SPANS.clear()
+    obs.SENTINEL.reset_for_tests()
+    obs.reset_engine_notes()
+
+
+def check_sites(launches: dict, what: str) -> dict:
+    """Each kernel site's calls must equal its wrapper's launches, and no
+    site may pass its signature budget: the main path's shapes are
+    bucketed."""
+    from dat_replication_protocol_tpu_torch import obs
+
+    snap = obs.SENTINEL.snapshot()
+    for site, name in SITE_WRAPPERS.items():
+        calls = snap.get(site, {}).get("calls", 0)
+        if calls != launches[name]:
+            raise AssertionError(f"{what}: site {site} counted {calls} calls, "
+                                 f"its wrapper {launches[name]} launches")
+    over = obs.EVENTS.events("device.jit.recompile_budget")
+    if over:
+        raise AssertionError(f"{what}: sites past their signature budget: "
+                             f"{[e['fields'] for e in over]}")
+    return {site: snap[site] for site in SITE_WRAPPERS if site in snap}
+
+
+def check_session_counters(s: dict, what: str) -> dict:
+    """Phase 13's counters against the session's own truth."""
+    from dat_replication_protocol_tpu_torch import obs
+
+    c = obs.snapshot()["counters"]
+    want = {"decoder.changes": s["changes"], "decoder.blobs": s["blobs"],
+            "decoder.bytes": s["wire_bytes"], "encoder.bytes": s["wire_bytes"],
+            "decoder.digests": s["changes"] + s["blobs"],
+            "device.dispatch.batches": s["dispatches"]}
+    got = {k: c.get(k, 0) for k in want}
+    if got != want or s["enc_bytes"] != s["wire_bytes"]:
+        raise AssertionError(f"{what}: counters {got}, the session's truth "
+                             f"{want} (encoder bytes {s['enc_bytes']})")
+    return got
+
+
+def check_tiles(records: list, name: str, total: int) -> int:
+    """``name``'s frame tags, sorted by offset, must tile [0, total)."""
+    frames = sorted((r["fields"]["offset"], r["fields"]["wire_len"])
+                    for r in records if r.get("span") == name)
+    end = 0
+    for off, wire_len in frames:
+        if off != end:
+            raise AssertionError(f"{name} tags do not tile the wire: a tag "
+                                 f"at {off}, coverage ends at {end}")
+        end = off + wire_len
+    if end != total:
+        raise AssertionError(f"{name} tags cover {end} of {total} bytes")
+    return len(frames)
+
+
+def span_seconds(records: list, name: str, **match) -> float:
+    return sum(r["dur"] for r in records if r.get("span") == name
+               and all(r["fields"].get(k) == v for k, v in match.items()))
+
+
+def run_telemetry(device, content_blob, content_summary,
+                  n_blobs=P13_BLOBS, blob_bytes=BLOB_BYTES,
+                  out_dir=P13_OUT) -> dict:
+    """Phase 13 (see the module docstring); leaves the gate off."""
+    from dat_replication_protocol_tpu_torch import obs
+    import dat_replication_protocol_tpu_torch as protocol
+    from dat_replication_protocol_tpu_torch.obs.tracing import (
+        DEFAULT_SPAN_CAPACITY as tracing_capacity)
+    from dat_replication_protocol_tpu_torch.utils.trace import trace_to
+
+    out = {"launches": {}}
+
+    def add(launches):
+        for k, n in launches.items():
+            if k not in NOT_COUNTS:
+                out["launches"][k] = out["launches"].get(k, 0) + n
+
+    # 13a: the gate's cost, alternating so drift hits both alike
+    secs = {False: [], True: []}
+    try:
+        for _ in range(P13_REPS):
+            for gate in (False, True):
+                obs.OBS.on = gate
+                obs_reset()
+                s = run_session(device, n_blobs, blob_bytes)
+                secs[gate].append(s["seconds"])
+                add(s["launches"])
+    finally:
+        obs.disable()
+    off, on = (float(np.median(secs[g])) for g in (False, True))
+    out["gate"] = {"off_s": secs[False], "on_s": secs[True],
+                   "median_off_s": off, "median_on_s": on, "ratio": on / off}
+
+    # 13b: one gated run, every span kept: counters, tiling, split
+    os.makedirs(out_dir, exist_ok=True)
+    obs_reset()
+    obs.SPANS.resize(P13_SPAN_CAPACITY)
+    obs.enable()
+    try:
+        s = run_session(device, n_blobs, blob_bytes)
+        obs.sample_device_gauges()
+    finally:
+        obs.disable()
+    add(s["launches"])
+    out["counters"] = check_session_counters(s, "phase 13b")
+    out["sites"] = check_sites(s["launches"], "phase 13b")
+    out["gauges"] = obs.snapshot()["gauges"]
+    recs = obs.SPANS.spans()
+    if obs.SPANS.dropped:
+        raise AssertionError(f"phase 13b: {obs.SPANS.dropped} span records "
+                             f"dropped from a ring of {P13_SPAN_CAPACITY}")
+    out["tags"] = {name: check_tiles(recs, name, s["wire_bytes"])
+                   for name in ("encoder.frame", "decoder.frame")}
+    dispatch = span_seconds(recs, "device.dispatch")
+    deliver = span_seconds(recs, "device.deliver")
+    out["split"] = {"seconds": s["seconds"], "dispatch_s": dispatch,
+                    "deliver_s": deliver,
+                    "rest_s": s["seconds"] - dispatch - deliver,
+                    "dispatches": s["dispatches"]}
+    # 13d's export of the rings, while they hold the whole session
+    ring = obs.export_chrome_trace(os.path.join(out_dir, "obs_trace.json"))
+    with open(ring, encoding="utf-8") as f:
+        out["ring_trace"] = (ring, len(json.load(f)["traceEvents"]))
+    obs.SPANS.resize(tracing_capacity)
+
+    # 13b, continued: the same session under torch.profiler
+    obs_reset()
+    obs.enable()
+    try:
+        with trace_to(os.path.join(out_dir, "profile")) as prof:
+            s = run_session(device, n_blobs, blob_bytes)
+    finally:
+        obs.disable()
+    add(s["launches"])
+    check_session_counters(s, "phase 13b (profiled)")
+    check_sites(s["launches"], "phase 13b (profiled)")
+    names = {e.name for e in prof.events()}
+    spans = {r["span"] for r in obs.SPANS.spans()
+             if r["fields"].get("src") == "torch"}
+    if not spans or not spans <= names:
+        raise AssertionError(f"utils.trace spans {sorted(spans)} missing "
+                             f"from the profiler's events: "
+                             f"{sorted(spans - names)}")
+    out["profiled"] = {"seconds": s["seconds"], "spans": sorted(spans)}
+    out["profile"] = os.path.join(out_dir, "profile", "trace.json")
+
+    # 13c: content addressing, gated, twice: the first call after the
+    # other phases, then a warm one
+    out["cdc"] = []
+    for _ in range(2):
+        obs_reset()
+        obs.enable()
+        try:
+            reset_counters()
+            sync(device)
+            t0 = time.perf_counter()
+            summary = protocol.content_address(
+                content_blob, CDC_AVG_BITS, CDC_MIN, CDC_MAX,
+                route="fused1p", device=device)
+            seconds = time.perf_counter() - t0
+            launches = read_counters()
+        finally:
+            obs.disable()
+        add(launches)
+        if summary != content_summary:
+            raise AssertionError("phase 13c's summary differs from phase 7's")
+        c = obs.snapshot()["counters"]
+        n = int(content_blob.size)
+        want = {"cdc.fused.bytes": n, "cdc.fused.chunks": summary.nchunks,
+                "device.d2h.bytes": 32 * summary.nchunks + 32}
+        got = {k: c.get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"phase 13c: counters {got}, want {want}")
+        sites = check_sites(launches, "phase 13c")
+        recs = obs.SPANS.spans()
+        split = {"seconds": seconds, "content_address_s": span_seconds(
+            recs, "device.content.address")}
+        for name in ("cdc.dispatch", "cdc.collect", "cdc.greedy"):
+            split[name] = span_seconds(recs, name)
+        split["hash_dispatch_s"] = span_seconds(
+            recs, "device.dispatch", site="fused_cdc_hash.hash_cuts")
+        split["rest_s"] = split["content_address_s"] - sum(
+            split[k] for k in ("cdc.dispatch", "cdc.collect", "cdc.greedy",
+                               "hash_dispatch_s"))
+        out["cdc"].append({"split": split, "counters": got, "sites": sites,
+                           "engines": [e["fields"] for e in obs.EVENTS.events(
+                               "device.engine.select")]})
+
+    # 13d: the profiler's trace beside the rings' (exported in 13b)
+    with open(out["profile"], encoding="utf-8") as f:
+        out["profile"] = (out["profile"], len(json.load(f)["traceEvents"]))
+    obs_reset()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2622,6 +2873,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
         return 2
+    from dat_replication_protocol_tpu_torch.obs import BackendInitWatchdog
     from dat_replication_protocol_tpu_torch.ops import _build
 
     device = "cuda"
@@ -2631,10 +2883,19 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
-    report = _build.build()
+    with BackendInitWatchdog(deadline_s=INIT_DEADLINE_S) as wd:
+        wd.stage("platform_probe")
+        name = torch.cuda.get_device_name(0)
+        wd.stage("first_device_call")
+        torch.ones(1, device=device).sum().item()
+        wd.stage("first_compile")
+        t0 = time.perf_counter()
+        report = _build.build()
     log(f"phase 1: built {sorted(report)} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    log(f"phase 1: init watchdog on {name}: stages {wd.stages} (name, s "
+        f"since start), done at {wd.elapsed_s:.3f} s of a "
+        f"{INIT_DEADLINE_S} s deadline, stuck {wd.fired}")
     for name, r in sorted(report.items()):
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -2858,7 +3119,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     mesh_in = mesh_inputs(device, session, ent, mesh_recon, content_blob)
-    del content_blob, mesh_recon
+    del mesh_recon
     mesh = run_mesh(device, mesh_in)
     del mesh_in
     p12 = mesh["launches"]
@@ -2882,15 +3143,54 @@ def main() -> int:
                                  f"{name}")
     log(f"phase 12b: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    tel = run_telemetry(device, content_blob, s)
+    del content_blob
+    p13 = tel["launches"]
+    g = tel["gate"]
+    log(f"phase 13: the {P13_BLOBS}-blob session, gate off / on alternating:"
+        f" off {g['off_s']} s, on {g['on_s']} s; medians {g['median_off_s']}"
+        f" / {g['median_on_s']} s, ratio {g['ratio']}; on {card}")
+    sp = tel["split"]
+    log(f"phase 13: gated session: counters {tel['counters']} == its truth; "
+        f"kernel sites {tel['sites']} == the wrappers' launches; frame tags "
+        f"{tel['tags']} tile the wire at both ends; host split of "
+        f"{sp['seconds']} s: device.dispatch {sp['dispatch_s']} s "
+        f"({sp['dispatches']} dispatches), device.deliver {sp['deliver_s']} "
+        f"s, rest (wire parse, framing, Python) {sp['rest_s']} s; gauges "
+        f"after it {tel['gauges']}; on {card}")
+    log(f"phase 13: the same session under torch.profiler in "
+        f"{tel['profiled']['seconds']} s: counters == its truth, sites == "
+        f"launches, utils.trace spans {tel['profiled']['spans']} all among "
+        f"the profiler's events")
+    for i, cdc_run in enumerate(tel["cdc"]):
+        cs = cdc_run["split"]
+        log(f"phase 13: gated content_address {i + 1} of 2 of {CONTENT_BYTES}"
+            f" B on fused1p == phase 7's summary in {cs['seconds']} s; "
+            f"counters {cdc_run['counters']}; kernel sites "
+            f"{cdc_run['sites']} == launches; split: device.content.address "
+            f"{cs['content_address_s']} s = cdc.dispatch {cs['cdc.dispatch']}"
+            f" + cdc.collect {cs['cdc.collect']} + cdc.greedy "
+            f"{cs['cdc.greedy']} + chunk hash device.dispatch "
+            f"{cs['hash_dispatch_s']} + rest (staging, root fold, readback) "
+            f"{cs['rest_s']} s; engine notes {cdc_run['engines'][:2]}; on "
+            f"{card}")
+    log(f"phase 13: obs rings as a Chrome trace: {tel['ring_trace'][1]} "
+        f"records in {tel['ring_trace'][0]}; the profiler's trace: "
+        f"{tel['profile'][1]} records in {tel['profile'][0]}; launches {p13}")
+    log(f"phase 13: {time.perf_counter() - t0:.2f} s")
+
     for k in launches:
-        launches[k] += p10[k] + p11[k] + p12[k]
+        launches[k] += p10[k] + p11[k] + p12[k] + p13[k]
     for r in rows:
-        r["launches"] += p10[r["name"]] + p11[r["name"]] + p12[r["name"]]
+        r["launches"] += (p10[r["name"]] + p11[r["name"]] + p12[r["name"]]
+                          + p13[r["name"]])
     buckets = b1_buckets(session["launches"], side["launches"],
                          ent["launches"], cdc, streamed)
     buckets["reconcile"] = sum(p10["b1_blocks"].values())
     buckets["replay"] = sum(p11["b1_blocks"].values())
     buckets["mesh"] = sum(p12["b1_blocks"].values())
+    buckets["telemetry"] = p13["blake2b"]
     if sum(buckets.values()) != launches["blake2b"]:
         raise AssertionError(f"B1's launches by bucket {buckets} do not sum "
                              f"to its {launches['blake2b']} launches")

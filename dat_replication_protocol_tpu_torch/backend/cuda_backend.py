@@ -21,6 +21,12 @@ pipeline's device; it follows ``device=`` and nothing else.  Blobs of at
 least :data:`DEFAULT_STREAM_THRESHOLD` bytes hash incrementally on the
 host with hashlib, as the reference routes them (one serial chain leaves
 a batched device idle), so they are never joined in host memory.
+
+Telemetry: ``decoder.digests`` / ``encoder.digests`` per delivery,
+``device.submit.items|bytes`` per submit, ``device.dispatch.batches``
+per dispatch, and each dispatch and delivery inside a
+``device.dispatch`` / ``device.deliver`` obs span joined with a
+``digest.dispatch`` / ``digest.collect`` profiler span.
 """
 
 from __future__ import annotations
@@ -29,16 +35,29 @@ import functools
 import hashlib
 from typing import Callable
 
+from ..obs.device import note_engine as _note_engine
+from ..obs.metrics import OBS as _OBS
+from ..obs.metrics import counter as _counter
+from ..obs.tracing import trace_span as _trace_span
 from ..ops.blake2b import DIGEST_SIZE, blake2b_batch_begin
 from ..session.decoder import Decoder
 from ..session.encoder import Encoder
 from ..utils.device import resolve_device
+from ..utils.trace import span
 
 OnDigest = Callable[[str, int, bytes], None]  # (kind, seq, digest)
 
 # blobs at least this long hash incrementally instead of being joined in
 # host RAM for the batch path
 DEFAULT_STREAM_THRESHOLD = 8 << 20
+
+# digest deliveries by session end, and the pipeline's traffic
+# (OBSERVABILITY.md catalog)
+_M_DEC_DIGESTS = _counter("decoder.digests")
+_M_ENC_DIGESTS = _counter("encoder.digests")
+_M_SUBMIT_ITEMS = _counter("device.submit.items")
+_M_SUBMIT_BYTES = _counter("device.submit.bytes")
+_M_DISPATCHES = _counter("device.dispatch.batches")
 
 
 class _HostStream:
@@ -72,8 +91,10 @@ class DigestPipeline:
                  max_batch_bytes: int = 1 << 30, max_inflight: int = 2,
                  device="cuda"):
         if hash_begin is None:
-            hash_begin = functools.partial(blake2b_batch_begin,
-                                           device=resolve_device(device))
+            dev = resolve_device(device)
+            hash_begin = functools.partial(blake2b_batch_begin, device=dev)
+            if _OBS.on:
+                _note_engine("digest.hash", f"b1-{dev.type}")
         self._hash_begin = hash_begin
         self._max_batch = max_batch
         self._max_batch_bytes = max_batch_bytes
@@ -91,6 +112,9 @@ class DigestPipeline:
     def submit(self, payload: bytes, on_digest: Callable, tag=None) -> None:
         """Queue one payload; ``on_digest(digest)``, or
         ``on_digest(tag, digest)`` when ``tag`` is not None."""
+        if _OBS.on:
+            _M_SUBMIT_ITEMS.inc()
+            _M_SUBMIT_BYTES.inc(len(payload))
         self._entries.append(("payload", payload, on_digest, tag))
         self._pending_bytes += len(payload)
         if (len(self._entries) >= self._max_batch
@@ -100,6 +124,9 @@ class DigestPipeline:
     def submit_stream(self, stream, on_digest: Callable, tag=None) -> None:
         """Queue a finished incremental hash (``.digest()``/``.length``)
         for in-order delivery among the batched payloads."""
+        if _OBS.on:
+            _M_SUBMIT_ITEMS.inc()
+            _M_SUBMIT_BYTES.inc(int(getattr(stream, "length", 0)))
         self._entries.append(("stream", stream, on_digest, tag))
         if len(self._entries) >= self._max_batch:
             self.dispatch()
@@ -116,10 +143,16 @@ class DigestPipeline:
         if not self._entries:
             return
         entries, self._entries = self._entries, []
+        pending = self._pending_bytes
         self._pending_bytes = 0
         self.dispatches += 1
+        if _OBS.on:
+            _M_DISPATCHES.inc()
         payloads = [e[1] for e in entries if e[0] == "payload"]
-        collect = self._hash_begin(payloads) if payloads else (lambda: [])
+        with _trace_span("device.dispatch", items=len(entries),
+                         bytes=pending), span("digest.dispatch"):
+            collect = (self._hash_begin(payloads) if payloads
+                       else (lambda: []))
         self._prefetch_inflight()
         self._inflight.append((entries, collect))
         while len(self._inflight) > self._max_inflight:
@@ -134,7 +167,9 @@ class DigestPipeline:
     def _deliver_oldest(self) -> None:
         entries, collect = self._inflight.pop(0)
         payload_count = sum(1 for e in entries if e[0] == "payload")
-        digest_list = collect()
+        with _trace_span("device.deliver", items=len(entries)), \
+                span("digest.collect"):
+            digest_list = collect()
         if len(digest_list) != payload_count:
             raise RuntimeError(
                 f"hash backend returned {len(digest_list)} digests for "
@@ -167,6 +202,8 @@ class _DigestTaps:
     """The digest side shared by both session ends: the pipeline, the
     ``on_digest`` subscribers and the per-kind arrival counters."""
 
+    _digest_counter = _M_DEC_DIGESTS  # decoder.digests or encoder.digests
+
     def _init_digests(self, pipeline, stream_threshold, device) -> None:
         self._pipeline = (pipeline if pipeline is not None
                           else DigestPipeline(device=device))
@@ -184,10 +221,14 @@ class _DigestTaps:
         return self._pipeline
 
     def _emit_change_digest(self, seq: int, digest: bytes) -> None:
+        if _OBS.on:
+            self._digest_counter.inc()
         for cb in self._digest_cbs:
             cb("change", seq, digest)
 
     def _emit_blob_digest(self, seq: int, digest: bytes) -> None:
+        if _OBS.on:
+            self._digest_counter.inc()
         for cb in self._digest_cbs:
             cb("blob", seq, digest)
 
@@ -272,6 +313,8 @@ class CudaEncoder(_DigestTaps, Encoder):
     Same wire output and ordering as the host Encoder; digests of every
     change payload and completed blob arrive through ``on_digest``.
     """
+
+    _digest_counter = _M_ENC_DIGESTS
 
     def __init__(self, pipeline: DigestPipeline | None = None,
                  stream_threshold: int = DEFAULT_STREAM_THRESHOLD,

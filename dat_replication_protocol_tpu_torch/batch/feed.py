@@ -9,6 +9,13 @@ wrapper, staged in pinned host memory and copied without blocking on
 CUDA; there is no item floor and no buffer donation.  Replayed change
 records become Merkle leaves here: a leaf is the BLAKE2b-256 of the
 record's per-record payload, whatever framing carried it.
+
+Telemetry: each B1 chunk's pack and launch is a ``device.dispatch`` span
+(field ``site``); ``device.h2d.bytes`` counts the staged words and
+lengths, ``device.h2d.overlap`` those staged after an earlier chunk of
+the same call was launched (packed while it runs), ``device.d2h.bytes``
+the digests read back; ``decode_batch_device`` counts its columns' H2D
+bytes and notes the ``feed.decode_batch`` engine.
 """
 
 from __future__ import annotations
@@ -19,12 +26,21 @@ import warnings
 import numpy as np
 import torch
 
+from ..obs.device import note_engine as _note_engine
+from ..obs.metrics import OBS as _OBS
+from ..obs.metrics import counter as _counter
+from ..obs.tracing import trace_span as _trace_span
 from ..ops import blake2b
 from ..utils.device import resolve_device
 from ..wire.batch_codec import ragged_copy
 
 BLOCK_BYTES = blake2b.BLOCK_BYTES
 PIPELINE_BYTES = 64 << 20  # padded message bytes per B1 launch, at most
+
+# host <-> device traffic (OBSERVABILITY.md catalog)
+_M_H2D = _counter("device.h2d.bytes")
+_M_D2H = _counter("device.d2h.bytes")
+_M_H2D_OVERLAP = _counter("device.h2d.overlap")
 
 
 def pack_ragged(buf: np.ndarray, offs, lens, nblocks: int | None = None):
@@ -76,10 +92,19 @@ def hash_extents_device(buf: np.ndarray, offs, lens, device="cuda",
     dev = resolve_device(device)
     offs = np.asarray(offs, dtype=np.int64)
     lens = np.asarray(lens, dtype=np.int64)
-    return _hash_buckets(
-        lens, dev, pipeline_bytes,
-        lambda idx, nb: _stage(pack_ragged(buf, offs[idx], lens[idx], nb),
-                               dev))
+    staged = []  # chunks staged by this call; later ones overlap B1
+
+    def pack(idx, nb):
+        mh, ml, blens = _stage(pack_ragged(buf, offs[idx], lens[idx], nb),
+                               dev)
+        if _OBS.on:
+            _M_H2D.inc(mh.nbytes + ml.nbytes + blens.nbytes)
+            if staged:
+                _M_H2D_OVERLAP.inc(mh.nbytes + ml.nbytes)
+        staged.append(nb)
+        return mh, ml, blens
+
+    return _hash_buckets(lens, dev, pipeline_bytes, pack)
 
 
 def _stage(packed, dev: torch.device):
@@ -93,20 +118,28 @@ def _stage(packed, dev: torch.device):
 
 
 def _hash_buckets(lens: np.ndarray, dev: torch.device, pipeline_bytes: int,
-                  pack):
+                  pack, site: str = "feed.hash_extents"):
     """Shared bucket loop of the two chunk-hash paths: ``pack(idx, nb)``
     gives (mh, ml, lengths) on ``dev`` for extents ``idx`` at ``nb``
-    blocks; every chunk goes to B1; digests land in extent order."""
-    from ..ops.blake2b_cuda import blake2b_packed_kernel
+    blocks; every chunk goes to B1; digests land in extent order.  Each
+    chunk's pack and launch is one ``device.dispatch`` span with field
+    ``site``."""
+    from ..ops.blake2b_cuda import blake2b_packed_kernel, variant_name
 
     n = len(lens)
     out_hh = torch.zeros((n, 4), dtype=torch.int32, device=dev)
     out_hl = torch.zeros((n, 4), dtype=torch.int32, device=dev)
     for nb, idx in bucketed_extents(lens).items():
         chunk_b = max(1, pipeline_bytes // (nb * BLOCK_BYTES))
+        if _OBS.on:
+            # keyed per bucket, as the blake2b batch edge
+            _note_engine(site, variant_name(min(chunk_b, len(idx)), dev),
+                         key=nb, items=len(idx), nblocks=nb)
         for c0 in range(0, len(idx), chunk_b):
             sub = idx[c0:c0 + chunk_b]
-            hh, hl = blake2b_packed_kernel(*pack(sub, nb))
+            with _trace_span("device.dispatch", site=site, items=len(sub),
+                             nblocks=nb):
+                hh, hl = blake2b_packed_kernel(*pack(sub, nb))
             at = torch.as_tensor(sub, device=dev)
             out_hh[at] = hh[:, :4]
             out_hl[at] = hl[:, :4]
@@ -120,8 +153,10 @@ def hash_extents(buf: np.ndarray, offs, lens, device="cuda",
 
     if not len(offs):
         return np.empty((0, 32), dtype=np.uint8)
-    return digest_matrix(*hash_extents_device(buf, offs, lens, device,
-                                              pipeline_bytes))
+    hh, hl = hash_extents_device(buf, offs, lens, device, pipeline_bytes)
+    if _OBS.on:
+        _M_D2H.inc(32 * len(offs))  # (N, 4) hi + lo halves read back
+    return digest_matrix(hh, hl)
 
 
 @dataclasses.dataclass
@@ -161,6 +196,9 @@ def decode_batch_device(payload, base: int = 0,
 
     dev = resolve_device(device)
     cols = decode_change_batch(payload, base=base)
+    n = len(cols.change)
+    if _OBS.on:
+        _note_engine("feed.decode_batch", dev.type)
 
     def put(arr):
         # the payload's views are read-only: nothing writes through the
@@ -174,10 +212,14 @@ def decode_batch_device(payload, base: int = 0,
         return put(np.ascontiguousarray(col).view(np.int32)).to(
             torch.int64) & 0xFFFFFFFF
 
-    return DeviceChangeBatch(
-        change=words(cols.change), from_=words(cols.from_),
-        to=words(cols.to), buf=put(cols.buf), val_off=put(cols.val_off),
-        val_len=put(cols.val_len))
+    with _trace_span("device.dispatch", site="feed.decode_batch", items=n):
+        if _OBS.on:
+            # the heap, three u32 columns, two int64 value columns
+            _M_H2D.inc(cols.buf.nbytes + 12 * n + 16 * n)
+        return DeviceChangeBatch(
+            change=words(cols.change), from_=words(cols.from_),
+            to=words(cols.to), buf=put(cols.buf), val_off=put(cols.val_off),
+            val_len=put(cols.val_len))
 
 
 def leaves_from_change_columns(cols, device="cuda") -> np.ndarray:

@@ -1,0 +1,100 @@
+"""obs — telemetry of the port: metrics, events, spans, flight recorder.
+
+The counterpart of ``dat_replication_protocol_tpu/obs/`` (its core):
+
+* :mod:`.metrics` — counters, gauges and histograms in a process-global
+  registry behind one gate (``OBS.on``, off until :func:`enable`): a
+  disabled site is one attribute load.  ``to_prom_text`` renders a
+  snapshot as Prometheus text.
+* :mod:`.events` — a bounded ring of structured events with an fd or
+  JSONL sink.
+* :mod:`.tracing` — nestable spans, per-frame instants keyed on the wire
+  offset, Chrome trace export.
+* :mod:`.flight` — post-mortem bundles on a protocol error or a stuck
+  backend init, when armed.
+* :mod:`.device` — the kernel sentinel (:func:`kernel_site`: launches
+  and launch shapes per call site), engine attribution, device memory
+  gauges and the backend-init watchdog.
+
+Names of counters, events and spans are the reference's
+(``OBSERVABILITY.md``), so the JAX package's offline tools read the
+port's logs.  ``metrics``, ``events``, ``tracing`` and ``flight`` use
+the standard library only; ``device`` reads ``torch`` only if the
+process already loaded it.
+"""
+
+from __future__ import annotations
+
+from .device import (
+    SENTINEL,
+    BackendInitWatchdog,
+    KernelSentinel,
+    RecompileBudget,
+    kernel_site,
+    note_engine,
+    reset_engine_notes,
+    sample_device_gauges,
+)
+from .events import EVENTS, EventLog, emit
+from .flight import FLIGHT, FlightRecorder, read_bundle
+from .metrics import (
+    OBS,
+    REGISTRY,
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+    counter,
+    disable,
+    enable,
+    gauge,
+    histogram,
+    snapshot,
+    to_prom_text,
+)
+from .tracing import (
+    SPANS,
+    SpanLog,
+    attach_jsonl_sink,
+    export_chrome_trace,
+    to_chrome_trace,
+    trace_instant,
+    trace_span,
+)
+
+__all__ = [
+    "OBS",
+    "REGISTRY",
+    "EVENTS",
+    "SPANS",
+    "FLIGHT",
+    "EventLog",
+    "SpanLog",
+    "FlightRecorder",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "Registry",
+    "counter",
+    "gauge",
+    "histogram",
+    "snapshot",
+    "to_prom_text",
+    "emit",
+    "enable",
+    "disable",
+    "trace_span",
+    "trace_instant",
+    "to_chrome_trace",
+    "export_chrome_trace",
+    "attach_jsonl_sink",
+    "read_bundle",
+    "SENTINEL",
+    "KernelSentinel",
+    "RecompileBudget",
+    "BackendInitWatchdog",
+    "kernel_site",
+    "note_engine",
+    "reset_engine_notes",
+    "sample_device_gauges",
+]

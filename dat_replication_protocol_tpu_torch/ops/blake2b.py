@@ -32,6 +32,11 @@ is a JAX notion, and the port's wrappers allocate their own outputs.
 
 Per-item payloads of the batch API are limited to < 2 GiB (byte counters
 in 32 bits); a stream's counter has 64 bits.
+
+Telemetry: the batch API counts ``device.h2d.bytes`` (each bucket's
+padded message words and lengths) and ``device.d2h.bytes`` (64 bytes of
+digest halves an item) and notes the ``blake2b.batch`` engine per
+block-count bucket: B1's ``quad`` or ``thread`` variant, or ``plain``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.device import note_engine as _note_engine
+from ..obs.metrics import OBS as _OBS
+from ..obs.metrics import counter as _counter
 from ..utils.device import resolve_device
 
 DIGEST_SIZE = 32  # BLAKE2b-256, dat's content-hash size
@@ -73,6 +81,10 @@ _SCHEDULE = [
 ]
 
 _MASK32 = 0xFFFFFFFF
+
+# host <-> device traffic of the batch API (OBSERVABILITY.md catalog)
+_M_H2D = _counter("device.h2d.bytes")
+_M_D2H = _counter("device.d2h.bytes")
 
 
 def _s64(x: int) -> int:
@@ -306,14 +318,20 @@ def blake2b_batch_begin(payloads, digest_size: int = DIGEST_SIZE,
     digest readback into pinned memory without blocking; ``collect()``
     waits for it and returns digests in submit order.
     """
-    from .blake2b_cuda import blake2b_packed_kernel
+    from .blake2b_cuda import blake2b_packed_kernel, variant_name
 
     dev = resolve_device(device)
     handles = []
     for nb, idxs in bucket_by_blocks(payloads).items():
         batch = [payloads[i] for i in idxs]
         batch += [b""] * (_bucket_nblocks(len(batch)) - len(batch))
+        if _OBS.on:
+            # keyed per bucket: the variant is chosen per bucket
+            _note_engine("blake2b.batch", variant_name(len(batch), dev),
+                         key=nb, items=len(idxs), nblocks=nb)
         mh, ml, lengths = stage_batch(batch, nb, dev)
+        if _OBS.on:
+            _M_H2D.inc(mh.nbytes + ml.nbytes + lengths.nbytes)
         hh, hl = blake2b_packed_kernel(mh, ml, lengths, digest_size)
         handles.append((idxs, hh[: len(idxs)], hl[: len(idxs)]))
     return digest_collector(len(payloads), handles, digest_size, dev)
@@ -373,6 +391,9 @@ def digest_collector(n: int, handles, digest_size: int, dev: torch.device):
             ready = handles
         out: list[bytes | None] = [None] * n
         for idxs, hh, hl in ready:
+            if _OBS.on:
+                # two (B, 8) u32 halves per bucket: 64 bytes an item
+                _M_D2H.inc(64 * len(idxs))
             for i, d in zip(idxs, digests_to_bytes(hh, hl, digest_size)):
                 out[i] = d
         return out  # type: ignore[return-value]

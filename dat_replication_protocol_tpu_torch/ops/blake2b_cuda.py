@@ -16,13 +16,15 @@ states and 64-bit byte counters over one segment each; its wrapper is
 
 CPU tensors take the plain versions, :func:`.blake2b.blake2b_packed` and
 :func:`.blake2b.blake2b_update`; a CUDA tensor launches the kernel or
-raises.
+raises.  Both wrappers are kernel-sentinel sites
+(``ops.blake2b_cuda.packed``, ``ops.blake2b_cuda.update``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..obs.device import kernel_site, rows_key
 from . import _build
 from .blake2b import DIGEST_SIZE, blake2b_packed, blake2b_update
 
@@ -49,6 +51,15 @@ def lanes_per_item(batch: int) -> int:
     variants take time in proportion to it (``PERF.md``).
     """
     return 4 if batch <= QUAD_MAX_ITEMS else 1
+
+
+def variant_name(batch: int, device) -> str:
+    """What runs a bucket of ``batch`` items on ``device``: B1's ``quad``
+    or ``thread`` variant, or the ``plain`` version on the CPU (the
+    engine notes' name)."""
+    if device.type == "cpu":
+        return "plain"
+    return "quad" if lanes_per_item(batch) == 4 else "thread"
 
 
 def _check(mh, ml, lengths, digest_size):
@@ -119,6 +130,9 @@ def blake2b_packed_kernel(mh, ml, lengths, digest_size: int = DIGEST_SIZE):
 blake2b_packed_kernel.launches = 0
 blake2b_packed_kernel.launches_by_lanes = dict.fromkeys(LANES, 0)
 blake2b_packed_kernel.launches_by_blocks = {}
+# the host buckets the block count; the item count only sizes the grid
+blake2b_packed_kernel = kernel_site("ops.blake2b_cuda.packed",
+                                    blake2b_packed_kernel, key=rows_key(0))
 
 
 def _check_update(hh, hl, t_hi, t_lo, mh, ml, seg_lengths, is_last):
@@ -189,3 +203,5 @@ def blake2b_update_kernel(hh, hl, t_hi, t_lo, mh, ml, seg_lengths, is_last):
 
 blake2b_update_kernel.launches = 0
 blake2b_update_kernel.launches_by_lanes = dict.fromkeys(LANES, 0)
+blake2b_update_kernel = kernel_site("ops.blake2b_cuda.update",
+                                    blake2b_update_kernel, key=rows_key(4))

@@ -15,7 +15,11 @@ fused_cdc_hash_pallas.py``:
   the reference left the gather to XLA.
 * :func:`hash_cuts_device` hashes every chunk on B1, bucket by bucket.
 * :func:`content_begin` uploads a blob once; the CDC scan and the chunk
-  hash both read that one resident buffer.
+  hash both read that one resident buffer.  Its ``collect`` counts the
+  blob in ``cdc.fused.bytes`` and its chunks in ``cdc.fused.chunks``.
+
+B6's wrapper and the extent pack are kernel-sentinel sites
+(``ops.fused_cdc_hash.window_first_checked``, ``.pack_extents``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.device import kernel_site
+from ..obs.metrics import OBS as _OBS
+from ..obs.metrics import counter as _counter
 from ..utils.device import resolve_device
 from .rabin import (GROUP, TILE_BYTES, _SENT_OFF, _clamp_thin_bits,
                     _greedy_select, candidates_begin, check_route,
@@ -34,6 +41,10 @@ from .rabin_cuda import _device_of, _launch, check_rows
 # the last chunk; the port keeps the same threshold so that it routes
 # every blob as the reference does
 RESIDENCY_CAP = (1 << 31) - (1 << 26)
+
+# blobs and chunks through the single-residency pipeline
+_M_FUSED_BYTES = _counter("cdc.fused.bytes")
+_M_FUSED_CHUNKS = _counter("cdc.fused.chunks")
 
 
 def gear_window_first_checked_kernel(rows: torch.Tensor, avg_bits: int,
@@ -59,6 +70,9 @@ def gear_window_first_checked_kernel(rows: torch.Tensor, avg_bits: int,
 
 
 gear_window_first_checked_kernel.launches = 0
+gear_window_first_checked_kernel = kernel_site(
+    "ops.fused_cdc_hash.window_first_checked",
+    gear_window_first_checked_kernel)
 
 
 def pack_extents_device(data: torch.Tensor, offs, lens, nblocks: int):
@@ -88,6 +102,13 @@ def pack_extents_device(data: torch.Tensor, offs, lens, nblocks: int):
             lens_d.to(torch.int32))
 
 
+# keyed on the bucketed block count: the extent count only sizes the
+# gather
+pack_extents_device = kernel_site(
+    "ops.fused_cdc_hash.pack_extents", pack_extents_device,
+    key=lambda data, offs, lens, nblocks: (str(data.dtype), nblocks))
+
+
 def hash_cuts_device(words: torch.Tensor, cuts):
     """Chunk digests for ``cuts`` over a resident word buffer, as
     ``(hh, hl)`` tensors on its device, each (nchunks, 4) int32, in cut
@@ -103,7 +124,8 @@ def hash_cuts_device(words: torch.Tensor, cuts):
     data = words.view(torch.uint8)
     return _hash_buckets(
         lens, words.device, PIPELINE_BYTES,
-        lambda idx, nb: pack_extents_device(data, offs[idx], lens[idx], nb))
+        lambda idx, nb: pack_extents_device(data, offs[idx], lens[idx], nb),
+        site="fused_cdc_hash.hash_cuts")
 
 
 def content_begin(buf: np.ndarray, avg_bits: int = 13,
@@ -134,6 +156,9 @@ def content_begin(buf: np.ndarray, avg_bits: int = 13,
     def collect():
         cuts = _greedy_select(cand(), nbytes, min_size, max_size)
         hh, hl = hash_cuts_device(words, cuts)
+        if _OBS.on:
+            _M_FUSED_BYTES.inc(nbytes)
+            _M_FUSED_CHUNKS.inc(len(cuts))
         return cuts, hh, hl
 
     return collect

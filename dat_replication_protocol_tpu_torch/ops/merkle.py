@@ -21,6 +21,10 @@ ops, as the reference leaves them to XLA.
 
 ``host_parent``/``host_tree``/``root_host``/``host_diff`` and
 :func:`verify_proof` are hashlib references.
+
+:func:`build_tree`, :func:`diff_root_guided`,
+:func:`diff_root_guided_packed` and :func:`update_leaves` are
+kernel-sentinel sites under the reference's ``jit_site`` names.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import hashlib
 import numpy as np
 import torch
 
+from ..obs.device import kernel_site
 from ..utils.device import resolve_device
 from .blake2b import _compress_words, initial_state, join_words, split_words
 
@@ -79,6 +84,9 @@ def build_tree(leaf_hh, leaf_hl):
         levels_hh.append(leaf_hh)
         levels_hl.append(leaf_hl)
     return tuple(levels_hh), tuple(levels_hl)
+
+
+build_tree = kernel_site("ops.merkle.build_tree", build_tree)
 
 
 def root(leaf_hh, leaf_hl):
@@ -140,6 +148,10 @@ def diff_root_guided(a_leaf_hh, a_leaf_hl, b_leaf_hh, b_leaf_hl):
     return mask, (hh[:1], hl[:1]), (hh[1:], hl[1:])
 
 
+diff_root_guided = kernel_site("ops.merkle.diff_root_guided",
+                               diff_root_guided)
+
+
 def pack_mask(mask):
     """(N,) bool -> (ceil(N/32),) int32 words holding the mask's bits, LSB
     first, zero-padded.  The sum runs in int64 (bit 31 overflows int32)
@@ -157,6 +169,10 @@ def diff_root_guided_packed(a_leaf_hh, a_leaf_hl, b_leaf_hh, b_leaf_hl):
     mask, root_a, root_b = diff_root_guided(a_leaf_hh, a_leaf_hl,
                                             b_leaf_hh, b_leaf_hl)
     return pack_mask(mask), root_a, root_b
+
+
+diff_root_guided_packed = kernel_site("ops.merkle.diff_root_guided_packed",
+                                      diff_root_guided_packed)
 
 
 def update_leaves(levels_hh, levels_hl, idx, new_hh, new_hl):
@@ -193,6 +209,12 @@ def update_leaves(levels_hh, levels_hl, idx, new_hh, new_hl):
         out_hl[-1][pidx] = p_hl
         idx = pidx
     return tuple(out_hh), tuple(out_hl)
+
+
+# keyed on the tree's depth: the update count only sizes the gathers
+update_leaves = kernel_site(
+    "ops.merkle.update_leaves", update_leaves,
+    key=lambda levels_hh, *args: (len(levels_hh),))
 
 
 def unpack_mask(bits, n: int) -> np.ndarray:

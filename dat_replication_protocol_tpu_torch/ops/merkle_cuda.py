@@ -8,13 +8,15 @@ in, (N/2, 4) parents out, as int32 tensors holding uint32 bits; children
 pair even and odd rows.
 
 CPU tensors take the plain version, :func:`.merkle.merkle_level`; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises.  The wrapper is the kernel-sentinel
+site ``ops.merkle_cuda.level``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..obs.device import kernel_site, rows_key
 from . import _build
 from .merkle import merkle_level
 
@@ -55,3 +57,7 @@ def merkle_level_kernel(hh, hl):
 
 
 merkle_level_kernel.launches = 0
+# a level's row count only sizes the grid: a tree's levels share one
+# signature
+merkle_level_kernel = kernel_site("ops.merkle_cuda.level",
+                                  merkle_level_kernel, key=rows_key(0))

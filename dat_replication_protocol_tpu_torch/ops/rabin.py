@@ -26,6 +26,13 @@ argument (``route=``), never an environment variable.
 Rows and words are int32 tensors holding the u32 bits of the reference's
 layout (byte j of a row is byte ``j % 4`` of word ``j // 4``, little
 endian).
+
+Telemetry: the scan's dispatch, collect and greedy pass run inside the
+reference's ``cdc.dispatch`` / ``cdc.collect`` / ``cdc.greedy`` spans;
+a refused ``fused1p`` extraction counts in
+``cdc.fused.crosscheck.refused``; ``chunk_stream`` notes its route as
+the ``cdc.chunk`` engine; the two extraction functions are
+kernel-sentinel sites.
 """
 
 from __future__ import annotations
@@ -33,7 +40,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.device import kernel_site
+from ..obs.device import note_engine as _note_engine
+from ..obs.metrics import OBS as _OBS
+from ..obs.metrics import counter as _counter
 from ..utils.device import resolve_device
+from ..utils.trace import span
 from .merkle import unpack_mask
 
 WINDOW = 64  # bytes: contributions shift out of the 64-bit state after this
@@ -49,6 +61,9 @@ ROUTES = ("bitmask", "first", "fused", "fused1p")
 TILE_BYTES = 1 << 17  # payload bytes per scan row
 
 _M32 = 0xFFFFFFFF
+
+# fused1p extractions refused by their on-chip cross-check
+_M_FUSED_REFUSED = _counter("cdc.fused.crosscheck.refused")
 
 
 def _s64(x: int) -> int:
@@ -276,6 +291,10 @@ def _extract_first_occ(words_padded, pre_row, T: int, stride: int,
     return (occ, offs) if viol is None else (occ, offs, viol)
 
 
+_extract_first_occ = kernel_site("ops.rabin.extract_first_occ",
+                                 _extract_first_occ)
+
+
 def _extract_candidates(words_padded, pre_row, T: int, stride: int,
                         avg_bits: int, cap: int,
                         thin_bits: int | None = None):
@@ -303,6 +322,10 @@ def _extract_candidates(words_padded, pre_row, T: int, stride: int,
     hit = ((flat[:, None] >> shifts) & 1).reshape(-1) != 0
     pos = torch.arange(hit.shape[0], dtype=torch.int64, device=hit.device)
     return _compact(hit, pos, cap)
+
+
+_extract_candidates = kernel_site("ops.rabin.extract_candidates",
+                                  _extract_candidates)
 
 
 def _clamp_thin_bits(thin_bits: int | None, stride: int) -> int | None:
@@ -392,29 +415,33 @@ def candidates_begin(words: torch.Tensor, nbytes: int, avg_bits: int = 13,
             return _start_d2h(_extract_first_occ(
                 words, pre, T, stride, avg_bits, cap, thin_bits, rt))
 
-        pending = extract(route, cap0)
+        with span("cdc.dispatch"):
+            pending = extract(route, cap0)
 
         def checked(wait, rt, cap):
             ext = wait()
             if len(ext) == 3 and int(ext[2]) != 0:
                 candidates_begin.refusals += 1
+                if _OBS.on:
+                    _M_FUSED_REFUSED.inc()
                 rt = "bitmask"
                 ext = extract(rt, cap)()
             return ext, rt
 
         def collect() -> np.ndarray:
-            ext, rt = checked(pending, route, cap0)
-            occ, offs = ext[0], ext[1]
-            winidx = np.nonzero(unpack_mask(occ.view(np.uint32),
-                                            T * stride >> thin_bits))[0]
-            cap = cap0
-            while len(winidx) > cap:
-                cap *= 4
-                ext, rt = checked(extract(rt, cap), rt, cap)
-                offs = ext[1]
-            off = offs.view(np.uint16)[:len(winidx)].astype(np.int64)
-            out = (winidx.astype(np.int64) << thin_bits) + off
-            return out[out < nbytes]
+            with span("cdc.collect"):
+                ext, rt = checked(pending, route, cap0)
+                occ, offs = ext[0], ext[1]
+                winidx = np.nonzero(unpack_mask(occ.view(np.uint32),
+                                                T * stride >> thin_bits))[0]
+                cap = cap0
+                while len(winidx) > cap:
+                    cap *= 4
+                    ext, rt = checked(extract(rt, cap), rt, cap)
+                    offs = ext[1]
+                off = offs.view(np.uint16)[:len(winidx)].astype(np.int64)
+                out = (winidx.astype(np.int64) << thin_bits) + off
+                return out[out < nbytes]
 
         return collect
 
@@ -422,16 +449,18 @@ def candidates_begin(words: torch.Tensor, nbytes: int, avg_bits: int = 13,
         return _start_d2h(_extract_candidates(words, pre, T, stride,
                                               avg_bits, cap, thin_bits))
 
-    pending = extract_all(cap0)
+    with span("cdc.dispatch"):
+        pending = extract_all(cap0)
 
     def collect() -> np.ndarray:
-        positions, ncand = pending()
-        cap = cap0
-        while int(ncand) > cap:
-            cap *= 4
-            positions, ncand = extract_all(cap)()
-        out = positions[:int(ncand)].astype(np.int64)
-        return out[out < nbytes]
+        with span("cdc.collect"):
+            positions, ncand = pending()
+            cap = cap0
+            while int(ncand) > cap:
+                cap *= 4
+                positions, ncand = extract_all(cap)()
+            out = positions[:int(ncand)].astype(np.int64)
+            return out[out < nbytes]
 
     return collect
 
@@ -462,24 +491,25 @@ def _greedy_select(candidates, length: int, min_size: int,
     or a forced cut ``max_size`` past it when none lands by then.  The
     reference runs this loop in C; the port runs the Python loop.
     """
-    cands = np.asarray(candidates, dtype=np.int64).tolist()
-    out: list[int] = []
-    start = 0
-    i = 0
-    n = len(cands)
-    while length - start > max_size:
-        lo = start + min_size
-        hi = start + max_size
-        while i < n and cands[i] < lo:
-            i += 1
-        if i < n and cands[i] <= hi:
-            cut = cands[i]
-            i += 1
-        else:
-            cut = hi
-        out.append(cut)
-        start = cut
-    out.append(length)
+    with span("cdc.greedy"):
+        cands = np.asarray(candidates, dtype=np.int64).tolist()
+        out: list[int] = []
+        start = 0
+        i = 0
+        n = len(cands)
+        while length - start > max_size:
+            lo = start + min_size
+            hi = start + max_size
+            while i < n and cands[i] < lo:
+                i += 1
+            if i < n and cands[i] <= hi:
+                cut = cands[i]
+                i += 1
+            else:
+                cut = hi
+            out.append(cut)
+            start = cut
+        out.append(length)
     return out
 
 
@@ -548,6 +578,8 @@ def chunk_stream(data, avg_bits: int = 13, min_size: int | None = None,
     if length == 0:
         return []
     thin_bits = max(min_size, 1).bit_length() - 1  # floor log2: W <= min
+    if _OBS.on:
+        _note_engine("cdc.chunk", f"{route}-{dev.type}", bytes=length)
     candidates = _device_candidates(buf, avg_bits, tile_bytes, slab_tiles,
                                     thin_bits, route, dev)
     return _greedy_select(candidates, length, min_size, max_size)

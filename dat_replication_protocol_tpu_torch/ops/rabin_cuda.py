@@ -16,7 +16,8 @@ The TPU's ``(ng, 64, 8, T/8)`` layout is not carried over.
 
 CPU tensors take the plain versions in :mod:`.rabin`; a CUDA tensor
 launches the kernel or raises.  Each wrapper counts its launches in its
-``launches`` attribute.
+``launches`` attribute and is a kernel-sentinel site
+(``ops.rabin_cuda.candidates|first|window_first``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs.device import kernel_site
 from . import _build
 from .rabin import (GROUP, _SENT_OFF, gear_candidates_tiled,
                     gear_first_tiled, gear_window_first)
@@ -173,3 +175,8 @@ def gear_window_first_kernel(rows: torch.Tensor, avg_bits: int,
 gear_candidates_kernel.launches = 0
 gear_first_kernel.launches = 0
 gear_window_first_kernel.launches = 0
+gear_candidates_kernel = kernel_site("ops.rabin_cuda.candidates",
+                                     gear_candidates_kernel)
+gear_first_kernel = kernel_site("ops.rabin_cuda.first", gear_first_kernel)
+gear_window_first_kernel = kernel_site("ops.rabin_cuda.window_first",
+                                       gear_window_first_kernel)

@@ -30,6 +30,12 @@ numpy.  Elements are a SET: dedupe first (:func:`dedupe_digests`).
 The weighted variant (cells of 12 words, the last the element's byte
 length; gaps divided by ``weight_class + 1``) reconciles (digest, length)
 elements, such as the chunk sets of a snapshot.
+
+Telemetry: each prefix extension is a ``reconcile.build`` span and counts
+its new cells in ``reconcile.symbols``; each peel is a
+``reconcile.peel`` span and counts its recovered elements in
+``reconcile.peeled``; the device build is the kernel-sentinel site
+``ops.rateless.build``.
 """
 
 from __future__ import annotations
@@ -39,8 +45,16 @@ import threading
 import numpy as np
 import torch
 
+from ..obs.device import kernel_site, rows_key
+from ..obs.metrics import OBS as _OBS
+from ..obs.metrics import counter as _counter
 from ..utils.device import resolve_device
+from ..utils.trace import span
 from .reconcile import scatter_add_words
+
+# coded symbols built and elements peeled (OBSERVABILITY.md catalog)
+_M_SYMBOLS = _counter("reconcile.symbols")
+_M_PEELED = _counter("reconcile.peeled")
 
 DIGEST_BYTES = 32
 DIGEST_WORDS = 8
@@ -238,6 +252,12 @@ def build_symbols_device(rows, elems: np.ndarray, idxs: np.ndarray, m: int,
     return cells.cpu().numpy().view(np.uint32)
 
 
+# keyed on the rows' width: element and symbol counts only size the
+# scatter
+build_symbols_device = kernel_site("ops.rateless.build",
+                                   build_symbols_device, key=rows_key(0))
+
+
 class _Prefix:
     """An incrementally extended coded-symbol prefix: the cursor, the
     element rows (host and, once built, on the device) and the cells so
@@ -264,13 +284,16 @@ class _Prefix:
         have = len(self._cells)
         if m <= have:
             return self._cells[:m]
-        if self._rows_dev is None:
-            self._rows_dev = torch.from_numpy(self.rows.view(np.int32)).to(
-                self._dev)
-        elems, idxs = self._cursor.advance(m)
-        block = build_symbols_device(self._rows_dev, elems, idxs, m, have,
-                                     device=self._dev)
+        with span("reconcile.build"):
+            if self._rows_dev is None:
+                self._rows_dev = torch.from_numpy(
+                    self.rows.view(np.int32)).to(self._dev)
+            elems, idxs = self._cursor.advance(m)
+            block = build_symbols_device(self._rows_dev, elems, idxs, m,
+                                         have, device=self._dev)
         self._cells = np.concatenate([self._cells, block]) if have else block
+        if _OBS.on:
+            _M_SYMBOLS.inc(m - have)
         return self._cells
 
 
@@ -307,6 +330,14 @@ def peel(work: np.ndarray, max_rounds: int = 1 << 20,
     Returns ``(digests (k, 32) u8, signs (k,) int8, complete)``: sign +1
     for an element held only by the remote (symbol-sending) side, -1 only
     by the local side; ``complete`` iff every cell is zero afterwards."""
+    with span("reconcile.peel"):
+        out = _peel(work, max_rounds)
+    if _OBS.on and len(out[0]):
+        _M_PEELED.inc(len(out[0]))
+    return out
+
+
+def _peel(work: np.ndarray, max_rounds: int):
     m = len(work)
     rec_digests: list[np.ndarray] = []
     rec_signs: list[np.ndarray] = []
@@ -495,6 +526,14 @@ def peel_weighted(work: np.ndarray, max_rounds: int = 1 << 20,
                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray, bool]:
     """:func:`peel` for weighted cells, IN PLACE: ``(digests (k, 32) u8,
     lens (k,) int64, signs (k,) int8, complete)``."""
+    with span("reconcile.peel"):
+        out = _peel_weighted(work, max_rounds)
+    if _OBS.on and len(out[0]):
+        _M_PEELED.inc(len(out[0]))
+    return out
+
+
+def _peel_weighted(work: np.ndarray, max_rounds: int):
     m = len(work)
     rec_digests: list[np.ndarray] = []
     rec_lens: list[np.ndarray] = []

@@ -15,6 +15,10 @@ the reference leaves it to XLA.  Tables are (nslots, 8) int32 tensors
 holding the u32 words, in the host digest byte order ([lo k, hi k]).
 :func:`table_leaves` turns a table into Merkle leaves, so two replicas
 can find their differing cells remotely (``runtime/tree_sync``).
+
+Telemetry: the reference's ``reconcile.hash`` (B1 over records and
+keys), ``reconcile.sketch`` (the scatter-add) and ``reconcile.diff``
+spans.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.trace import span
 
 DIGEST_WORDS = 8  # 32-byte digests as 8 uint32 words
 _MASK32 = 0xFFFFFFFF
@@ -58,8 +63,9 @@ def diff_sketches(table_a, table_b) -> np.ndarray:
     n = table_a.shape[0]
     if table_b.shape[0] != n:
         raise ValueError("sketches must have equal slot counts")
-    dense = (table_a != table_b).any(dim=1)
-    return torch.nonzero(dense).flatten().cpu().numpy()
+    with span("reconcile.diff"):
+        dense = (table_a != table_b).any(dim=1)
+        return torch.nonzero(dense).flatten().cpu().numpy()
 
 
 def key_slots(key_hl, log2_slots: int):
@@ -123,9 +129,12 @@ class LogSummary:
         lens = np.array([len(r) for r in records] + [len(k) for k in keys],
                         dtype=np.int64)
         offs = np.cumsum(lens) - lens
-        all_hh, all_hl = hash_extents_device(buf, offs, lens, device=dev)
-        self.table, slots = _summarize(all_hh, all_hl, n, log2_slots)
-        self.slots = slots.cpu().numpy().astype(np.int64)
+        with span("reconcile.hash"):
+            all_hh, all_hl = hash_extents_device(buf, offs, lens,
+                                                 device=dev)
+        with span("reconcile.sketch"):
+            self.table, slots = _summarize(all_hh, all_hl, n, log2_slots)
+            self.slots = slots.cpu().numpy().astype(np.int64)
 
 
 def reconcile(a: LogSummary, b: LogSummary) -> dict:

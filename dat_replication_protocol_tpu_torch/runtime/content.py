@@ -10,6 +10,12 @@ folded on the device by B2); a larger one is chunked in slabs
 (:func:`..ops.rabin.chunk_stream`), hashed from the host buffer
 (:func:`..batch.feed.hash_extents`) and folded by ``root_host``, as the
 reference routes it on a device.
+
+Telemetry: :func:`content_address` runs inside a
+``device.content.address`` span and counts the digests and root it
+reads back in ``device.d2h.bytes``; both entry points note the
+``cdc.hash`` engine (``<route>-<device>`` single residency, or
+``two-pass-<device>``).
 """
 
 from __future__ import annotations
@@ -19,7 +25,13 @@ import hashlib
 
 import numpy as np
 
+from ..obs.device import note_engine as _note_engine
+from ..obs.metrics import OBS as _OBS
+from ..obs.metrics import counter as _counter
+from ..obs.tracing import trace_span as _trace_span
 from ..ops.rabin import _as_u8, default_sizes
+
+_M_D2H = _counter("device.d2h.bytes")
 
 
 def _extents_from_cuts(cuts) -> tuple[np.ndarray, np.ndarray]:
@@ -92,7 +104,12 @@ def content_digests(data, avg_bits: int = 13, min_size: int | None = None,
     if route == "fused1p" and buf.size < RESIDENCY_CAP:
         cuts, hh, hl = content_begin(buf, avg_bits, min_size, max_size,
                                      route="fused1p", device=dev)()
+        if _OBS.on:
+            _M_D2H.inc(32 * len(cuts))
+            _note_engine("cdc.hash", f"fused1p-{dev.type}", bytes=buf.size)
         return cuts, digest_matrix(hh, hl)
+    if _OBS.on:
+        _note_engine("cdc.hash", f"two-pass-{dev.type}", bytes=buf.size)
     cuts = chunk_stream(buf, avg_bits, min_size, max_size, device=dev)
     offs, lens = _extents_from_cuts(cuts)
     return cuts, hash_extents(buf, offs, lens, device=dev)
@@ -124,17 +141,25 @@ def content_address(data, avg_bits: int = 13, min_size: int | None = None,
         return ContentSummary(0, [], np.empty((0, 32), np.uint8),
                               b"\0" * 32)
     min_size, max_size = default_sizes(avg_bits, min_size, max_size)
-    if n < RESIDENCY_CAP:
-        cuts, hh, hl = content_begin(buf, avg_bits, min_size, max_size,
-                                     route=route, device=dev)()
-        (root,) = merkle.digests_from_device(
-            *merkle.root(*merkle.pad_leaves(hh, hl)))
-        return ContentSummary(n, cuts, merkle.digest_matrix(hh, hl), root)
-    cuts = chunk_stream(buf, avg_bits, min_size, max_size, route=route,
-                        device=dev)
-    offs, lens = _extents_from_cuts(cuts)
-    digests = hash_extents(buf, offs, lens, device=dev)
-    return ContentSummary(n, cuts, digests, merkle.root_host(digests))
+    with _trace_span("device.content.address", bytes=n):
+        if n < RESIDENCY_CAP:
+            if _OBS.on:
+                _note_engine("cdc.hash", f"{route}-{dev.type}", bytes=n)
+            cuts, hh, hl = content_begin(buf, avg_bits, min_size, max_size,
+                                         route=route, device=dev)()
+            (root,) = merkle.digests_from_device(
+                *merkle.root(*merkle.pad_leaves(hh, hl)))
+            if _OBS.on:
+                _M_D2H.inc(32 * len(cuts) + 32)  # chunk digests + the root
+            return ContentSummary(n, cuts, merkle.digest_matrix(hh, hl),
+                                  root)
+        if _OBS.on:
+            _note_engine("cdc.hash", f"two-pass-{dev.type}", bytes=n)
+        cuts = chunk_stream(buf, avg_bits, min_size, max_size, route=route,
+                            device=dev)
+        offs, lens = _extents_from_cuts(cuts)
+        digests = hash_extents(buf, offs, lens, device=dev)
+        return ContentSummary(n, cuts, digests, merkle.root_host(digests))
 
 
 def delta(old: ContentSummary, new: ContentSummary) -> list[int]:

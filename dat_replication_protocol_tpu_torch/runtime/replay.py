@@ -26,6 +26,8 @@ import dataclasses
 
 import numpy as np
 
+from ..obs.device import note_engine as _note_engine
+from ..obs.metrics import OBS as _OBS
 from ..wire.batch_codec import ragged_copy, ragged_gather, uvarint_sizes
 from ..wire.change_codec import Change, decode_change, encode_change
 from ..wire.framing import (TYPE_BLOB, TYPE_CHANGE, TYPE_CHANGE_BATCH,
@@ -111,6 +113,9 @@ def split_frames(data, allow_partial_tail: bool = False) -> FrameIndex:
     True and re-feed the tail).
     """
     buf = _as_u8(data)
+    if _OBS.on:
+        # the reference's name for its Python splitter, the port's only
+        _note_engine("replay.split", "python")
     starts, lens, ids, consumed = _split_python(buf)
     if not allow_partial_tail and consumed != len(buf):
         raise ProtocolError(

@@ -21,7 +21,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.metrics import OBS as _OBS
+from ..obs.metrics import counter as _counter
 from ..ops import merkle
+
+# frontier digests read back to go on the wire
+_M_D2H = _counter("device.d2h.bytes")
 
 _DIGEST = 32
 
@@ -42,6 +47,8 @@ class TreeSyncSession:
     def _digests(self, level: int, idxs: list[int]) -> list[bytes]:
         if not idxs:
             return []
+        if _OBS.on:
+            _M_D2H.inc(32 * len(idxs))
         hh, hl = self._hh[level], self._hl[level]
         at = torch.as_tensor(idxs, dtype=torch.int64).to(hh.device)
         return merkle.digests_from_device(hh[at], hl[at])

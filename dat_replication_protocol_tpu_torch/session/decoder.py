@@ -20,8 +20,14 @@ parser, header -> (change | blob payload) -> header ...
   handler with one ``done``, or row by row to the :meth:`change`
   handler, the stream a per-record peer would give.
 
+Telemetry (behind :data:`..obs.metrics.OBS`): the reference's session
+counters, ``decoder.frame`` instants that tile the wire (offset,
+wire_len, kind; ``rows`` on a batch frame), ``decoder.requeue`` and
+``protocol.error`` events, and a flight bundle on a protocol error when
+the recorder is armed.
+
 Only the streaming scanner is carried: the JAX package's native bulk
-index, reconcile/snapshot frames, checkpoints and telemetry are not.
+index, reconcile/snapshot frames and checkpoints are not.
 Subclasses tap payloads through :meth:`_deliver_change`,
 :meth:`_note_change_batch` and the blob hooks
 (:meth:`_open_blob_if_ready`, :meth:`_note_blob_bytes`,
@@ -32,8 +38,15 @@ from __future__ import annotations
 
 import threading
 from collections import deque
+from time import perf_counter as _perf
 from typing import Callable, Optional
 
+from ..obs.events import emit as _emit
+from ..obs.flight import FLIGHT as _FLIGHT
+from ..obs.metrics import OBS as _OBS
+from ..obs.metrics import counter as _counter
+from ..obs.metrics import histogram as _histogram
+from ..obs.tracing import trace_instant as _trace_instant
 from ..wire.change_codec import Change, decode_change
 from ..wire.framing import (LOCAL_CAPS, MAX_HEADER_LEN, TYPE_BLOB,
                             TYPE_CHANGE, TYPE_CHANGE_BATCH, TYPE_HEADER,
@@ -41,6 +54,19 @@ from ..wire.framing import (LOCAL_CAPS, MAX_HEADER_LEN, TYPE_BLOB,
 from ..wire.varint import decode_uvarint
 
 OnDone = Optional[Callable[[], None]]
+
+# the reference's catalog names (OBSERVABILITY.md); each site is one
+# `_OBS.on` attribute load while telemetry is off
+_M_DEC_BYTES = _counter("decoder.bytes")
+_M_DEC_CHANGES = _counter("decoder.changes")
+_M_DEC_BLOBS = _counter("decoder.blobs")
+_M_DEC_BLOB_BYTES = _counter("decoder.blob.bytes")
+_M_DEC_REQUEUES = _counter("decoder.requeues")
+_M_DEC_ERRORS = _counter("decoder.errors")
+_M_DEC_BATCH_FRAMES = _counter("decoder.batch.frames")
+# bytes a batch frame saved against the same rows per record
+_M_BATCH_SAVED_RX = _counter("wire.batch.bytes_saved_rx")
+_H_DEC_DISPATCH = _histogram("decoder.dispatch.seconds")
 
 
 class DecoderDestroyedError(Exception):
@@ -196,6 +222,10 @@ class Decoder:
         self._missing = 0  # payload bytes still to consume
         self._payload_parts: list[bytes] | None = None  # change split across chunks
         self._current_blob: BlobReader | None = None
+        # wire offsets of the frame being parsed and of the next one:
+        # frames tile the wire, so each header adds its frame's length
+        self._frame_start = 0
+        self._frame_end = 0
         # parked ChangeBatch delivery cursor: a batch whose rows could not
         # all be delivered (async ack / pause) resumes here, and nothing
         # after it is parsed until it drains
@@ -281,7 +311,15 @@ class Decoder:
         if on_consumed is not None:
             entry = lambda cb=on_consumed: cb()  # noqa: E731
             self._write_cbs.append(entry)
-        self._consume()
+        if _OBS.on:
+            _M_DEC_BYTES.inc(len(data))
+            t0 = _perf()
+            try:
+                self._consume()
+            finally:
+                _H_DEC_DISPATCH.observe(_perf() - t0)
+        else:
+            self._consume()
         if entry is not None:
             return entry not in self._write_cbs  # fired <=> consumed
         return not (self._overflow or self._stalled())
@@ -333,11 +371,21 @@ class Decoder:
             cb()
 
     def _protocol_error(self, message: str) -> ProtocolError:
+        """The structured wire error, and the flight recorder's hook:
+        every decoder-side wire error funnels through here, so an armed
+        recorder dumps its bundle before ``destroy`` clears the state."""
         # frames delivered: blobs count at open, a batch once when done
         frames = (self.changes - self._batch_rows_seen
                   + self._batch_frames_done + self.blobs
                   - (1 if self._current_blob is not None else 0))
-        return ProtocolError(message, frame=frames, offset=self.bytes)
+        err = ProtocolError(message, frame=frames, offset=self.bytes)
+        if _OBS.on:
+            _M_DEC_ERRORS.inc()
+            _emit("protocol.error", frame=err.frame, offset=err.offset,
+                  message=message)
+        if _FLIGHT.armed:
+            _FLIGHT.dump("protocol-error", error=err)
+        return err
 
     # -- flow control -----------------------------------------------------------
 
@@ -418,6 +466,10 @@ class Decoder:
         a local: requeue it so a caught raise-then-resume continues with
         the next frame."""
         if len(rest):
+            if _OBS.on:
+                _M_DEC_REQUEUES.inc()
+                _emit("decoder.requeue", bytes=len(rest),
+                      offset=self.bytes)
             self._overflow.appendleft(rest)
 
     def _consume_chunk(self, chunk: memoryview) -> memoryview | None:
@@ -444,6 +496,8 @@ class Decoder:
                     self.destroy(self._protocol_error(str(e)))
                     return None
                 type_id = self._header[-1]
+                self._frame_start = self._frame_end
+                self._frame_end += len(self._header) + framed_len - 1
                 self._header.clear()
                 self._missing = framed_len - 1  # length counts the id byte
                 if framed_len < 1:
@@ -518,6 +572,11 @@ class Decoder:
         """Deliver one decoded change: the single hook subclasses adding
         per-change work (the digest backend) override."""
         self.changes += 1
+        if _OBS.on:
+            _M_DEC_CHANGES.inc()
+            _trace_instant("decoder.frame", offset=self._frame_start,
+                           kind="change",
+                           wire_len=self._frame_end - self._frame_start)
         self._state = TYPE_HEADER
         if self._on_change is not None:
             ack = _FastAck(self)
@@ -543,6 +602,18 @@ class Decoder:
             self.destroy(self._protocol_error(str(e)))
             return
         n = len(cols.change)
+        if _OBS.on:
+            _M_DEC_BATCH_FRAMES.inc()
+            _trace_instant("decoder.frame", offset=self._frame_start,
+                           kind="change_batch", rows=n,
+                           wire_len=self._frame_end - self._frame_start)
+            # the receiver prices the savings with the encoder's exact
+            # arithmetic, so both ends' counters agree to the byte
+            saved = batch_codec.estimate_per_record_bytes(
+                cols.key_len, cols.sub_len, cols.val_len, cols.change,
+                cols.from_, cols.to) - (self._frame_end - self._frame_start)
+            if saved > 0:
+                _M_BATCH_SAVED_RX.inc(saved)
         self._state = TYPE_HEADER
         # digest tap: the whole frame's rows are owed at acceptance, before
         # any row reaches a handler, keeping submit order = wire order
@@ -568,6 +639,8 @@ class Decoder:
             self.changes += n
             self._batch_rows_seen += n
             self._batch_frames_done += 1
+            if _OBS.on:
+                _M_DEC_CHANGES.inc(n)
             ack = _FastAck(self)
             on_batch(cols, ack)
             ack.arm()
@@ -581,6 +654,8 @@ class Decoder:
             self.changes += k
             self._batch_rows_seen += k
             self._batch_frames_done += 1
+            if _OBS.on and k:
+                _M_DEC_CHANGES.inc(k)
             return
         if pb["bbuf"] is None:
             pb["bbuf"] = cols.buf.tobytes()  # one copy per batch
@@ -589,6 +664,7 @@ class Decoder:
         so, sl = cols.sub_off, cols.sub_len
         vo, vl = cols.val_off, cols.val_len
         cg, fr, tv = cols.change, cols.from_, cols.to
+        row0 = row
         try:
             while row < n:
                 # dictionary UTF-8 was validated at decode
@@ -615,6 +691,8 @@ class Decoder:
             if row >= n and self._pbatch is pb:
                 self._pbatch = None
                 self._batch_frames_done += 1
+            if _OBS.on and row > row0:
+                _M_DEC_CHANGES.inc(row - row0)
 
     def _open_blob_if_ready(self) -> None:
         """Create the reader and invoke the app handler.
@@ -625,6 +703,11 @@ class Decoder:
         blob = BlobReader(self, self._missing)
         self._current_blob = blob
         self.blobs += 1
+        if _OBS.on:
+            _M_DEC_BLOBS.inc()
+            _trace_instant("decoder.frame", offset=self._frame_start,
+                           kind="blob",
+                           wire_len=self._frame_end - self._frame_start)
         latch = blob._latch
 
         def done() -> None:
@@ -653,6 +736,8 @@ class Decoder:
         # share this bytes object
         data = bytes(chunk[:take])
         rest = chunk[take:]
+        if _OBS.on:
+            _M_DEC_BLOB_BYTES.inc(take)
         try:
             self._note_blob_bytes(data)
             blob._deliver(data)

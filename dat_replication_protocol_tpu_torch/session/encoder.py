@@ -21,7 +21,10 @@ A trimmed copy of ``dat_replication_protocol_tpu/session/encoder.py``
   :class:`BatchPolicy`.  With ``peer_caps=0`` the wire is the
   reference's, byte for byte.
 
-Telemetry, journals and the reconcile/snapshot frames are not carried.
+Telemetry (behind :data:`..obs.metrics.OBS`): the reference's session
+counters and ``encoder.frame`` instants that tile the wire; a corked
+blob is tagged when it uncorks, where its true offset is known.
+Journals and the reconcile/snapshot frames are not carried.
 """
 
 from __future__ import annotations
@@ -31,6 +34,10 @@ from collections import deque
 from time import monotonic as _now
 from typing import Callable, Optional
 
+from ..obs.metrics import OBS as _OBS
+from ..obs.metrics import counter as _counter
+from ..obs.metrics import histogram as _histogram
+from ..obs.tracing import trace_instant as _trace_instant
 from ..wire.change_codec import Change, _check_uint32, encode_change
 from ..wire.framing import CAP_CHANGE_BATCH, TYPE_BLOB, TYPE_CHANGE, \
     TYPE_CHANGE_BATCH, frame_header
@@ -38,6 +45,19 @@ from ..wire.framing import CAP_CHANGE_BATCH, TYPE_BLOB, TYPE_CHANGE, \
 OnDone = Optional[Callable[[], None]]
 
 DEFAULT_HIGH_WATER = 64 * 1024
+
+# the reference's catalog names (OBSERVABILITY.md); each site is one
+# `_OBS.on` attribute load while telemetry is off
+_M_ENC_BYTES = _counter("encoder.bytes")
+_M_ENC_CHANGES = _counter("encoder.changes")
+_M_ENC_BLOBS = _counter("encoder.blobs")
+_M_ENC_BLOB_CHUNKS = _counter("encoder.blob.chunks")
+_M_ENC_PARKED = _counter("encoder.parked.bytes")
+# seconds a parked chunk or change waited behind the blob FIFO
+_H_ENC_PARK = _histogram("encoder.park.seconds")
+_M_BATCH_FRAMES = _counter("wire.batch.frames")
+_M_BATCH_ROWS = _counter("wire.batch.rows")
+_M_BATCH_SAVED = _counter("wire.batch.bytes_saved")
 
 
 @dataclasses.dataclass
@@ -82,7 +102,10 @@ class BlobWriter:
         self._on_flush = on_flush
         self._written = 0
         self._corked = False
-        self._parked: list[tuple[bytes, OnDone]] = []
+        # (bytes, on_flush, park time or None while telemetry is off)
+        self._parked: list[tuple[bytes, OnDone, float | None]] = []
+        # a corked blob's header reaches the wire at uncork: tag it there
+        self._tag_on_uncork = False
         self._ended = False
         self._finished = False
         self.destroyed = False
@@ -105,6 +128,8 @@ class BlobWriter:
             self._encoder.destroy(err)
             raise err
         self._written += len(data)
+        if _OBS.on:
+            _M_ENC_BLOB_CHUNKS.inc()
         if self._corked:
             self._park(bytes(data), on_flush)
             return not self._encoder._above_high_water()
@@ -144,15 +169,27 @@ class BlobWriter:
 
     def _park(self, data: bytes, cb: OnDone) -> None:
         # parked bytes count toward the high-water mark
-        self._parked.append((data, cb))
+        self._parked.append((data, cb, _now() if _OBS.on else None))
         self._encoder._parked_bytes += len(data)
+        if _OBS.on:
+            _M_ENC_PARKED.inc(len(data))
 
     def _uncork(self) -> None:
         if not self._corked:
             return
         self._corked = False
-        for data, cb in self._parked:
+        if self._tag_on_uncork:
+            self._tag_on_uncork = False
+            if _OBS.on:
+                # the first parked piece is this blob's header: the
+                # encoder's byte count now is the frame's wire offset
+                _trace_instant("encoder.frame", offset=self._encoder.bytes,
+                               kind="blob",
+                               wire_len=len(self._parked[0][0]) + self.length)
+        for data, cb, t0 in self._parked:
             self._encoder._parked_bytes -= len(data)
+            if t0 is not None and _OBS.on:
+                _H_ENC_PARK.observe(_now() - t0)
             self._encoder._push(data, cb)
         self._parked.clear()
         if self._ended:
@@ -197,7 +234,7 @@ class Encoder:
         self._parked_bytes = 0
         self._open_blobs: deque[BlobWriter] = deque()
         # parked changes are encoded at submit time, framed on replay
-        self._parked_changes: list[tuple[bytes, OnDone]] = []
+        self._parked_changes: list[tuple[bytes, OnDone, float | None]] = []
         self._drain_cbs: list[Callable[[], None]] = []
         self._error_cbs: list[Callable[[Exception | None], None]] = []
         self._finish_cbs: list[Callable[[], None]] = []
@@ -247,8 +284,11 @@ class Encoder:
             return not self._above_high_water()
         payload = encode_change(change)
         if self._open_blobs:
-            self._parked_changes.append((payload, on_flush))
+            self._parked_changes.append(
+                (payload, on_flush, _now() if _OBS.on else None))
             self._parked_bytes += len(payload)
+            if _OBS.on:
+                _M_ENC_PARKED.inc(len(payload))
             return not self._above_high_water()
         return self._frame_change(payload, on_flush)
 
@@ -281,14 +321,22 @@ class Encoder:
         payloads = [encode_change(rec) for rec in records]
         self._note_change_run(payloads)
         out = bytearray()
+        obs_on = _OBS.on
         for payload in payloads:
-            out += frame_header(len(payload), TYPE_CHANGE)
+            header = frame_header(len(payload), TYPE_CHANGE)
+            if obs_on:
+                _trace_instant("encoder.frame", offset=self.bytes + len(out),
+                               kind="change",
+                               wire_len=len(header) + len(payload))
+            out += header
             out += payload
         if not records:
             if on_flush is not None:
                 self._after_flush(on_flush)
             return not self._above_high_water()
         self.changes += len(records)
+        if obs_on:
+            _M_ENC_CHANGES.inc(len(records))
         return self._push(bytes(out), on_flush)
 
     # -- ChangeBatch accumulation -------------------------------------------
@@ -400,7 +448,30 @@ class Encoder:
         # flush-side tap BEFORE the frame is queued, the batch twin of
         # _frame_change's submit-before-frame ordering
         self._note_batch_rows(rows, payload)
-        self.changes += len(rows)
+        n = len(rows)
+        self.changes += n
+        header = frame_header(len(payload), TYPE_CHANGE_BATCH)
+        if _OBS.on:
+            _M_ENC_CHANGES.inc(n)
+            _M_BATCH_FRAMES.inc()
+            _M_BATCH_ROWS.inc(n)
+            import numpy as np
+
+            est = batch_codec.estimate_per_record_bytes(
+                np.asarray([len(r[0]) for r in rows], np.int64),
+                np.asarray([-1 if r[5] is None else len(r[5])
+                            for r in rows], np.int64),
+                np.asarray([-1 if r[4] is None else len(r[4])
+                            for r in rows], np.int64),
+                np.asarray([r[1] for r in rows], np.uint32),
+                np.asarray([r[2] for r in rows], np.uint32),
+                np.asarray([r[3] for r in rows], np.uint32))
+            saved = est - (len(header) + len(payload))
+            if saved > 0:
+                _M_BATCH_SAVED.inc(saved)
+            _trace_instant("encoder.frame", offset=self.bytes,
+                           kind="change_batch", rows=n,
+                           wire_len=len(header) + len(payload))
         if len(cbs) > 1:
             def all_cbs(cbs=cbs):
                 for cb in cbs:
@@ -408,12 +479,19 @@ class Encoder:
             cb = all_cbs
         else:
             cb = cbs[0] if cbs else None
-        self._push(frame_header(len(payload), TYPE_CHANGE_BATCH) + payload,
-                   cb)
+        self._push(header + payload, cb)
 
     def _frame_change(self, payload: bytes, on_flush: OnDone) -> bool:
         self.changes += 1
-        self._push(frame_header(len(payload), TYPE_CHANGE), None)
+        header = frame_header(len(payload), TYPE_CHANGE)
+        if _OBS.on:
+            _M_ENC_CHANGES.inc()
+            # self.bytes before the header is pushed is the frame's wire
+            # offset: the number the peer's decoder computes for it
+            _trace_instant("encoder.frame", offset=self.bytes,
+                           kind="change",
+                           wire_len=len(header) + len(payload))
+        self._push(header, None)
         return self._push(payload, on_flush)
 
     def blob(self, length: int, on_flush: OnDone = None) -> BlobWriter:
@@ -430,11 +508,17 @@ class Encoder:
             self.flush_batch()
         ws = BlobWriter(self, length, on_flush)
         self.blobs += 1
+        if _OBS.on:
+            _M_ENC_BLOBS.inc()
         header = frame_header(length, TYPE_BLOB)
         if self._open_blobs:
             ws._corked = True
+            ws._tag_on_uncork = True
             ws._park(header, None)
         else:
+            if _OBS.on:
+                _trace_instant("encoder.frame", offset=self.bytes,
+                               kind="blob", wire_len=len(header) + length)
             self._push(header, None)
         self._open_blobs.append(ws)
         return ws
@@ -491,6 +575,8 @@ class Encoder:
                 self._queued_bytes -= room
                 break
         data = bytes(out)
+        if _OBS.on and data:
+            _M_ENC_BYTES.inc(len(data))
         below = not self._above_high_water()
         for cb in fired:
             cb()
@@ -595,9 +681,11 @@ class Encoder:
         if self._open_blobs:
             self._open_blobs[0]._uncork()
         parked, self._parked_changes = self._parked_changes, []
-        for payload, cb in parked:
+        for payload, cb, t0 in parked:
             if self._open_blobs:
-                self._parked_changes.append((payload, cb))
+                self._parked_changes.append((payload, cb, t0))
             else:
                 self._parked_bytes -= len(payload)
+                if t0 is not None and _OBS.on:
+                    _H_ENC_PARK.observe(_now() - t0)
                 self._frame_change(payload, cb)

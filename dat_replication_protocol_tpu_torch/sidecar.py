@@ -19,6 +19,14 @@ Every digest is encoded onto the reply before the reply finalizes
 (flush-before-finalize).  A protocol error destroys both directions, so
 a malformed client observes EOF rather than a hang.  The TCP, hub and
 fan-out modes of the reference sidecar are not part of this slice.
+
+Telemetry, as the reference's flags give it (:1303-1328):
+``--flight-dir DIR`` arms the flight recorder (a protocol error dumps a
+bundle into DIR) and turns telemetry on; ``--trace-jsonl PATH`` turns
+it on and mirrors every event and span as JSONL into PATH.  The request
+is consumed inside a ``sidecar.session.recv`` span, so PATH carries both
+directions' frame tags.  ``--stats-fd`` and ``--obs-http`` are not
+ported.
 """
 
 from __future__ import annotations
@@ -30,6 +38,9 @@ import sys
 import threading
 
 from . import decode, encode
+from .obs import flight as obs_flight
+from .obs import metrics as obs_metrics
+from .obs import tracing as obs_tracing
 
 DIGEST_SUBSET_CHANGE = "digest:change"
 DIGEST_SUBSET_BLOB = "digest:blob"
@@ -111,17 +122,19 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
     wake = threading.Event()
     dec._add_drain_watcher(wake.set)
     try:
-        while not dec.destroyed:
-            data = read_bytes(chunk_size)
-            if not data:
-                if not dec.finished:
-                    dec.end()
-                break
-            wake.clear()
-            if not dec.write(data):
-                while not (dec.writable() or dec.destroyed or dec.finished):
-                    wake.wait(_WAKE)
-                    wake.clear()
+        with obs_tracing.trace_span("sidecar.session.recv"):
+            while not dec.destroyed:
+                data = read_bytes(chunk_size)
+                if not data:
+                    if not dec.finished:
+                        dec.end()
+                    break
+                wake.clear()
+                if not dec.write(data):
+                    while not (dec.writable() or dec.destroyed
+                               or dec.finished):
+                        wake.wait(_WAKE)
+                        wake.clear()
     except OSError as e:  # the transport died mid-read
         if not dec.destroyed:
             dec.destroy(e)
@@ -149,10 +162,31 @@ def main(argv=None) -> int:
                         help="read the session on stdin, reply on stdout")
     parser.add_argument("--device", default="cuda",
                         help="torch device for the digests (default: cuda)")
+    parser.add_argument("--flight-dir", metavar="DIR", default=None,
+                        help="arm the flight recorder: on a protocol error, "
+                             "dump a post-mortem bundle (event and span "
+                             "rings, metrics) into DIR; enables telemetry")
+    parser.add_argument("--trace-jsonl", metavar="PATH", default=None,
+                        help="enable telemetry and mirror every event and "
+                             "wire-offset span as JSONL into PATH")
     args = parser.parse_args(argv)
-    out = run_session(lambda n: os.read(0, n),
-                      lambda data: _write_all(1, data),
-                      close_write=lambda: os.close(1), device=args.device)
+    trace_sink = None
+    if args.flight_dir:
+        # arming enables telemetry: a dark ring has nothing to dump
+        obs_flight.FLIGHT.arm(args.flight_dir)
+    if args.trace_jsonl:
+        obs_metrics.enable()
+        trace_sink = obs_tracing.attach_jsonl_sink(args.trace_jsonl)
+    try:
+        out = run_session(lambda n: os.read(0, n),
+                          lambda data: _write_all(1, data),
+                          close_write=lambda: os.close(1),
+                          device=args.device)
+    finally:
+        if trace_sink is not None:
+            obs_tracing.EVENTS.detach_sink()
+            obs_tracing.SPANS.detach_sink()
+            trace_sink.close()
     print(json.dumps(out), file=sys.stderr)
     return 0 if out["ok"] else 1
 

@@ -248,7 +248,9 @@ def test_new_modules_are_in_the_scan():
             "batch/feed.py", "runtime/content.py", "ops/reconcile.py",
             "ops/rateless.py", "runtime/tree_sync.py", "wire/batch_codec.py",
             "runtime/replay.py", "parallel/__init__.py", "parallel/mesh.py",
-            "parallel/cdc_mesh.py"} <= names
+            "parallel/cdc_mesh.py", "obs/__init__.py", "obs/metrics.py",
+            "obs/events.py", "obs/tracing.py", "obs/flight.py",
+            "obs/device.py", "utils/trace.py"} <= names
 
 
 @pytest.mark.parametrize("backend,device", [("nccl", "cpu"),
