@@ -159,12 +159,42 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    engine note.  13d: the
    rings of 13b exported with ``export_chrome_trace`` beside the
    profiler's trace under ``build/phase13/``; their record counts.
+14. anti-entropy over the wire, gate off.  14a (BASELINE configs[4]'s
+   width, bench.py config 11's middle arm): two change logs of 1,000,000
+   records each in phase 11's record shape (values from the seed),
+   sharing 999,500, with 500 own on each side (k = 1,000).  Log B is
+   served by ``python -m dat_replication_protocol_tpu_torch.sidecar --tcp
+   127.0.0.1:0 --reconcile B.log`` in a subprocess; ``run_initiator
+   (RatelessReplica(A))`` runs here over ``io_for_socket``.  The records
+   each side receives must be exactly the other's own, against a
+   ``hashlib`` digest of every canonical record and its set difference
+   in numpy; the replicas' B1 digests must equal those; the socket's
+   bytes each way, the symbols and the rounds must equal
+   ``reconcile_local``'s for the same pair.  The same at k = 10, and
+   two corrupt arms (a byte of the first SYMBOLS frame flipped in
+   flight: its start index, and cell 0's key sum) must each end within
+   30 s in one ``ProtocolError``, a closed socket and the sidecar's
+   ``ok: False``, or with exactly the oracle's records each way: never
+   a wrong record set.  B1's device ms in the replica build and B1's and
+   B6's in materialize come from a ``utils.trace.trace_to`` profile of
+   those calls (kernel records summed by name; a kernel whose records
+   are fewer than its launches prints ``None``, not a partial sum;
+   traces under ``build/phase14/``).  14b (bench.py config 12): a 1 GiB dataset
+   from the seed, ``SnapshotSource`` (B6 for the cuts, B1 for the chunk
+   digests; cuts checked by phase 7's window hash, the root against
+   ``root_host`` of ``hashlib`` digests) served by ``serve_tcp`` in a
+   thread; a cold joiner, a joiner with 2% of its chunks rewritten
+   (its chunk and wire bytes equal to ``snapshot_local``'s), a flash
+   crowd of 4 cold joiners at once (bench.py's 8, cut for time; B1 and
+   B6 not launched over it, the cold log served 4 times) and a joiner torn inside a CHUNKS frame (one
+   ``ProtocolError`` within 30 s), each assembled dataset byte-exact.
 
 Every launch counter (B1's per variant and per block count, and its
 chained entry's per variant, too) is set to 0 just before each main-path
 phase (3, 4, 7, 8, 10, 11, 12a's stream, 12b's mesh calls, 13's gated
-runs) and read just after; a kernel or B1 variant that the phases did
-not launch fails the run.
+runs; in 14a the replicas and both clean arms, in 14b materialize and
+the cold and stale joiners, then the crowd) and read just after; a
+kernel or B1 variant that the phases did not launch fails the run.
 The lines before the last carry the card, the per-kernel JSON and the
 times; the last line is ``{"ok": true, "device": {...}}``.  Without a
 card it exits 2 and prints no result.
@@ -2866,6 +2896,618 @@ def run_telemetry(device, content_blob, content_summary,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: anti-entropy over the wire
+# ---------------------------------------------------------------------------
+
+# 14a: two change logs of 1,000,000 records (BASELINE configs[4]'s width,
+# bench.py config 11's middle arm), 999,500 shared, 500 own on each side
+AE_SHARED = 999_500
+AE_OWN = 500
+AE_SMALL_OWN = 5  # the k = 10 arm
+# 14b: bench.py config 12's dataset and its 2% stale joiner; its crowd
+# of 8 cut to 4, since phase 14 ran 185-189 s at 8, over its ~180 s
+SNAP_BYTES = 1 << 30
+SNAP_STALE = 0.02
+SNAP_CROWD = 4
+ARM_LIMIT_S = 30.0  # the corrupt and torn arms must end within this
+SIDECAR_START_S = 300.0  # a sidecar builds its replica before listening
+
+
+# the kernels phase 14 times, by launch counter: their names in the
+# profiler's device records
+P14_KERNELS = {"blake2b": ("blake2b_thread_kernel", "blake2b_quad_kernel"),
+               "gear_window_first_checked": (
+                   "gear_window_first_checked_kernel",)}
+P14_OUT = "build/phase14"  # .gitignore lists build/
+
+
+def profiled(fn, name: str, device) -> tuple:
+    """``fn()`` under ``utils.trace.trace_to`` (its Chrome trace in
+    ``P14_OUT/name``): the result, its host seconds (the profiler on),
+    and the device ms and kernel records of B1 and B6 in it, summed over
+    the profiler's device records by kernel name."""
+    from torch.autograd import DeviceType
+
+    from dat_replication_protocol_tpu_torch.utils.trace import trace_to
+
+    with trace_to(os.path.join(P14_OUT, name), cuda=device == "cuda") as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        seconds = time.perf_counter() - t0
+    ms = dict.fromkeys(P14_KERNELS, 0.0)
+    calls = dict.fromkeys(P14_KERNELS, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for counter, kernels in P14_KERNELS.items():
+            if any(k in e.key for k in kernels):
+                ms[counter] += e.self_device_time_total / 1e3
+                calls[counter] += e.count
+    return res, seconds, ms, calls
+
+
+def recorded_ms(ms: dict, calls: dict, counts: dict) -> dict:
+    """Each kernel's device ms and its kernel records over the launches
+    the counters saw: the ms where the profiler recorded every launch,
+    else None (not measured: the profiler can drop a record, and a
+    partial sum is not the kernel's time)."""
+    return {n: {"ms": ms[n] if calls[n] == counts[n] else None,
+                "records": calls[n], "launches": counts[n]}
+            for n in P14_KERNELS}
+
+
+def ae_records(lo: int, hi: int, rng) -> list[dict]:
+    """Rows [lo, hi) in phase 11's record shape (``replay_records``:
+    key, change, from, to, a value of row % 48 bytes, a subset absent on
+    every third row), the values' bytes drawn from ``rng``."""
+    lens = np.arange(lo, hi) % 48
+    buf = rng.bytes(int(lens.sum()))
+    ends = np.cumsum(lens)
+    return [{"key": f"key-{i:07d}", "change": i, "from": i, "to": i + 1,
+             "value": buf[e - n:e], "subset": "s" if i % 3 else None}
+            for i, n, e in zip(range(lo, hi), lens.tolist(), ends.tolist())]
+
+
+def canonical_digests(records) -> np.ndarray:
+    """``hashlib`` BLAKE2b-256 of each record's per-record encoding, as
+    (n, 32) uint8: the oracle of the replicas' elements."""
+    from dat_replication_protocol_tpu_torch import encode_change
+
+    return np.frombuffer(b"".join(blake(encode_change(r)) for r in records),
+                         np.uint8).reshape(-1, 32)
+
+
+def _v32(d: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(d).view(np.dtype((np.void, 32))).ravel()
+
+
+def delivered(rec) -> tuple:
+    """A record as a decoder delivers it (absent optionals as ''/b'')."""
+    if isinstance(rec, dict):
+        return (rec["key"], rec["change"], rec["from"], rec["to"],
+                rec["value"] or b"", rec["subset"] or "")
+    return (rec.key, rec.change, rec.from_, rec.to, rec.value or b"",
+            rec.subset or "")
+
+
+def batch_rows(wire: bytes) -> list:
+    """Every row of the ChangeBatch frames in a recorded wire, as
+    ``delivered`` tuples."""
+    from dat_replication_protocol_tpu_torch.wire import batch_codec
+    from dat_replication_protocol_tpu_torch.wire.framing import (
+        TYPE_CHANGE_BATCH, iter_frames)
+
+    out = []
+    for _s, tid, p0, end in iter_frames(wire):
+        if tid == TYPE_CHANGE_BATCH:
+            cols = batch_codec.decode_change_batch(wire[p0:end])
+            out += [delivered(cols.row(i)) for i in range(len(cols))]
+    return out
+
+
+class Sidecar:
+    """``python -m dat_replication_protocol_tpu_torch.sidecar`` in a
+    subprocess, as users start it, with its stderr lines collected and its
+    port read from the ``listening on`` line."""
+
+    def __init__(self, args: list[str]):
+        import threading
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "dat_replication_protocol_tpu_torch.sidecar",
+             *args], cwd=root, stdin=subprocess.DEVNULL,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, "PYTHONPATH": root})
+        self.lines: list[str] = []
+        self.cond = threading.Condition()
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        line = self.wait_for("listening on", SIDECAR_START_S)
+        self.port = int(line.rsplit(":", 1)[1])
+
+    def _read(self) -> None:
+        for line in self.proc.stderr:
+            with self.cond:
+                self.lines.append(line.rstrip("\n"))
+                self.cond.notify_all()
+        with self.cond:
+            self.cond.notify_all()
+
+    def wait_for(self, text: str, timeout: float, after: int = 0) -> str:
+        deadline = time.monotonic() + timeout
+        with self.cond:
+            while True:
+                for line in self.lines[after:]:
+                    if text in line:
+                        return line
+                left = deadline - time.monotonic()
+                if left <= 0 or (self.proc.poll() is not None
+                                 and not self.reader.is_alive()):
+                    raise AssertionError(
+                        f"sidecar: no {text!r} line in {timeout} s; stderr "
+                        f"{self.lines[-20:]}")
+                self.cond.wait(min(left, 1.0))
+
+    def close(self) -> None:
+        self.proc.terminate()
+        try:
+            self.proc.wait(10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(10)
+        self.reader.join(10)
+
+
+def _connect(port: int):
+    import socket
+
+    sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+    sock.settimeout(120)
+    return sock
+
+
+def counted_io(sock, flip=None):
+    """``io_for_socket(sock)`` with every byte each way counted and kept;
+    ``flip(data)`` may return a corrupted copy of an outgoing chunk."""
+    from dat_replication_protocol_tpu_torch.session.pump import io_for_socket
+
+    rd0, wr0 = io_for_socket(sock)
+    seen = {"tx": bytearray(), "rx": bytearray()}
+
+    def rd(n):
+        data = rd0(n)
+        seen["rx"] += data
+        return data
+
+    def wr(data):
+        if flip is not None:
+            data = flip(data)
+        seen["tx"] += data
+        wr0(data)
+
+    return rd, wr, seen
+
+
+class FlipFirstSymbols:
+    """A ``counted_io`` flip of the low bit of one byte of the first
+    SYMBOLS frame: its start index (0 -> 1) when ``cell`` is None, else
+    the first byte of word ``word`` of cell ``cell`` (0 the count, 1-2
+    the checksum, 3-10 the key sum).  It keeps the outgoing bytes only
+    until that byte has gone by; ``flipped`` says whether it was hit."""
+
+    def __init__(self, cell=None, word: int = 0):
+        self.cell, self.word = cell, word
+        self.head = bytearray()
+        self.flipped = False
+        self.done = False
+
+    def _target(self):
+        """The byte's offset in the stream, or None until the first
+        SYMBOLS frame's header and varints are in ``head``."""
+        from dat_replication_protocol_tpu_torch.ops.rateless import (
+            SYMBOL_BYTES)
+        from dat_replication_protocol_tpu_torch.wire.framing import (
+            TYPE_RECONCILE, iter_frames)
+        from dat_replication_protocol_tpu_torch.wire.reconcile_codec import (
+            RC_SYMBOLS)
+        from dat_replication_protocol_tpu_torch.wire.varint import (
+            NeedMoreData, decode_uvarint)
+
+        try:  # a header, subtype or varint cut by the chunk's end
+            for _s, tid, p0, end in iter_frames(self.head):
+                if tid == TYPE_RECONCILE and self.head[p0] == RC_SYMBOLS:
+                    at = p0 + 1
+                    if self.cell is None:
+                        return at
+                    for _ in range(2):  # the start and count varints
+                        at += decode_uvarint(self.head, at)[1]
+                    return at + self.cell * SYMBOL_BYTES + 4 * self.word
+                if end > len(self.head):
+                    return None
+        except (IndexError, NeedMoreData):
+            pass
+        return None
+
+    def __call__(self, data: bytes) -> bytes:
+        if self.done:
+            return data
+        base = len(self.head)
+        self.head += data
+        at = self._target()
+        if at is None:
+            return data
+        self.done, self.head = True, bytearray()
+        if base <= at < base + len(data):
+            out = bytearray(data)
+            out[at - base] ^= 0x01
+            self.flipped = True
+            return bytes(out)
+        return data
+
+
+def reconcile_arm(sidecar, replica, want_a_only, want_b_only,
+                  local: dict) -> dict:
+    """One initiator session against the sidecar over a counted socket,
+    held against the oracle's record sets and ``reconcile_local``'s
+    metering of the same pair."""
+    import socket
+
+    from dat_replication_protocol_tpu_torch.runtime.reconcile_driver import (
+        run_initiator)
+
+    n_lines = len(sidecar.lines)
+    t0 = time.perf_counter()
+    sock = _connect(sidecar.port)
+    try:
+        rd, wr, seen = counted_io(sock)
+        res = run_initiator(replica, rd, wr,
+                            close_write=lambda: sock.shutdown(
+                                socket.SHUT_WR))
+        line = sidecar.wait_for("'reconcile': True", 120, after=n_lines)
+        seconds = time.perf_counter() - t0
+    finally:
+        sock.close()
+    if "'ok': True" not in line:
+        raise AssertionError(f"sidecar session failed: {line}")
+    got = sorted(delivered(c) for c in res["received"])
+    if got != sorted(want_b_only):
+        raise AssertionError(f"the initiator received {len(got)} records, "
+                             f"not the sidecar's {len(want_b_only)} own")
+    shipped = sorted(batch_rows(bytes(seen["tx"])))
+    if shipped != sorted(want_a_only):
+        raise AssertionError(f"the initiator shipped {len(shipped)} records,"
+                             f" not its {len(want_a_only)} own")
+    if f"'records_received': {len(want_a_only)}" not in line:
+        raise AssertionError(f"the sidecar's record count: {line}")
+    wire = {"a2b": len(seen["tx"]), "b2a": len(seen["rx"])}
+    metered = {"a2b": local["wire_a2b"], "b2a": local["wire_b2a"]}
+    if wire != metered or res["symbols"] != local["symbols"] \
+            or res["rounds"] != local["rounds"]:
+        raise AssertionError(
+            f"socket bytes {wire}, symbols {res['symbols']}, rounds "
+            f"{res['rounds']}; reconcile_local meters {metered}, "
+            f"{local['symbols']}, {local['rounds']}")
+    return {"seconds": seconds, "symbols": res["symbols"],
+            "rounds": res["rounds"], "wire": wire,
+            "received": len(got), "sent": len(shipped)}
+
+
+def run_anti_entropy_reconcile(device, shared=AE_SHARED, own=AE_OWN,
+                               small_own=AE_SMALL_OWN,
+                               seed=SEED + 140) -> dict:
+    """Phase 14a (see the module docstring)."""
+    import tempfile
+
+    from dat_replication_protocol_tpu_torch.runtime import replay
+    from dat_replication_protocol_tpu_torch.runtime.reconcile_driver import (
+        RatelessReplica, reconcile_local)
+
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    both = ae_records(0, shared, rng)
+    a_own = ae_records(shared, shared + own, rng)
+    b_own = ae_records(shared + own, shared + 2 * own, rng)
+    w_shared = replay.encode_change_log(both)
+    w_b_own = replay.encode_change_log(b_own)
+    wire_a = w_shared + replay.encode_change_log(a_own)
+    wire_b = w_shared + w_b_own
+    # the k = 10 arm's initiator: B's log less its last few own records,
+    # plus a few of A's
+    wire_a10 = (w_shared + replay.encode_change_log(b_own[:own - small_own])
+                + replay.encode_change_log(a_own[:small_own]))
+    make_s = time.perf_counter() - t0
+
+    # the oracle: hashlib digests of every canonical record, the set
+    # differences in numpy
+    t0 = time.perf_counter()
+    d_both, d_a, d_b = (canonical_digests(r) for r in (both, a_own, b_own))
+    set_a = _v32(np.concatenate([d_both, d_a]))
+    set_b = _v32(np.concatenate([d_both, d_b]))
+    only_a, only_b = np.setdiff1d(set_a, set_b), np.setdiff1d(set_b, set_a)
+    if not (np.array_equal(np.sort(only_a), np.sort(_v32(d_a)))
+            and np.array_equal(np.sort(only_b), np.sort(_v32(d_b)))):
+        raise AssertionError("the oracle's set difference is not the logs' "
+                             "own records")
+    oracle_s = time.perf_counter() - t0
+
+    out = {"records": (len(both) + own, len(both) + own), "make_s": make_s,
+           "oracle_s": oracle_s}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "B.log")
+        with open(path, "wb") as f:
+            f.write(wire_b)
+        t0 = time.perf_counter()
+        side = Sidecar(["--tcp", "127.0.0.1:0", "--reconcile", path,
+                        "--device", str(device)])
+        out["sidecar_start_s"] = time.perf_counter() - t0
+        try:
+            reset_counters()
+            rep_a, out["build_s"], ms, calls = profiled(
+                lambda: RatelessReplica(wire_a, device=device),
+                "replica_a", device)
+            out["b1"] = recorded_ms(ms, calls, read_counters())["blake2b"]
+            rep_b = RatelessReplica(wire_b, device=device)
+            if not (np.array_equal(np.sort(_v32(rep_a.digests)),
+                                   np.sort(set_a))
+                    and np.array_equal(np.sort(_v32(rep_b.digests)),
+                                       np.sort(set_b))):
+                raise AssertionError("the replicas' B1 digests are not the "
+                                     "oracle's hashlib digests")
+            t0 = time.perf_counter()
+            local = reconcile_local(rep_a, rep_b)
+            out["local_s"] = time.perf_counter() - t0
+            a_rows = [delivered(r) for r in a_own]
+            b_rows = [delivered(r) for r in b_own]
+            out["k1000"] = reconcile_arm(side, rep_a, a_rows, b_rows, local)
+
+            rep_a10 = RatelessReplica(wire_a10, device=device)
+            local10 = reconcile_local(rep_a10, rep_b)
+            out["k10"] = reconcile_arm(
+                side, rep_a10, [delivered(r) for r in a_own[:small_own]],
+                b_rows[own - small_own:], local10)
+            out["launches"] = read_counters()
+            del rep_a10, rep_b, local, local10
+
+            # the corrupt arms: one byte of the first SYMBOLS frame
+            # flipped, in its start index and in cell 0's key sum
+            out["corrupt"] = {
+                what: corrupt_arm(side, rep_a, flip, a_rows, b_rows)
+                for what, flip in (("start", FlipFirstSymbols()),
+                                   ("key sum", FlipFirstSymbols(0, 3)))}
+        finally:
+            side.close()
+    return out
+
+
+def corrupt_arm(side, replica, flip, a_rows, b_rows) -> dict:
+    """One initiator session against the sidecar with ``flip`` applied
+    to its outgoing bytes.  It must end within ``ARM_LIMIT_S`` in one
+    ``ProtocolError``, a closed socket and the sidecar's ``ok: False``,
+    or with exactly the oracle's records each way and the sidecar's
+    ``ok: True``: never a wrong record set."""
+    import socket
+
+    from dat_replication_protocol_tpu_torch.runtime.reconcile_driver import (
+        run_initiator)
+    from dat_replication_protocol_tpu_torch.wire.framing import ProtocolError
+
+    n_lines = len(side.lines)
+    t0 = time.perf_counter()
+    sock = _connect(side.port)
+    sock.settimeout(ARM_LIMIT_S)
+    errors, res = [], None
+    try:
+        rd, wr, seen = counted_io(sock, flip=flip)
+        try:
+            res = run_initiator(replica, rd, wr, close_write=lambda:
+                                sock.shutdown(socket.SHUT_WR))
+        except ProtocolError as e:
+            errors.append(e)
+        closed = sock.recv(1) == b""
+    finally:
+        sock.close()
+    line = side.wait_for("'reconcile': True", ARM_LIMIT_S, after=n_lines)
+    seconds = time.perf_counter() - t0
+    if not flip.flipped:
+        raise AssertionError("corrupt arm: the flip never met its byte")
+    if res is not None:
+        exact = (sorted(delivered(c) for c in res["received"])
+                 == sorted(b_rows)
+                 and sorted(batch_rows(bytes(seen["tx"]))) == sorted(a_rows))
+        ok = exact and "'ok': True" in line and closed
+    else:
+        ok = len(errors) == 1 and closed and "'ok': False" in line
+    if not ok or seconds > ARM_LIMIT_S:
+        raise AssertionError(
+            f"corrupt arm: errors {errors}, result "
+            f"{None if res is None else (res['symbols'], res['rounds'])}, "
+            f"socket closed {closed}, {seconds} s, sidecar {line}")
+    return {"seconds": seconds, "tx_bytes": len(seen["tx"]),
+            "outcome": str(errors[0]) if errors else
+            f"the exact difference in {res['symbols']} symbols",
+            "sidecar": line}
+
+
+def snapshot_joiner_arm(port: int, have=None, device="cuda", cut_at=None):
+    """One ``run_snapshot_joiner`` over a counted socket; ``cut_at``
+    ends the joiner's input (EOF) at that byte.  Returns the result (or
+    the ProtocolError), seconds and the socket's bytes."""
+    import socket
+
+    from dat_replication_protocol_tpu_torch.runtime.snapshot_driver import (
+        run_snapshot_joiner)
+    from dat_replication_protocol_tpu_torch.wire.framing import ProtocolError
+
+    t0 = time.perf_counter()
+    sock = _connect(port)
+    try:
+        rd, wr, seen = counted_io(sock)
+        if cut_at is not None:
+            rd0 = rd
+
+            def rd(n):
+                left = cut_at - len(seen["rx"])
+                if left <= 0:
+                    sock.shutdown(socket.SHUT_RDWR)
+                    return b""
+                return rd0(min(n, left))
+        try:
+            res = run_snapshot_joiner(rd, wr, close_write=lambda:
+                                      sock.shutdown(socket.SHUT_WR),
+                                      have=have, device=device)
+        except ProtocolError as e:
+            res = e
+    finally:
+        sock.close()
+    return res, time.perf_counter() - t0, {"rx": len(seen["rx"]),
+                                            "tx": len(seen["tx"])}
+
+
+def run_anti_entropy_snapshot(device, nbytes=SNAP_BYTES, crowd=SNAP_CROWD,
+                              stale=SNAP_STALE, seed=SEED + 141) -> dict:
+    """Phase 14b (see the module docstring)."""
+    import threading
+
+    from dat_replication_protocol_tpu_torch import sidecar
+    from dat_replication_protocol_tpu_torch.ops import merkle
+    from dat_replication_protocol_tpu_torch.runtime.snapshot_driver import (
+        SnapshotSource, snapshot_local)
+    from dat_replication_protocol_tpu_torch.wire.framing import (
+        ProtocolError, TYPE_SNAPSHOT, iter_frames)
+    from dat_replication_protocol_tpu_torch.wire.snapshot_codec import (
+        SN_CHUNKS)
+
+    data = make_blob(nbytes, seed=seed)
+    out = {"bytes": nbytes}
+    # one count over materialize, the cold joiner and the stale joiner
+    reset_counters()
+    src, out["materialize_s"], ms, calls = profiled(
+        lambda: SnapshotSource(data, device=device), "materialize", device)
+    out["materialize_launches"] = read_counters()
+    out["materialize_ms"] = recorded_ms(ms, calls,
+                                        out["materialize_launches"])
+    cuts = (src.offs + src.lens).tolist()
+    out["checked"] = check_cuts(data, cuts, "snapshot materialize")
+    root = merkle.root_host([blake(data[o:o + n])
+                             for o, n in zip(src.offs.tolist(),
+                                             src.lens.tolist())])
+    if root != src.manifest.root:
+        raise AssertionError("the manifest root is not root_host of the "
+                             "hashlib digests at its cuts")
+    out["chunks"] = len(cuts)
+
+    ready = threading.Event()
+    port = {}
+    server = threading.Thread(
+        target=sidecar.serve_tcp, daemon=True,
+        args=("127.0.0.1", 0),
+        kwargs={"max_sessions": 3 + crowd, "snapshot_source": src,
+                "device": device,
+                "ready_cb": lambda p: (port.setdefault("p", p),
+                                       ready.set())})
+    server.start()
+    if not ready.wait(60):
+        raise AssertionError("serve_tcp did not start listening")
+    port = port["p"]
+
+    def exact(res, what: str) -> None:
+        if isinstance(res, Exception):
+            raise AssertionError(f"{what}: {res}")
+        if not np.array_equal(np.frombuffer(res["data"], np.uint8), data):
+            raise AssertionError(f"{what}: the assembled bytes differ")
+
+    # the cold joiner
+    res, seconds, cold_wire = snapshot_joiner_arm(port, device=device)
+    exact(res, "cold joiner")
+    out["cold"] = {"seconds": seconds, "wire": cold_wire,
+                   "gib_s": nbytes / (1 << 30) / seconds}
+    out["cold_launches"] = read_counters()
+    del res
+
+    # the stale joiner: 2% of the chunks rewritten (bench.py's recipe)
+    rng = np.random.default_rng(seed + 1)
+    pick = rng.choice(len(cuts), size=max(1, int(len(cuts) * stale)),
+                      replace=False)
+    have = data.copy()
+    have[src.offs[pick]] ^= 0x5A
+    res, seconds, stale_wire = snapshot_joiner_arm(port, have=have,
+                                                   device=device)
+    exact(res, "stale joiner")
+    out["launches"] = read_counters()
+    local = snapshot_local(src, have, device=device)
+    if (res["bytes_received"] != local["bytes_received"]
+            or stale_wire["rx"] != local["wire_s2j"]
+            or stale_wire["tx"] != local["wire_j2s"]):
+        raise AssertionError(
+            f"stale joiner: chunk bytes {res['bytes_received']}, socket "
+            f"{stale_wire}; snapshot_local {local['bytes_received']}, "
+            f"{local['wire_s2j']} / {local['wire_j2s']}")
+    out["stale"] = {"seconds": seconds, "wire": stale_wire,
+                    "chunk_bytes": res["bytes_received"],
+                    "reused": res["chunks_reused"],
+                    "symbols": res["symbols"], "rounds": res["rounds"],
+                    "ratio": (stale_wire["rx"] + stale_wire["tx"])
+                    / (cold_wire["rx"] + cold_wire["tx"])}
+    del res, have, local
+
+    # the flash crowd: cold joiners at once, each compared then dropped
+    reset_counters()
+    lock = threading.Lock()
+    crowd_out = []
+
+    def join_one() -> None:
+        r, s, w = snapshot_joiner_arm(port, device=device)
+        ok = not isinstance(r, Exception) and np.array_equal(
+            np.frombuffer(r["data"], np.uint8), data)
+        with lock:
+            crowd_out.append((ok, s, w, None if ok else str(r)[:200]))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=join_one, daemon=True)
+               for _ in range(crowd)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    crowd_s = time.perf_counter() - t0
+    grew = read_counters()
+    if len(crowd_out) != crowd or not all(o[0] for o in crowd_out):
+        raise AssertionError(f"flash crowd: {crowd_out}")
+    if grew["blake2b"] or grew["gear_window_first_checked"]:
+        raise AssertionError(f"the flash crowd launched kernels: {grew}")
+    # each joiner's stream is the BEGIN frame, then the cold log
+    log_len = src.cold_log().end - src.cold_log().start
+    begin_len = cold_wire["rx"] - log_len
+    served = sum(o[2]["rx"] - begin_len for o in crowd_out)
+    if served != crowd * log_len:
+        raise AssertionError(f"flash crowd: {served} bytes of the cold log "
+                             f"served, not {crowd} x its {log_len}")
+    out["crowd"] = {"joiners": crowd, "seconds": crowd_s,
+                    "gib_s": crowd * nbytes / (1 << 30) / crowd_s,
+                    "served": served, "cold_log": log_len}
+
+    # the torn arm: the joiner's socket cut in the middle of a CHUNKS
+    # frame (the cold stream's second frame)
+    first = None
+    raw = src.cold_log().read_slices(src.cold_log().start, 4 << 20)
+    head = b"".join(bytes(v) for v in raw)
+    for _s, tid, p0, end in iter_frames(head):
+        if end > len(head):
+            break
+        if tid == TYPE_SNAPSHOT and head[p0] == SN_CHUNKS:
+            first = (p0, end)
+            break
+    cut = begin_len + (first[0] + first[1]) // 2
+    res, seconds, _w = snapshot_joiner_arm(port, device=device, cut_at=cut)
+    if not isinstance(res, ProtocolError) or seconds > ARM_LIMIT_S:
+        raise AssertionError(f"torn arm: {res!r} in {seconds} s")
+    out["torn"] = {"seconds": seconds, "cut_at": cut, "error": str(res)}
+    server.join(30)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3180,17 +3822,87 @@ def main() -> int:
         f"{tel['profile'][1]} records in {tel['profile'][0]}; launches {p13}")
     log(f"phase 13: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    ae = run_anti_entropy_reconcile(device)
+    a, b = ae["k1000"], ae["k10"]
+    n_ae = sum(ae["records"])
+    log(f"phase 14a: two change logs of {ae['records']} records "
+        f"({AE_SHARED} shared, {AE_OWN} own on each side; made and encoded "
+        f"in {ae['make_s']:.2f} s; the hashlib oracle of every canonical "
+        f"record and its numpy set difference in {ae['oracle_s']:.2f} s); "
+        f"the --tcp --reconcile sidecar subprocess listening after "
+        f"{ae['sidecar_start_s']:.2f} s; RatelessReplica(A) built in "
+        f"{ae['build_s']} s (profiled), of it B1 {ae['b1']['ms']} ms on "
+        f"the device ({ae['b1']['records']} kernel records for "
+        f"{ae['b1']['launches']} launches); replica digests == hashlib; "
+        f"reconcile_local of the pair {ae['local_s']} s; on {card}")
+    for name, arm in (("k = 1000", a), ("k = 10", b)):
+        log(f"phase 14a: {name}: run_initiator over the socket received "
+            f"{arm['received']} and shipped {arm['sent']} records == the "
+            f"oracle's difference, the sidecar logged ok; "
+            f"{n_ae / arm['seconds']} records/s ({arm['seconds']} s from "
+            f"connect to both results); {arm['symbols']} symbols in "
+            f"{arm['rounds']} rounds; wire bytes {arm['wire']} == "
+            f"reconcile_local's metering; on {card}")
+    for what, c in ae["corrupt"].items():
+        log(f"phase 14a: corrupt arm (the first SYMBOLS frame's {what} "
+            f"flipped in flight): {c['outcome']}; the socket closed, the "
+            f"sidecar logged {c['sidecar']}; {c['tx_bytes']} B sent, in "
+            f"{c['seconds']} s")
+    snap = run_anti_entropy_snapshot(device)
+    ms, m = snap["materialize_ms"], snap["materialize_launches"]
+    log(f"phase 14b: SnapshotSource over {snap['bytes']} B: "
+        f"{snap['chunks']} chunks in {snap['materialize_s']} s (profiled), "
+        f"of it on the device (ms, the profiler's kernel records, the "
+        f"launches; ms None where a record is missing) B6 "
+        f"{ms['gear_window_first_checked']} and B1 {ms['blake2b']}; "
+        f"{snap['checked']} candidate cuts checked by window hash; manifest "
+        f"root == root_host of hashlib digests; on {card}")
+    cold, stale, crowd = snap["cold"], snap["stale"], snap["crowd"]
+    log(f"phase 14b: cold joiner over loopback (serve_tcp in a thread): "
+        f"byte-exact, {cold['gib_s']} GiB/s ({cold['seconds']} s, wire "
+        f"{cold['wire']}); on {card}")
+    log(f"phase 14b: stale joiner ({SNAP_STALE:.0%} of the chunks "
+        f"rewritten): byte-exact, {stale['seconds']} s, chunk bytes "
+        f"{stale['chunk_bytes']}, wire {stale['wire']} == snapshot_local's, "
+        f"{stale['reused']} chunks reused, {stale['symbols']} symbols in "
+        f"{stale['rounds']} rounds; wire over the cold joiner's "
+        f"{stale['ratio']}; on {card}")
+    log(f"phase 14b: flash crowd of {crowd['joiners']} cold joiners at once:"
+        f" each byte-exact; {crowd['served']} B of the cold log served == "
+        f"{crowd['joiners']} x {crowd['cold_log']}; B1 and B6 launched 0 "
+        f"times over the crowd; {crowd['gib_s']} GiB/s aggregate "
+        f"({crowd['seconds']} s); on {card}")
+    t = snap["torn"]
+    log(f"phase 14b: torn arm (socket cut at byte {t['cut_at']}, inside the"
+        f" first CHUNKS frame): one ProtocolError ({t['error']}) in "
+        f"{t['seconds']} s, no dataset")
+    p14 = {k: ae["launches"][k] + snap["launches"][k] for k in launches}
+    for name in ("blake2b", "gear_window_first_checked"):
+        if p14[name] == 0:
+            raise AssertionError(f"phase 14 never launched {name}")
+    grew = {what: {k: b[k] - a[k] for k in P14_KERNELS}
+            for what, a, b in (("cold joiner", m, snap["cold_launches"]),
+                               ("stale joiner", snap["cold_launches"],
+                                snap["launches"]))}
+    log(f"phase 14: launches 14a {ae['launches']}; 14b {snap['launches']}: "
+        f"materialize B1 {m['blake2b']}, B6 "
+        f"{m['gear_window_first_checked']}, then {grew}")
+    log(f"phase 14: {time.perf_counter() - t0:.2f} s")
+    del ae, snap
+
     for k in launches:
-        launches[k] += p10[k] + p11[k] + p12[k] + p13[k]
+        launches[k] += p10[k] + p11[k] + p12[k] + p13[k] + p14[k]
     for r in rows:
         r["launches"] += (p10[r["name"]] + p11[r["name"]] + p12[r["name"]]
-                          + p13[r["name"]])
+                          + p13[r["name"]] + p14[r["name"]])
     buckets = b1_buckets(session["launches"], side["launches"],
                          ent["launches"], cdc, streamed)
     buckets["reconcile"] = sum(p10["b1_blocks"].values())
     buckets["replay"] = sum(p11["b1_blocks"].values())
     buckets["mesh"] = sum(p12["b1_blocks"].values())
     buckets["telemetry"] = p13["blake2b"]
+    buckets["anti_entropy"] = p14["blake2b"]
     if sum(buckets.values()) != launches["blake2b"]:
         raise AssertionError(f"B1's launches by bucket {buckets} do not sum "
                              f"to its {launches['blake2b']} launches")

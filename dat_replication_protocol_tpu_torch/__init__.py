@@ -25,6 +25,12 @@ with ``protocol.encode(peer_caps=CAP_CHANGE_BATCH)`` or told later by
 either framing to columns, and ``batch.leaves_from_columns`` hashes them
 to Merkle leaves on B1.
 
+Two replicas converge over a socket with the anti-entropy drivers
+(``runtime.reconcile_driver``: rateless reconciliation of change logs;
+``runtime.snapshot_driver``: content-addressed bootstrap of a dataset),
+served by ``python -m dat_replication_protocol_tpu_torch.sidecar --tcp
+HOST:PORT --reconcile LOG`` or ``--snapshot DATA``.
+
 Content addressing (dat's chunked dedup exchange)::
 
     s = protocol.content_address(blob)            # cuts, digests, root
@@ -39,8 +45,8 @@ from .runtime.content import (content_address, content_digests, delta,
                               reassemble)
 from .session import (BatchPolicy, BlobLengthError, BlobReader, BlobWriter,
                       Decoder, Encoder, Pipe, pipe)
-from .wire import (CAP_CHANGE_BATCH, Change, ProtocolError, decode_change,
-                   encode_change)
+from .wire import (CAP_CHANGE_BATCH, CAP_RECONCILE, CAP_SNAPSHOT, Change,
+                   ProtocolError, decode_change, encode_change)
 
 __version__ = "0.1.0"
 
@@ -72,7 +78,7 @@ def decode(backend: str = "host", device="cuda", **kwargs) -> Decoder:
 
 
 __all__ = ["BatchPolicy", "BlobLengthError", "BlobReader", "BlobWriter",
-           "CAP_CHANGE_BATCH", "Change",
+           "CAP_CHANGE_BATCH", "CAP_RECONCILE", "CAP_SNAPSHOT", "Change",
            "Decoder", "Encoder", "Pipe", "ProtocolError", "chunk_stream",
            "content_address", "content_digests", "decode", "decode_change",
            "delta", "encode", "encode_change", "pipe", "reassemble"]

@@ -19,6 +19,12 @@ parser, header -> (change | blob payload) -> header ...
   ``CAP_CHANGE_BATCH``) deliver whole columns to a :meth:`change_batch`
   handler with one ``done``, or row by row to the :meth:`change`
   handler, the stream a per-record peer would give.
+* Negotiated ``TYPE_RECONCILE`` and ``TYPE_SNAPSHOT`` frames are decoded
+  whole (``wire/reconcile_codec.py``, ``wire/snapshot_codec.py``) and
+  delivered with one ``done`` to the :meth:`reconcile` and
+  :meth:`snapshot` handlers; without a handler they are dropped.  A
+  structurally corrupt payload destroys the session with a
+  ProtocolError, as a corrupt Change does.
 
 Telemetry (behind :data:`..obs.metrics.OBS`): the reference's session
 counters, ``decoder.frame`` instants that tile the wire (offset,
@@ -27,7 +33,7 @@ wire_len, kind; ``rows`` on a batch frame), ``decoder.requeue`` and
 the recorder is armed.
 
 Only the streaming scanner is carried: the JAX package's native bulk
-index, reconcile/snapshot frames and checkpoints are not.
+index and checkpoints are not.
 Subclasses tap payloads through :meth:`_deliver_change`,
 :meth:`_note_change_batch` and the blob hooks
 (:meth:`_open_blob_if_ready`, :meth:`_note_blob_bytes`,
@@ -50,7 +56,7 @@ from ..obs.tracing import trace_instant as _trace_instant
 from ..wire.change_codec import Change, decode_change
 from ..wire.framing import (LOCAL_CAPS, MAX_HEADER_LEN, TYPE_BLOB,
                             TYPE_CHANGE, TYPE_CHANGE_BATCH, TYPE_HEADER,
-                            ProtocolError)
+                            TYPE_RECONCILE, TYPE_SNAPSHOT, ProtocolError)
 from ..wire.varint import decode_uvarint
 
 OnDone = Optional[Callable[[], None]]
@@ -64,6 +70,8 @@ _M_DEC_BLOB_BYTES = _counter("decoder.blob.bytes")
 _M_DEC_REQUEUES = _counter("decoder.requeues")
 _M_DEC_ERRORS = _counter("decoder.errors")
 _M_DEC_BATCH_FRAMES = _counter("decoder.batch.frames")
+_M_DEC_RC_FRAMES = _counter("decoder.reconcile.frames")
+_M_DEC_SN_FRAMES = _counter("decoder.snapshot.frames")
 # bytes a batch frame saved against the same rows per record
 _M_BATCH_SAVED_RX = _counter("wire.batch.bytes_saved_rx")
 _H_DEC_DISPATCH = _histogram("decoder.dispatch.seconds")
@@ -211,6 +219,11 @@ class Decoder:
         self.finished = False
         self._on_change: Callable[[Change, Callable[[], None]], None] | None = None
         self._on_change_batch = None  # whole-batch columnar handler
+        self._on_reconcile = None  # whole-frame reconcile messages
+        self._on_snapshot = None  # whole-frame snapshot messages
+        # negotiated control frames delivered (each ONE frame)
+        self.reconcile_frames = 0
+        self.snapshot_frames = 0
         self._on_blob: Callable[[BlobReader, Callable[[], None]], None] | None = None
         self._on_finalize: Callable[[Callable[[], None]], None] | None = None
         self._error_cbs: list[Callable[[Exception | None], None]] = []
@@ -252,6 +265,23 @@ class Decoder:
 
     def change(self, cb: Callable[[Change, Callable[[], None]], None]) -> "Decoder":
         self._on_change = cb
+        return self
+
+    def reconcile(self, cb) -> "Decoder":
+        """Register the reconcile-message handler: ``cb(msg, done)``
+        receives each ``TYPE_RECONCILE`` frame's decoded
+        :class:`~..wire.reconcile_codec.ReconcileMsg` and one ``done``
+        per frame.  Without a handler, reconcile frames are dropped, the
+        never-deadlock default of unhandled changes."""
+        self._on_reconcile = cb
+        return self
+
+    def snapshot(self, cb) -> "Decoder":
+        """Register the snapshot-message handler: ``cb(msg, done)``
+        receives each ``TYPE_SNAPSHOT`` frame's decoded
+        :class:`~..wire.snapshot_codec.SnapshotMsg` and one ``done`` per
+        frame.  Without a handler, snapshot frames are dropped."""
+        self._on_snapshot = cb
         return self
 
     def change_batch(self, cb) -> "Decoder":
@@ -370,15 +400,23 @@ class Decoder:
         for cb in list(self._drain_watchers):
             cb()
 
-    def _protocol_error(self, message: str) -> ProtocolError:
+    def _frames_delivered(self) -> int:
+        """Frames fully delivered, the frame index of structured errors.
+        Blobs count at open (a blob mid-payload is the frame being
+        parsed); a ChangeBatch is ONE frame, counted at full delivery; a
+        reconcile or snapshot frame counts once, at delivery."""
+        return (self.changes - self._batch_rows_seen
+                + self._batch_frames_done + self.blobs
+                + self.reconcile_frames + self.snapshot_frames
+                - (1 if self._current_blob is not None else 0))
+
+    def _protocol_error(self, message: str,
+                        cause: BaseException | None = None) -> ProtocolError:
         """The structured wire error, and the flight recorder's hook:
         every decoder-side wire error funnels through here, so an armed
         recorder dumps its bundle before ``destroy`` clears the state."""
-        # frames delivered: blobs count at open, a batch once when done
-        frames = (self.changes - self._batch_rows_seen
-                  + self._batch_frames_done + self.blobs
-                  - (1 if self._current_blob is not None else 0))
-        err = ProtocolError(message, frame=frames, offset=self.bytes)
+        err = ProtocolError(message, frame=self._frames_delivered(),
+                            offset=self.bytes, cause=cause)
         if _OBS.on:
             _M_DEC_ERRORS.inc()
             _emit("protocol.error", frame=err.frame, offset=err.offset,
@@ -479,6 +517,10 @@ class Decoder:
             return self._change_data(chunk)
         if self._state == TYPE_CHANGE_BATCH:
             return self._batch_data(chunk)
+        if self._state == TYPE_RECONCILE:
+            return self._sized_payload_data(chunk, self._finish_reconcile)
+        if self._state == TYPE_SNAPSHOT:
+            return self._sized_payload_data(chunk, self._finish_snapshot)
         return self._blob_data(chunk)
 
     def _scan_header(self, chunk: memoryview) -> memoryview | None:
@@ -506,8 +548,9 @@ class Decoder:
                 if type_id == TYPE_CHANGE:
                     self._state = TYPE_CHANGE
                     self._payload_parts = None
-                elif type_id == TYPE_CHANGE_BATCH:
-                    self._state = TYPE_CHANGE_BATCH
+                elif type_id in (TYPE_CHANGE_BATCH, TYPE_RECONCILE,
+                                 TYPE_SNAPSHOT):
+                    self._state = type_id
                     self._payload_parts = None
                 elif type_id == TYPE_BLOB:
                     self._state = TYPE_BLOB
@@ -693,6 +736,53 @@ class Decoder:
                 self._batch_frames_done += 1
             if _OBS.on and row > row0:
                 _M_DEC_CHANGES.inc(row - row0)
+
+    # -- reconcile and snapshot frames ----------------------------------------
+
+    def _finish_reconcile(self, payload) -> None:
+        """Decode one complete reconcile payload and dispatch it whole;
+        structural corruption (bad subtype or version, a torn symbol run,
+        trailing bytes) destroys the session with a ProtocolError, so a
+        torn frame never decodes into a wrong diff."""
+        from ..wire import reconcile_codec
+
+        self._finish_control(payload, reconcile_codec.decode_reconcile,
+                             "reconcile", _M_DEC_RC_FRAMES)
+
+    def _finish_snapshot(self, payload) -> None:
+        """Decode one complete snapshot payload and dispatch it whole
+        (a flipped chunk BODY is the joiner's per-chunk digest check's
+        to catch)."""
+        from ..wire import snapshot_codec
+
+        self._finish_control(payload, snapshot_codec.decode_snapshot,
+                             "snapshot", _M_DEC_SN_FRAMES)
+
+    def _finish_control(self, payload, decode, kind: str, frames) -> None:
+        try:
+            msg = decode(payload)
+        except ValueError as e:
+            self.destroy(self._protocol_error(str(e), cause=e))
+            return
+        if _OBS.on:
+            frames.inc()
+            _trace_instant("decoder.frame", offset=self._frame_start,
+                           kind=kind,
+                           wire_len=self._frame_end - self._frame_start)
+        self._state = TYPE_HEADER
+        # delivery consumes the frame BEFORE the handler can raise: a
+        # caught raise-then-resume re-enters at the next frame
+        if kind == "reconcile":
+            self.reconcile_frames += 1
+            handler = self._on_reconcile
+        else:
+            self.snapshot_frames += 1
+            handler = self._on_snapshot
+        if handler is not None:
+            ack = _FastAck(self)
+            handler(msg, ack)
+            ack.arm()
+        # default: drop, as unhandled changes are
 
     def _open_blob_if_ready(self) -> None:
         """Create the reader and invoke the app handler.

@@ -24,7 +24,12 @@ A trimmed copy of ``dat_replication_protocol_tpu/session/encoder.py``
 Telemetry (behind :data:`..obs.metrics.OBS`): the reference's session
 counters and ``encoder.frame`` instants that tile the wire; a corked
 blob is tagged when it uncorks, where its true offset is known.
-Journals and the reconcile/snapshot frames are not carried.
+Journals are not carried.
+* Negotiated control frames: :meth:`Encoder.reconcile_frame` and
+  :meth:`Encoder.snapshot_frame` frame one message of the anti-entropy
+  protocols (``wire/reconcile_codec.py``, ``wire/snapshot_codec.py``),
+  and raise unless the peer advertised ``CAP_RECONCILE`` or
+  ``CAP_SNAPSHOT``.
 """
 
 from __future__ import annotations
@@ -39,8 +44,9 @@ from ..obs.metrics import counter as _counter
 from ..obs.metrics import histogram as _histogram
 from ..obs.tracing import trace_instant as _trace_instant
 from ..wire.change_codec import Change, _check_uint32, encode_change
-from ..wire.framing import CAP_CHANGE_BATCH, TYPE_BLOB, TYPE_CHANGE, \
-    TYPE_CHANGE_BATCH, frame_header
+from ..wire.framing import CAP_CHANGE_BATCH, CAP_RECONCILE, CAP_SNAPSHOT, \
+    TYPE_BLOB, TYPE_CHANGE, TYPE_CHANGE_BATCH, TYPE_RECONCILE, \
+    TYPE_SNAPSHOT, frame_header
 
 OnDone = Optional[Callable[[], None]]
 
@@ -58,6 +64,10 @@ _H_ENC_PARK = _histogram("encoder.park.seconds")
 _M_BATCH_FRAMES = _counter("wire.batch.frames")
 _M_BATCH_ROWS = _counter("wire.batch.rows")
 _M_BATCH_SAVED = _counter("wire.batch.bytes_saved")
+_M_RC_FRAMES = _counter("reconcile.frames")
+_M_RC_WIRE = _counter("reconcile.wire_bytes")
+_M_SN_FRAMES = _counter("snapshot.frames")
+_M_SN_WIRE = _counter("snapshot.wire_bytes")
 
 
 @dataclasses.dataclass
@@ -493,6 +503,51 @@ class Encoder:
                            wire_len=len(header) + len(payload))
         self._push(header, None)
         return self._push(payload, on_flush)
+
+    def _control_frame(self, payload, on_flush: OnDone, what: str,
+                       cap: int, cap_name: str, type_id: int,
+                       frames, wire) -> bool:
+        """Frame one negotiated control message.  Raises unless the peer
+        advertised ``cap``, so an encoder never told anything emits the
+        reference wire byte for byte; pending batch rows flush first
+        (frame order is submission order); an open blob is an API error,
+        since a control frame cannot park behind a streaming payload
+        without reordering the wire."""
+        if self.destroyed:
+            raise EncoderDestroyedError(f"{what}_frame after destroy")
+        if self.finalized:
+            raise EncoderDestroyedError(f"{what}_frame after finalize")
+        if not (self.peer_caps & cap):
+            raise ValueError(
+                f"peer did not advertise {cap_name}; {what} frames "
+                "cannot be emitted to it (WIRE.md capability negotiation)"
+            )
+        if self._open_blobs:
+            raise ValueError(f"{what}_frame with a blob open is unsupported")
+        if self._batch_rows:
+            self.flush_batch()
+        payload = bytes(payload)
+        header = frame_header(len(payload), type_id)
+        if _OBS.on:
+            frames.inc()
+            wire.inc(len(header) + len(payload))
+            _trace_instant("encoder.frame", offset=self.bytes, kind=what,
+                           wire_len=len(header) + len(payload))
+        return self._push(header + payload, on_flush)
+
+    def reconcile_frame(self, payload, on_flush: OnDone = None) -> bool:
+        """Frame one reconcile protocol message (``TYPE_RECONCILE``;
+        payload built by :mod:`..wire.reconcile_codec`)."""
+        return self._control_frame(payload, on_flush, "reconcile",
+                                   CAP_RECONCILE, "CAP_RECONCILE",
+                                   TYPE_RECONCILE, _M_RC_FRAMES, _M_RC_WIRE)
+
+    def snapshot_frame(self, payload, on_flush: OnDone = None) -> bool:
+        """Frame one snapshot protocol message (``TYPE_SNAPSHOT``;
+        payload built by :mod:`..wire.snapshot_codec`)."""
+        return self._control_frame(payload, on_flush, "snapshot",
+                                   CAP_SNAPSHOT, "CAP_SNAPSHOT",
+                                   TYPE_SNAPSHOT, _M_SN_FRAMES, _M_SN_WIRE)
 
     def blob(self, length: int, on_flush: OnDone = None) -> BlobWriter:
         """Open a streamed blob of exactly ``length`` bytes."""

@@ -12,7 +12,10 @@ summary.  Reconciliation state crosses the same way: a sketch table
 a whole ``LogSummary`` built on them.  Replayed change records cross as
 a dict of a ``ChangeColumns``' numpy arrays (the log buffer and its
 columns), so either package's replay can be held field by field against
-the other's.
+the other's.  The anti-entropy drivers' state crosses without being
+recomputed: a reconcile replica as its columns and canonical digests,
+a snapshot source as its dataset, chunk cuts and chunk digests, so the
+port's responder can serve exactly the JAX side's state.
 """
 
 from __future__ import annotations
@@ -128,3 +131,36 @@ def columns_to_numpy(cols) -> dict:
     in its field's dtype."""
     return {name: np.asarray(getattr(cols, name), dtype=dt)
             for name, dt in _COLUMNS}
+
+
+def replica_from_numpy(columns, digests, rows=None, device="cuda"):
+    """A reconcile replica's state (change columns, as either package's
+    ``ChangeColumns`` or a dict of their arrays, and its canonical
+    record digests as (n, 32) ``uint8``) -> the port's
+    ``RatelessReplica`` on ``device``, with no record hashed again.
+    ``digests`` is one per row, or, with ``rows``, the deduplicated
+    element set and each element's log row (the JAX replica's
+    ``digests`` and ``_digest_rows``)."""
+    from .runtime.reconcile_driver import RatelessReplica
+
+    if not isinstance(columns, dict):
+        columns = columns_to_numpy(columns)
+    return RatelessReplica.from_digests(columns_from_numpy(columns),
+                                        digests, rows=rows, device=device)
+
+
+def snapshot_source_from_numpy(data, cuts, digests, wire_offset: int = 0,
+                               avg_bits: int = 13,
+                               min_size: int | None = None,
+                               max_size: int | None = None, device="cuda"):
+    """A snapshot source's state (the dataset bytes, its chunk end
+    offsets and the (nchunks, 32) ``uint8`` chunk digests, as the JAX
+    ``SnapshotSource`` holds them in ``offs + lens`` and ``digests``) ->
+    the port's ``SnapshotSource``, with nothing chunked or hashed
+    again."""
+    from .runtime.snapshot_driver import SnapshotSource
+
+    return SnapshotSource.from_digests(
+        data, [int(c) for c in cuts], digests, avg_bits=avg_bits,
+        min_size=min_size, max_size=max_size, wire_offset=int(wire_offset),
+        device=device)

@@ -31,7 +31,12 @@ from dat_replication_protocol_tpu_torch.ops import (
     rateless,
     reconcile,
 )
+from dat_replication_protocol_tpu_torch import weights
 from dat_replication_protocol_tpu_torch.parallel import mesh as pmesh
+from dat_replication_protocol_tpu_torch.runtime import (
+    reconcile_driver,
+    snapshot_driver,
+)
 from dat_replication_protocol_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
@@ -182,13 +187,20 @@ def _no_card():
     lambda: blake2b.Blake2bStream(),
     lambda: pmesh.make_mesh(),
     lambda: pmesh.make_mesh(1),
+    lambda: reconcile_driver.RatelessReplica(b""),
+    lambda: snapshot_driver.SnapshotSource(b"abc"),
+    lambda: snapshot_driver.SnapshotJoiner(),
+    lambda: snapshot_driver.snapshot_local(b"abc"),
+    lambda: weights.snapshot_source_from_numpy(b"abc", [3],
+                                               np.zeros((1, 32), np.uint8)),
 ], ids=["decode", "encode", "pipeline", "resolve", "resolve-index",
         "content-address", "content-digests", "chunk-stream", "diff-leaves",
         "log-summary", "log-summary-empty", "coded-symbols", "peel-decoder",
         "weighted-symbols", "build-symbols", "leaves-frames",
         "leaves-rows", "leaves-canonical", "decode-batch-device",
         "encode-negotiated", "initial-state", "blake2b-stream", "make-mesh",
-        "make-mesh-1"])
+        "make-mesh-1", "rateless-replica", "snapshot-source",
+        "snapshot-joiner", "snapshot-local", "snapshot-source-weights"])
 def test_cuda_without_a_card_raises(make):
     _no_card()
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -288,3 +300,56 @@ def test_chip_smoke_fails_without_card_or_repo(alone, tmp_path):
                          text=True, timeout=300, cwd=cwd, env=env)
     assert out.returncode != 0
     assert out.stdout == ""
+
+
+def test_anti_entropy_modules_are_in_the_scan():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"wire/reconcile_codec.py", "wire/snapshot_codec.py",
+            "session/transport.py", "session/pump.py",
+            "session/reconnect.py", "session/resume.py",
+            "obs/watermarks.py", "fanout/__init__.py", "fanout/log.py",
+            "runtime/reconcile_driver.py", "runtime/snapshot_driver.py",
+            "sidecar.py", "weights.py"} <= names
+
+
+def test_anti_entropy_sessions_load_no_jax_package_module():
+    code = (
+        "import socket, sys, threading\n"
+        "import numpy as np\n"
+        "from dat_replication_protocol_tpu_torch import sidecar, weights\n"
+        "from dat_replication_protocol_tpu_torch.fanout import BroadcastLog\n"
+        "from dat_replication_protocol_tpu_torch.obs.watermarks import (\n"
+        "    WATERMARKS)\n"
+        "from dat_replication_protocol_tpu_torch.runtime import (\n"
+        "    reconcile_driver as rd, replay, snapshot_driver as sd)\n"
+        "recs = [{'key': 'k%d' % i, 'change': i, 'from': 0, 'to': 1}\n"
+        "        for i in range(40)]\n"
+        "a = rd.RatelessReplica(recs[:38], device='cpu')\n"
+        "b = rd.RatelessReplica(recs[2:], device='cpu')\n"
+        "assert len(rd.reconcile_local(a, b)['a_rows']) == 2\n"
+        "data = np.random.default_rng(0).integers(0, 256, 50000,\n"
+        "                                         dtype=np.uint8)\n"
+        "src = sd.SnapshotSource(data, device='cpu')\n"
+        "ready = threading.Event()\n"
+        "port = []\n"
+        "t = threading.Thread(target=sidecar.serve_tcp, daemon=True,\n"
+        "    args=('127.0.0.1', 0), kwargs={'max_sessions': 1,\n"
+        "    'snapshot_source': src, 'device': 'cpu',\n"
+        "    'ready_cb': lambda p: (port.append(p), ready.set())})\n"
+        "t.start()\n"
+        "assert ready.wait(30)\n"
+        "s = socket.create_connection(('127.0.0.1', port[0]), timeout=30)\n"
+        "res = sd.run_snapshot_joiner(s.recv, s.sendall,\n"
+        "    lambda: s.shutdown(socket.SHUT_WR), device='cpu')\n"
+        "assert res['data'] == data.tobytes()\n"
+        "s.close()\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] == 'dat_replication_protocol_tpu')\n"
+        "print(loaded)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
