@@ -188,12 +188,39 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    crowd of 4 cold joiners at once (bench.py's 8, cut for time; B1 and
    B6 not launched over it, the cold log served 4 times) and a joiner torn inside a CHUNKS frame (one
    ``ProtocolError`` within 30 s), each assembled dataset byte-exact.
+15. the replication hub.  15a (bench.py config 9, uncut): 16 sessions of
+   16,384 change rows and one 2 MiB blob each on one
+   ``ReplicationHub(device="cuda")`` with config 9's settings, all
+   started together, every digest held against ``hashlib`` in its
+   session's order; aggregate GiB/s and fairness (the slowest session's
+   GiB/s over the median's) with the gate off, then once more with it on
+   for the ``hub.*`` counters and the dispatcher's turn latency.  15b
+   (config 13's hub arm, uncut): ``python -m
+   dat_replication_protocol_tpu_torch.sidecar --tcp 127.0.0.1:0 --hub
+   --stats-fd FD`` in a subprocess serves 1, 4 and 16 concurrent clients
+   of an 8 MiB wire (a change run of ~1.5% of it, then 1 MiB blobs), each
+   reply held against ``hashlib``, every stats line parsed and its hub
+   breakdown checked against the live connections, the wire cost ledger
+   tiling every connection; the same clients on a sidecar without
+   ``--stats-fd`` (telemetry off), each reply held against ``hashlib``
+   and timed; then a ``--hub-max-sessions 2`` sidecar
+   holding two clients halfway: a third must read EOF and be logged
+   ``rejected``, the two finish byte-exact.  15c: a ``nowait`` session
+   that never polls floods 1 MiB blobs past a 64 MiB parked budget while
+   three neighbours run whole sessions: one ``SessionShed
+   ("parked-budget")`` for it, one ``hub.shed`` event naming it,
+   ``hub.completions.dropped`` equal to its items in the pipeline at the
+   shed.  15d: the hub on ``make_mesh()`` over a one-rank ``nccl`` group,
+   four of 15a's sessions, every batch through ``sharded_hash_begin``.
+   B1's launches of 15a, 15c and 15d form the ``hub`` bucket; 15b's are
+   the subprocess's, read from its kernel sentinel.
 
 Every launch counter (B1's per variant and per block count, and its
 chained entry's per variant, too) is set to 0 just before each main-path
 phase (3, 4, 7, 8, 10, 11, 12a's stream, 12b's mesh calls, 13's gated
 runs; in 14a the replicas and both clean arms, in 14b materialize and
-the cold and stale joiners, then the crowd) and read just after; a
+the cold and stale joiners, then the crowd; 15a, 15c, 15d) and read just
+after; a
 kernel or B1 variant that the phases did not launch fails the run.
 The lines before the last carry the card, the per-kernel JSON and the
 times; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -2641,32 +2668,47 @@ def mesh_pass(mesh, device, mesh_in: dict) -> dict:
     return out
 
 
-def run_mesh(device, mesh_in: dict) -> dict:
-    """Phase 12b's main path: :func:`mesh_pass` over a one-rank ``nccl``
-    group on a ``FileStore`` in a temp dir, its bootstrap socket on the
-    loopback interface."""
-    import datetime
-    import os
-    import tempfile
+class one_rank_group:
+    """A one-rank ``nccl`` process group on a ``FileStore`` in a temp
+    dir, its bootstrap socket on the loopback interface, for the length
+    of a ``with``; ``init_s`` is its set-up time."""
 
-    import torch
-    import torch.distributed as dist
+    def __init__(self, device):
+        self.device = device
 
-    from dat_replication_protocol_tpu_torch.parallel import make_mesh
+    def __enter__(self) -> "one_rank_group":
+        import datetime
+        import tempfile
 
-    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    with tempfile.TemporaryDirectory() as tmp:
+        import torch
+        import torch.distributed as dist
+
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        self._tmp = tempfile.TemporaryDirectory()
         t0 = time.perf_counter()
-        store = dist.FileStore(f"{tmp}/store", 1)
+        store = dist.FileStore(f"{self._tmp.name}/store", 1)
         dist.init_process_group("nccl", store=store, rank=0, world_size=1,
                                 timeout=datetime.timedelta(seconds=300),
-                                device_id=torch.device(device, 0))
-        init_s = time.perf_counter() - t0
+                                device_id=torch.device(self.device, 0))
+        self.init_s = time.perf_counter() - t0
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import torch.distributed as dist
+
         try:
-            out = mesh_pass(make_mesh(1, device=device), device, mesh_in)
-        finally:
             dist.destroy_process_group()
-    out["init_s"] = init_s
+        finally:
+            self._tmp.cleanup()
+
+
+def run_mesh(device, mesh_in: dict) -> dict:
+    """Phase 12b's main path: :func:`mesh_pass` over a one-rank group."""
+    from dat_replication_protocol_tpu_torch.parallel import make_mesh
+
+    with one_rank_group(device) as group:
+        out = mesh_pass(make_mesh(1, device=device), device, mesh_in)
+    out["init_s"] = group.init_s
     return out
 
 
@@ -3011,7 +3053,7 @@ class Sidecar:
     subprocess, as users start it, with its stderr lines collected and its
     port read from the ``listening on`` line."""
 
-    def __init__(self, args: list[str]):
+    def __init__(self, args: list[str], pass_fds=()):
         import threading
 
         root = os.path.dirname(os.path.abspath(__file__))
@@ -3019,7 +3061,7 @@ class Sidecar:
             [sys.executable, "-m", "dat_replication_protocol_tpu_torch.sidecar",
              *args], cwd=root, stdin=subprocess.DEVNULL,
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
-            env={**os.environ, "PYTHONPATH": root})
+            env={**os.environ, "PYTHONPATH": root}, pass_fds=pass_fds)
         self.lines: list[str] = []
         self.cond = threading.Condition()
         self.reader = threading.Thread(target=self._read, daemon=True)
@@ -3050,8 +3092,13 @@ class Sidecar:
                         f"{self.lines[-20:]}")
                 self.cond.wait(min(left, 1.0))
 
-    def close(self) -> None:
-        self.proc.terminate()
+    def close(self, sig=None) -> None:
+        """Stop the sidecar: SIGTERM, or ``sig`` (SIGINT runs its
+        shutdown: the hub closes and the last stats record is written)."""
+        if sig is None:
+            self.proc.terminate()
+        else:
+            self.proc.send_signal(sig)
         try:
             self.proc.wait(10)
         except subprocess.TimeoutExpired:
@@ -3508,6 +3555,558 @@ def run_anti_entropy_snapshot(device, nbytes=SNAP_BYTES, crowd=SNAP_CROWD,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the replication hub
+# ---------------------------------------------------------------------------
+
+# 15a: bench.py config 9 at its full shape (bench_hub_soak, not quick)
+HUB_SESSIONS = 16
+HUB_ROWS = 16_384
+HUB_BLOB = 2 * MIB
+HUB_STEP = 1 << 18  # config 9 writes 256 KiB at a time
+HUB_SOAK = {"linger_s": 0.002, "window_items": 1 << 16,
+            "window_bytes": 64 << 20, "parked_budget": 1 << 30}
+# 15b: bench.py config 13's hub arm: 1, 4 and 16 concurrent sessions of an
+# 8 MiB wire each (max(4, 64 // 8) MiB), ~1.5% of it a change run
+HUB_COUNTS = (1, 4, 16)
+HUB_WIRE_MIB = 8
+HUB_STATS_S = 0.5
+# 15c: the shedding arm's budget and the offender's blob
+HUB_SHED_BUDGET = 64 * MIB
+HUB_SHED_BLOB = MIB
+# 15d: sessions on the one-rank mesh
+HUB_MESH_SESSIONS = 4
+
+
+def wire_of(enc) -> bytes:
+    out = bytearray()
+    while (chunk := enc.read(MIB)) is not None:
+        out += chunk
+    return bytes(out)
+
+
+def wire_digests(wire: bytes) -> list:
+    """``(kind, seq, digest)`` of every change and blob frame of a wire in
+    order, by ``hashlib``: what a digest session owes for it."""
+    from dat_replication_protocol_tpu_torch.wire.framing import (
+        TYPE_BLOB, TYPE_CHANGE, iter_frames)
+
+    out, seqs = [], {"change": 0, "blob": 0}
+    mv = memoryview(wire)
+    for _s, tid, p0, end in iter_frames(wire):
+        kind = {TYPE_CHANGE: "change", TYPE_BLOB: "blob"}[tid]
+        out.append((kind, seqs[kind], blake(mv[p0:end])))
+        seqs[kind] += 1
+    return out
+
+
+def hub_soak_wires(n: int = HUB_SESSIONS) -> list:
+    """Config 9's per-session wires: a per-record change run of 64-byte
+    values, then one blob (seeded bytes, so each session's differ)."""
+    import dat_replication_protocol_tpu_torch as protocol
+
+    rng = np.random.default_rng(SEED + 150)
+    wires = []
+    for i in range(n):
+        e = protocol.encode()
+        e.change_many([{"key": f"s{i}-{j:06d}", "change": j, "from": j,
+                        "to": j + 1, "value": b"v" * 64}
+                       for j in range(HUB_ROWS)])
+        e.blob(HUB_BLOB).end(rng.bytes(HUB_BLOB))
+        e.finalize()
+        wires.append(wire_of(e))
+    return wires
+
+
+def drive_hub(hub, wires: list, want: list, what: str,
+              start=None) -> dict:
+    """One digest session a wire on ``hub``, registered first, then all
+    started together, each on its own thread (``start()`` runs between);
+    every session's digests must be ``want``'s, in its own order.
+    Returns the wall time and each session's seconds."""
+    import threading
+
+    import dat_replication_protocol_tpu_torch as protocol
+
+    n = len(wires)
+    done: list = [None] * n
+    errors: list = []
+    gate = threading.Event()
+    sessions = [hub.register(f"s{i}") for i in range(n)]
+
+    def run_one(i: int) -> None:
+        try:
+            gate.wait(60)
+            t0 = time.perf_counter()
+            s = sessions[i]
+            dec = protocol.decode(backend="cuda", pipeline=s)
+            got: list = []
+            dec.on_digest(lambda kind, seq, d: got.append((kind, seq, d)))
+            wire = wires[i]
+            for off in range(0, len(wire), HUB_STEP):
+                dec.write(wire[off:off + HUB_STEP])
+            dec.end()
+            if not dec.finished or dec.destroyed:
+                raise AssertionError("the session did not finish")
+            s.close()
+            done[i] = (time.perf_counter() - t0, got)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(f"session {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run_one, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    if start is not None:
+        start()
+    t0 = time.perf_counter()
+    gate.set()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors or any(d is None for d in done):
+        raise AssertionError(f"{what}: {errors or 'a session hung'}")
+    for i in range(n):
+        if done[i][1] != want[i]:
+            raise AssertionError(f"{what}: session {i}'s digests differ from "
+                                 f"hashlib's or from its own order")
+    return {"seconds": wall, "session_s": [d[0] for d in done],
+            "digests": sum(len(d[1]) for d in done)}
+
+
+def run_hub_soak(device, wires: list, want: list) -> dict:
+    """15a: config 9 on one card's hub, the gate off (the measurement),
+    then again with it on for the hub.* counters."""
+    from dat_replication_protocol_tpu_torch import obs
+    from dat_replication_protocol_tpu_torch.hub import ReplicationHub
+
+    n = len(wires)
+    total = sum(len(w) for w in wires)
+    runs = []
+    for gated in (False, True):
+        if gated:
+            obs_reset()
+            obs.enable()
+        hub = ReplicationHub(device=device, max_sessions=n + 1, **HUB_SOAK)
+        try:
+            r = drive_hub(hub, wires, want, "phase 15a")
+            r["dispatches"] = hub._pipeline.dispatches
+        finally:
+            hub.close()
+            if gated:
+                snap = obs.snapshot()
+                counters = snap["counters"]
+                lat = snap["histograms"]["hub.dispatch.latency"]
+                obs.disable()
+        per = sorted(len(wires[i]) / r["session_s"][i] for i in range(n))
+        r["gib_s"] = total / r["seconds"] / (1 << 30)
+        r["fairness"] = per[0] / per[n // 2]
+        r["session_gib_s"] = (per[0] / (1 << 30), per[n // 2] / (1 << 30))
+        runs.append(r)
+    hub_counters = {k: counters[k] for k in (
+        "hub.admitted", "hub.dispatch.batches", "hub.dispatch.items",
+        "hub.dispatch.bytes", "hub.shed", "hub.rejected")}
+    if hub_counters["hub.dispatch.items"] != runs[1]["digests"]:
+        raise AssertionError(f"phase 15a: hub.dispatch.items "
+                             f"{hub_counters} != {runs[1]['digests']} digests")
+    if hub_counters["hub.dispatch.batches"] != runs[1]["dispatches"]:
+        raise AssertionError(f"phase 15a: hub.dispatch.batches "
+                             f"{hub_counters} != the pipeline's "
+                             f"{runs[1]['dispatches']} dispatches")
+    # the dispatcher's turns: the sum over the run's wall time is the
+    # share of the run the dispatcher spent in turns
+    turns = {"count": lat["count"], "sum_s": lat["sum"], "p50_s": lat["p50"],
+             "p99_s": lat["p99"], "share": lat["sum"] / runs[1]["seconds"]}
+    return {"runs": runs, "bytes": total, "counters": hub_counters,
+            "turns": turns}
+
+
+def hub_client_wire(seed: int, mib: int = HUB_WIRE_MIB) -> bytes:
+    """Config 13's session wire: a change run of ~1.5% of the bytes (64-byte
+    values, ~89 wire bytes a row), then 1 MiB blobs of seeded bytes."""
+    import dat_replication_protocol_tpu_torch as protocol
+
+    rng = np.random.default_rng(SEED + 160 + seed)
+    rows = (mib << 20) // 64 // 89
+    e = protocol.encode()
+    e.change_many([{"key": f"s{seed}-{j:07d}", "change": j, "from": j,
+                    "to": j + 1, "value": b"v" * 64} for j in range(rows)])
+    for _ in range(max(1, mib - mib // 64)):
+        e.blob(MIB).end(rng.bytes(MIB))
+    e.finalize()
+    return wire_of(e)
+
+
+class StatsReader:
+    """The ``--stats-fd`` pipe of a sidecar, read on a thread: every line
+    must parse as one JSON object."""
+
+    def __init__(self):
+        import threading
+
+        self.r, self.w = os.pipe()
+        self.records: list = []
+        self.errors: list = []
+        self.cond = threading.Condition()
+        self.thread = threading.Thread(target=self._read, daemon=True)
+
+    def start(self) -> "StatsReader":
+        os.close(self.w)  # the sidecar holds the write end
+        self.thread.start()
+        return self
+
+    def _read(self) -> None:
+        buf = b""
+        while chunk := os.read(self.r, 1 << 20):
+            buf += chunk
+            *lines, buf = buf.split(b"\n")
+            for line in lines:
+                try:
+                    rec = json.loads(line)
+                except ValueError as e:
+                    self.errors.append(f"{e}: {line[:200]!r}")
+                    continue
+                with self.cond:
+                    self.records.append(rec)
+                    self.cond.notify_all()
+        if buf:
+            self.errors.append(f"a torn last line {buf[:200]!r}")
+        with self.cond:
+            self.cond.notify_all()
+
+    def wait_for(self, ok, timeout: float, after: int = 0) -> dict:
+        deadline = time.monotonic() + timeout
+        with self.cond:
+            while True:
+                for rec in self.records[after:]:
+                    if ok(rec):
+                        return rec
+                left = deadline - time.monotonic()
+                if left <= 0 or not self.thread.is_alive():
+                    raise AssertionError(
+                        f"no stats record as wanted in {timeout} s")
+                self.cond.wait(min(left, 1.0))
+
+    def close(self) -> None:
+        self.thread.join(30)
+        os.close(self.r)
+
+
+def hub_clients(port: int, wires: list, hold=None) -> dict:
+    """One TCP client a wire, all at once: each sends its wire (a sender
+    thread) and reads its reply to EOF; the reply's digests must be
+    ``hashlib``'s of the wire's payloads, in order.  ``hold`` (an Event)
+    makes every client stop halfway until it is set."""
+    import socket
+    import threading
+
+    n = len(wires)
+    replies: list = [None] * n
+    errors: list = []
+    ports: list = [None] * n
+    started = threading.Barrier(n + 1)
+
+    def client(i: int) -> None:
+        try:
+            sock = _connect(port)
+            ports[i] = sock.getsockname()[1]
+            wire = wires[i]
+            half = len(wire) // 2 if hold is not None else len(wire)
+
+            def send() -> None:
+                sock.sendall(wire[:half])
+                if hold is not None:
+                    hold.wait(120)
+                    sock.sendall(wire[half:])
+                sock.shutdown(socket.SHUT_WR)
+
+            sender = threading.Thread(target=send, daemon=True)
+            started.wait(60)
+            sender.start()
+            reply = bytearray()
+            while chunk := sock.recv(1 << 20):
+                reply += chunk
+            sender.join(120)
+            sock.close()
+            replies[i] = bytes(reply)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    started.wait(60)
+    t0 = time.perf_counter()
+    if hold is not None:
+        return {"threads": threads, "t0": t0, "replies": replies,
+                "errors": errors, "ports": ports}
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    return {"seconds": wall, "replies": replies, "errors": errors,
+            "ports": ports}
+
+
+def check_replies(out: dict, want: list, what: str) -> None:
+    import dat_replication_protocol_tpu_torch as protocol
+
+    if out["errors"] or any(r is None for r in out["replies"]):
+        raise AssertionError(f"{what}: {out['errors'] or 'a client hung'}")
+    for i, reply in enumerate(out["replies"]):
+        got = []
+        dec = protocol.decode()
+        dec.change(lambda c, done: (got.append(
+            (c.subset.split(":")[1], c.change, bytes(c.value))), done()))
+        dec.write(reply)
+        dec.end()
+        if not dec.finished or got != want[i]:
+            raise AssertionError(f"{what}: client {i}'s reply digests differ "
+                                 f"from hashlib's")
+
+
+def check_stats_lines(records: list, live: set, what: str) -> int:
+    """Every record of an arm: the hub's session count is its breakdown's
+    size, and each session it names is one of the arm's connections
+    (``c<n>:127.0.0.1:<client port>``)."""
+    named = 0
+    for rec in records:
+        sessions = rec.get("sessions", {})
+        if rec["hub"]["sessions"] != len(sessions):
+            raise AssertionError(f"{what}: hub {rec['hub']} vs sessions "
+                                 f"{sorted(sessions)}")
+        for key in sessions:
+            c, host, cport = key.split(":")
+            if not c.startswith("c") or host != "127.0.0.1" \
+                    or int(cport) not in live:
+                raise AssertionError(f"{what}: stats name {key!r}, not one "
+                                     f"of the arm's connections")
+        named += len(sessions)
+    return named
+
+
+def run_hub_sidecar(device) -> dict:
+    """15b: ``--tcp --hub --stats-fd`` in a subprocess at 1, 4 and 16
+    concurrent clients, the same clients again on a ``--tcp --hub``
+    sidecar with telemetry off (``--stats-fd`` turns it on), then a
+    ``--hub-max-sessions 2`` sidecar with three."""
+    import signal
+    import threading
+
+    stats = StatsReader()
+    side = Sidecar(["--tcp", "127.0.0.1:0", "--hub", "--device", device,
+                    "--stats-fd", str(stats.w),
+                    "--stats-interval", str(HUB_STATS_S)],
+                   pass_fds=(stats.w,))
+    stats.start()
+    arms = {}
+    clients = {}
+    digests = 0
+    try:
+        seed = 0
+        for count in HUB_COUNTS:
+            wires = [hub_client_wire(seed + i) for i in range(count)]
+            seed += count
+            want = [wire_digests(w) for w in wires]
+            clients[count] = (wires, want)
+            digests += sum(len(w) for w in want)
+            first = len(stats.records)
+            out = hub_clients(side.port, wires)
+            check_replies(out, want, f"phase 15b, {count} clients")
+            # a record after the arm: its sessions are gone
+            stats.wait_for(lambda r: r["hub"]["sessions"] == 0, 30,
+                           after=len(stats.records))
+            named = check_stats_lines(stats.records[first:],
+                                      set(out["ports"]),
+                                      f"phase 15b, {count} clients")
+            total = sum(len(w) for w in wires)
+            arms[count] = {"gib_s": total / out["seconds"] / (1 << 30),
+                           "seconds": out["seconds"], "bytes": total,
+                           "records": len(stats.records) - first,
+                           "named": named}
+    finally:
+        side.close(signal.SIGINT)
+        stats.close()
+    if stats.errors:
+        raise AssertionError(f"phase 15b: stats lines {stats.errors[:3]}")
+    final = stats.records[-1]
+    counters = final["metrics"]["counters"]
+    b1 = final["jit_sites"].get("ops.blake2b_cuda.packed", {}).get("calls", 0)
+    if counters.get("hub.dispatch.items") != digests or b1 == 0:
+        raise AssertionError(f"phase 15b: the sidecar hashed "
+                             f"{counters.get('hub.dispatch.items')} items "
+                             f"(want {digests}) with {b1} B1 launches")
+    links = final.get("wirecost", {}).get("links", {})
+    residual = {k: v["residual_bytes"] for k, v in links.items()}
+    if len(links) != 2 * sum(HUB_COUNTS) or any(residual.values()):
+        raise AssertionError(f"phase 15b: wire cost links {residual}")
+    out = {"arms": arms, "b1_launches": b1, "records": len(stats.records),
+           "counters": {k: counters[k] for k in (
+               "hub.admitted", "hub.dispatch.batches", "hub.dispatch.items")},
+           "emit_seq": final["emit_seq"]}
+
+    # the same clients with telemetry off: the socket rate the gate costs
+    side = Sidecar(["--tcp", "127.0.0.1:0", "--hub", "--device", device])
+    out["arms_off"] = {}
+    try:
+        for count, (wires, want) in clients.items():
+            res = hub_clients(side.port, wires)
+            check_replies(res, want, f"phase 15b, gate off, {count} clients")
+            total = sum(len(w) for w in wires)
+            out["arms_off"][count] = {
+                "gib_s": total / res["seconds"] / (1 << 30),
+                "seconds": res["seconds"], "bytes": total}
+    finally:
+        side.close(signal.SIGINT)
+    del clients
+
+    # the rejected arm: two clients hold the hub's two slots halfway
+    stats = StatsReader()
+    side = Sidecar(["--tcp", "127.0.0.1:0", "--hub", "--device", device,
+                    "--hub-max-sessions", "2", "--stats-fd", str(stats.w),
+                    "--stats-interval", str(HUB_STATS_S)],
+                   pass_fds=(stats.w,))
+    stats.start()
+    try:
+        wires = [hub_client_wire(100 + i) for i in range(2)]
+        hold = threading.Event()
+        held = hub_clients(side.port, wires, hold=hold)
+        rec = stats.wait_for(lambda r: len(r.get("sessions", {})) == 2, 60)
+        if rec["healthz"]["stages"]["admission"]["open"]:
+            raise AssertionError("phase 15b: admission open at capacity")
+        t0 = time.perf_counter()
+        sock = _connect(side.port)  # the surplus client
+        eof = sock.recv(1 << 16)
+        surplus_s = time.perf_counter() - t0
+        sock.close()
+        line = side.wait_for("'rejected': True", 30)
+        hold.set()
+        for t in held["threads"]:
+            t.join(600)
+        check_replies(held, [wire_digests(w) for w in wires],
+                      "phase 15b, the held clients")
+        if eof != b"":
+            raise AssertionError(f"phase 15b: the surplus client read "
+                                 f"{len(eof)} B, not EOF")
+    finally:
+        side.close(signal.SIGINT)
+        stats.close()
+    out["rejected"] = {"record": line.split(" ", 2)[-1], "eof_s": surplus_s,
+                       "breakdown": sorted(rec["sessions"])}
+    return out
+
+
+def run_hub_shed(device) -> dict:
+    """15c: a nowait session that never polls submits 1 MiB blobs past a
+    64 MiB parked budget while three neighbours run whole sessions."""
+    import threading
+
+    from dat_replication_protocol_tpu_torch import obs
+    from dat_replication_protocol_tpu_torch.hub import (ReplicationHub,
+                                                        SessionShed)
+
+    class Hub(ReplicationHub):
+        """Records what the victim held in the pipeline when shed."""
+
+        def _shed_locked(self, st, reason):
+            self.at_shed = {"key": st.key, "out_items": st.out_items,
+                            "queued": st.q_items, "undelivered":
+                            st.comp_items}
+            super()._shed_locked(st, reason)
+
+    wires = [hub_client_wire(200 + i, mib=2) for i in range(3)]
+    want = [wire_digests(w) for w in wires]
+    blob = np.random.default_rng(SEED + 170).bytes(HUB_SHED_BLOB)
+    obs_reset()
+    obs.enable()
+    hub = Hub(device=device, parked_budget=HUB_SHED_BUDGET,
+              window_bytes=8 * MIB, linger_s=0.002)
+    try:
+        offender = hub.register("offender", nowait=True)
+        shed: list = []
+
+        def flood() -> None:
+            # paced, so that some blobs are hashed (their digests wait,
+            # never polled) and some are in the pipeline at the shed
+            try:
+                while True:
+                    offender.submit(blob, lambda d: None)
+                    time.sleep(0.002)
+            except SessionShed as e:
+                shed.append(e)
+
+        t = threading.Thread(target=flood, daemon=True)
+        t0 = time.perf_counter()
+        neighbours = drive_hub(hub, wires, want, "phase 15c's neighbours",
+                               start=t.start)
+        t.join(120)
+        seconds = time.perf_counter() - t0
+        if not shed:
+            raise AssertionError("phase 15c: the offender was never shed")
+        e = shed[0]
+        if (e.key, e.reason) != ("offender", "parked-budget") \
+                or hub.at_shed["key"] != "offender":
+            raise AssertionError(f"phase 15c: shed {e!r}, {hub.at_shed}")
+        events = [ev["fields"] for ev in obs.EVENTS.events("hub.shed")]
+        if [ev["key"] for ev in events] != ["offender"]:
+            raise AssertionError(f"phase 15c: hub.shed events {events}")
+        dropped = obs.REGISTRY.counter("hub.completions.dropped")
+        deadline = time.monotonic() + 30
+        while (dropped.value < hub.at_shed["out_items"]
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        if dropped.value != hub.at_shed["out_items"]:
+            raise AssertionError(f"phase 15c: {dropped.value} completions "
+                                 f"dropped, {hub.at_shed} in flight")
+        stats = offender.stats()
+        offender.close()
+        if hub.snapshot()["parked_bytes"] != 0:
+            raise AssertionError(f"phase 15c: {hub.snapshot()} after close")
+    finally:
+        hub.close()
+        obs.disable()
+    return {"shed": str(e), "parked_bytes": e.parked_bytes,
+            "event": events[0], "at_shed": hub.at_shed,
+            "dropped": dropped.value, "submitted": stats["submitted"],
+            "neighbours_s": neighbours["seconds"],
+            "neighbour_digests": neighbours["digests"], "seconds": seconds}
+
+
+def run_hub_mesh(device, wires: list, want: list) -> dict:
+    """15d: the hub on ``make_mesh()`` over a one-rank ``nccl`` group; every
+    batch must go through ``sharded_hash_begin``."""
+    from dat_replication_protocol_tpu_torch.hub import ReplicationHub
+    from dat_replication_protocol_tpu_torch.parallel import make_mesh
+    from dat_replication_protocol_tpu_torch.parallel import mesh as pmesh
+
+    calls = [0]
+    sharded = pmesh.sharded_hash_begin
+
+    def counted(mesh, payloads, *args, **kw):
+        calls[0] += 1
+        return sharded(mesh, payloads, *args, **kw)
+
+    pmesh.sharded_hash_begin = counted
+    try:
+        with one_rank_group(device) as group:
+            hub = ReplicationHub(mesh=make_mesh(device=device),
+                                 max_sessions=len(wires) + 1, **HUB_SOAK)
+            try:
+                r = drive_hub(hub, wires, want, "phase 15d")
+                dispatches = hub._pipeline.dispatches
+            finally:
+                hub.close()
+    finally:
+        pmesh.sharded_hash_begin = sharded
+    if calls[0] == 0 or calls[0] != dispatches:
+        raise AssertionError(f"phase 15d: {calls[0]} sharded_hash_begin "
+                             f"calls for {dispatches} dispatches")
+    total = sum(len(w) for w in wires)
+    return {"seconds": r["seconds"], "gib_s": total / r["seconds"] / (1 << 30),
+            "digests": r["digests"], "sharded_calls": calls[0],
+            "init_s": group.init_s}
+
+
 def main() -> int:
     import torch
 
@@ -3891,11 +4490,83 @@ def main() -> int:
     log(f"phase 14: {time.perf_counter() - t0:.2f} s")
     del ae, snap
 
+    t0 = time.perf_counter()
+    wires = hub_soak_wires()
+    want = [wire_digests(w) for w in wires]
+    log(f"phase 15a: {HUB_SESSIONS} session wires of {HUB_ROWS} change rows "
+        f"and one {HUB_BLOB} B blob (bench.py config 9, uncut), "
+        f"{sum(len(w) for w in wires)} B, and their hashlib digests in "
+        f"{time.perf_counter() - t0:.2f} s")
+    reset_counters()
+    soak = run_hub_soak(device, wires, want)
+    p15a = read_counters()
+    for i, r in enumerate(soak["runs"]):
+        log(f"phase 15a: hub soak, gate {('off', 'on')[i]}: "
+            f"{HUB_SESSIONS} sessions on one ReplicationHub(device='cuda', "
+            f"{HUB_SOAK}), every digest == hashlib in its session's order: "
+            f"{r['digests']} digests, {r['gib_s']} GiB/s aggregate "
+            f"({r['seconds']} s), fairness min/median {r['fairness']} "
+            f"(session GiB/s min, median {r['session_gib_s']}), "
+            f"{r['dispatches']} dispatches; on {card}")
+    log(f"phase 15a: B1 launches {p15a['blake2b']} (by block count "
+        f"{p15a['b1_blocks']}); counters of the gated run {soak['counters']}; "
+        f"its dispatch turns (hub.dispatch.latency) {soak['turns']}")
+    del soak
+    out = run_hub_sidecar(device)
+    for count, arm in out["arms"].items():
+        log(f"phase 15b: --tcp --hub --stats-fd sidecar (telemetry on), "
+            f"{count} concurrent client(s) of a {HUB_WIRE_MIB} MiB wire "
+            f"(bench.py config 13's hub arm): every reply == hashlib; "
+            f"{arm['gib_s']} GiB/s aggregate ({arm['seconds']} s, "
+            f"{arm['bytes']} B); {arm['records']} stats records parsed, "
+            f"{arm['named']} session entries, each a live connection; "
+            f"on {card}")
+    for count, arm in out["arms_off"].items():
+        log(f"phase 15b: --tcp --hub sidecar (telemetry off), {count} "
+            f"concurrent client(s), the same wires: every reply == hashlib; "
+            f"{arm['gib_s']} GiB/s aggregate ({arm['seconds']} s, "
+            f"{arm['bytes']} B); on {card}")
+    rej = out["rejected"]
+    log(f"phase 15b: the sidecar's kernel sentinel counted "
+        f"{out['b1_launches']} B1 launches; its counters {out['counters']}; "
+        f"{out['records']} stats records up to emit_seq {out['emit_seq']}, "
+        f"the wire cost ledger tiles every connection (residual 0)")
+    log(f"phase 15b: --hub-max-sessions 2 with 2 clients held in the hub "
+        f"(breakdown {rej['breakdown']}): the third read EOF in "
+        f"{rej['eof_s']} s and the sidecar logged {rej['record']}; the held "
+        f"clients' replies == hashlib")
+    reset_counters()
+    shed = run_hub_shed(device)
+    p15c = read_counters()
+    log(f"phase 15c: a never-polling nowait session flooding 1 MiB blobs "
+        f"past a {HUB_SHED_BUDGET} B parked budget: {shed['shed']}; one "
+        f"hub.shed event {shed['event']}; at the shed {shed['at_shed']}, "
+        f"hub.completions.dropped {shed['dropped']} == its in-flight items; "
+        f"{shed['submitted']} blobs submitted; 3 neighbours' "
+        f"{shed['neighbour_digests']} digests == hashlib in "
+        f"{shed['neighbours_s']} s; B1 launches {p15c['blake2b']}")
+    reset_counters()
+    mesh15 = run_hub_mesh(device, wires[:HUB_MESH_SESSIONS],
+                          want[:HUB_MESH_SESSIONS])
+    p15d = read_counters()
+    del wires, want
+    log(f"phase 15d: the hub on make_mesh() over a one-rank nccl group "
+        f"(set up in {mesh15['init_s']:.2f} s): {HUB_MESH_SESSIONS} "
+        f"sessions, {mesh15['digests']} digests == hashlib, "
+        f"{mesh15['sharded_calls']} sharded_hash_begin calls == the "
+        f"pipeline's dispatches, {mesh15['gib_s']} GiB/s aggregate "
+        f"({mesh15['seconds']} s); B1 launches {p15d['blake2b']}; on {card}")
+    p15 = {k: p15a[k] + p15c[k] + p15d[k] for k in launches}
+    for what, n in (("15a", p15a), ("15c", p15c), ("15d", p15d)):
+        if n["blake2b"] == 0:
+            raise AssertionError(f"phase {what} never launched B1")
+    log(f"phase 15: {time.perf_counter() - t0:.2f} s")
+
     for k in launches:
-        launches[k] += p10[k] + p11[k] + p12[k] + p13[k] + p14[k]
+        launches[k] += p10[k] + p11[k] + p12[k] + p13[k] + p14[k] + p15[k]
     for r in rows:
         r["launches"] += (p10[r["name"]] + p11[r["name"]] + p12[r["name"]]
-                          + p13[r["name"]] + p14[r["name"]])
+                          + p13[r["name"]] + p14[r["name"]] + p15[r["name"]])
     buckets = b1_buckets(session["launches"], side["launches"],
                          ent["launches"], cdc, streamed)
     buckets["reconcile"] = sum(p10["b1_blocks"].values())
@@ -3903,6 +4574,7 @@ def main() -> int:
     buckets["mesh"] = sum(p12["b1_blocks"].values())
     buckets["telemetry"] = p13["blake2b"]
     buckets["anti_entropy"] = p14["blake2b"]
+    buckets["hub"] = p15["blake2b"]
     if sum(buckets.values()) != launches["blake2b"]:
         raise AssertionError(f"B1's launches by bucket {buckets} do not sum "
                              f"to its {launches['blake2b']} launches")

@@ -7,7 +7,8 @@ The counterpart of ``dat_replication_protocol_tpu/obs/`` (its core):
   disabled site is one attribute load.  ``to_prom_text`` renders a
   snapshot as Prometheus text.
 * :mod:`.events` — a bounded ring of structured events with an fd or
-  JSONL sink.
+  JSONL sink, and :class:`DeferredEmitQueue` for events raised under a
+  lock.
 * :mod:`.tracing` — nestable spans, per-frame instants keyed on the wire
   offset, Chrome trace export.
 * :mod:`.flight` — post-mortem bundles on a protocol error or a stuck
@@ -35,7 +36,7 @@ from .device import (
     reset_engine_notes,
     sample_device_gauges,
 )
-from .events import EVENTS, EventLog, emit
+from .events import EVENTS, DeferredEmitQueue, EventLog, emit
 from .flight import FLIGHT, FlightRecorder, read_bundle
 from .metrics import (
     OBS,
@@ -69,6 +70,7 @@ __all__ = [
     "SPANS",
     "FLIGHT",
     "EventLog",
+    "DeferredEmitQueue",
     "SpanLog",
     "FlightRecorder",
     "Counter",

@@ -193,3 +193,32 @@ EVENTS = EventLog()
 def emit(event: str, **fields) -> None:
     """Emit to the process-global event log (gated)."""
     EVENTS.emit(event, **fields)
+
+
+class DeferredEmitQueue:
+    """Events queued under an owner's lock, emitted after its release.
+
+    The hub's dispatcher may never emit while it holds its lock (a sink
+    can block, and blocking under the hub lock stalls every session), so
+    shed events capture their fields while the owner's view is
+    consistent and leave once the lock is released.  ``queue_locked`` is
+    called with ``lock`` held, ``flush`` with it released; ``flush``
+    peeks without the lock (a missed peek is drained by the next call),
+    swaps under it and emits outside it.
+    """
+
+    def __init__(self, event: str, lock):
+        self._event = event
+        self._lock = lock
+        self._pending: list = []
+
+    def queue_locked(self, **fields) -> None:
+        self._pending.append(fields)
+
+    def flush(self) -> None:
+        if not self._pending:
+            return
+        with self._lock:
+            pending, self._pending = self._pending, []
+        for fields in pending:
+            emit(self._event, **fields)

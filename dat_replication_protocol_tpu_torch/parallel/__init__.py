@@ -5,9 +5,12 @@ from .cdc_mesh import sharded_gear_scan
 from .mesh import (
     DATA_AXIS,
     Mesh,
+    broadcast_payloads,
+    broadcast_stop,
     digest_root_step,
     make_mesh,
     pad_batch,
+    receive_payloads,
     shard,
     sharded_diff,
     sharded_hash_begin,
@@ -17,9 +20,12 @@ from .mesh import (
 __all__ = [
     "DATA_AXIS",
     "Mesh",
+    "broadcast_payloads",
+    "broadcast_stop",
     "digest_root_step",
     "make_mesh",
     "pad_batch",
+    "receive_payloads",
     "shard",
     "sharded_diff",
     "sharded_gear_scan",

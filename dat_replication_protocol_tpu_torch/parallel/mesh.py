@@ -19,7 +19,11 @@ tensors).  The mapping:
 * the collectives are ``all_gather`` of each rank's (1, 4) hi/lo subtree
   root (32 bytes a rank) and ``all_reduce`` of byte counts and of sketch
   tables, as the reference's ``all_gather``/``psum``.  The top tree over
-  the gathered roots is folded on every rank.
+  the gathered roots is folded on every rank;
+* where one process composes the work (the hub on rank 0),
+  :func:`broadcast_payloads` hands each payload list to the other ranks,
+  which wait in :func:`receive_payloads`: the reference's single
+  controller sees every array, a rank here only what it is sent.
 """
 
 from __future__ import annotations
@@ -194,6 +198,64 @@ def sharded_hash_begin(mesh: Mesh, payloads, digest_size: int = 32):
         words = _all_gather(mesh, torch.cat([hh, hl], dim=1))
         handles.append((idxs, words[:len(idxs), :8], words[:len(idxs), 8:]))
     return digest_collector(len(payloads), handles, digest_size, mesh.device)
+
+
+# the header a follower reads before each batch: [items, bytes]; a
+# negative item count is the stop message
+_STOP_ITEMS = -1
+
+
+def broadcast_payloads(mesh: Mesh, payloads) -> None:
+    """Rank 0's half of :func:`receive_payloads`: send one payload list
+    to every other rank, as a ``[items, bytes]`` header, the lengths and
+    one byte tensor of the payloads end to end (three broadcasts).
+    :func:`sharded_hash_begin` needs the same list on every rank; a
+    process that composes batches alone (the hub) sends each one before
+    the call."""
+    lengths = [len(p) for p in payloads]
+    total = sum(lengths)
+    head = torch.tensor([len(lengths), total], dtype=torch.int64,
+                        device=mesh.device)
+    dist.broadcast(head, 0, group=mesh.group)
+    if not lengths:
+        return
+    dist.broadcast(torch.tensor(lengths, dtype=torch.int64,
+                                device=mesh.device), 0, group=mesh.group)
+    if total:
+        data = torch.frombuffer(bytearray().join(payloads),
+                                dtype=torch.uint8).to(mesh.device)
+        dist.broadcast(data, 0, group=mesh.group)
+
+
+def broadcast_stop(mesh: Mesh) -> None:
+    """Rank 0: tell every :func:`receive_payloads` caller to stop."""
+    head = torch.tensor([_STOP_ITEMS, 0], dtype=torch.int64,
+                        device=mesh.device)
+    dist.broadcast(head, 0, group=mesh.group)
+
+
+def receive_payloads(mesh: Mesh):
+    """A rank >= 1's half of :func:`broadcast_payloads`: the next payload
+    list rank 0 sends, or ``None`` on :func:`broadcast_stop`."""
+    head = torch.empty(2, dtype=torch.int64, device=mesh.device)
+    dist.broadcast(head, 0, group=mesh.group)
+    n, total = head.tolist()
+    if n == _STOP_ITEMS:
+        return None
+    if n == 0:
+        return []
+    lengths = torch.empty(n, dtype=torch.int64, device=mesh.device)
+    dist.broadcast(lengths, 0, group=mesh.group)
+    data = b""
+    if total:
+        buf = torch.empty(total, dtype=torch.uint8, device=mesh.device)
+        dist.broadcast(buf, 0, group=mesh.group)
+        data = buf.cpu().numpy().tobytes()
+    out, off = [], 0
+    for length in lengths.tolist():
+        out.append(data[off:off + length])
+        off += length
+    return out
 
 
 def sharded_sketch(mesh: Mesh, rec_hh, rec_hl, slots, log2_slots: int):

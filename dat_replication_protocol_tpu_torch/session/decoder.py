@@ -47,6 +47,7 @@ from collections import deque
 from time import perf_counter as _perf
 from typing import Callable, Optional
 
+from ..obs import wirecost as _wirecost
 from ..obs.events import emit as _emit
 from ..obs.flight import FLIGHT as _FLIGHT
 from ..obs.metrics import OBS as _OBS
@@ -210,6 +211,9 @@ def _drain_blob(blob: BlobReader, done: Callable[[], None]) -> None:
 
 class Decoder:
     """Push-based incremental wire parser.  See module docstring."""
+
+    # the wire cost ledger's link name for this session's rx bytes
+    cost_link = "session"
 
     def __init__(self):
         self.bytes = 0
@@ -421,6 +425,7 @@ class Decoder:
             _M_DEC_ERRORS.inc()
             _emit("protocol.error", frame=err.frame, offset=err.offset,
                   message=message)
+            self._lit_cost_failure(message)
         if _FLIGHT.armed:
             _FLIGHT.dump("protocol-error", error=err)
         return err
@@ -535,7 +540,7 @@ class Decoder:
                 try:
                     framed_len, _ = decode_uvarint(self._header)
                 except ValueError as e:  # varint exceeds 64 bits
-                    self.destroy(self._protocol_error(str(e)))
+                    self.destroy(self._protocol_error(str(e), cause=e))
                     return None
                 type_id = self._header[-1]
                 self._frame_start = self._frame_end
@@ -607,7 +612,7 @@ class Decoder:
         try:
             change = decode_change(payload)
         except ValueError as e:
-            self.destroy(self._protocol_error(str(e)))
+            self.destroy(self._protocol_error(str(e), cause=e))
             return
         self._deliver_change(change, payload)
 
@@ -620,6 +625,7 @@ class Decoder:
             _trace_instant("decoder.frame", offset=self._frame_start,
                            kind="change",
                            wire_len=self._frame_end - self._frame_start)
+            self._lit_cost_change(len(payload))
         self._state = TYPE_HEADER
         if self._on_change is not None:
             ack = _FastAck(self)
@@ -642,7 +648,7 @@ class Decoder:
         try:
             cols = batch_codec.decode_change_batch(payload)
         except ValueError as e:
-            self.destroy(self._protocol_error(str(e)))
+            self.destroy(self._protocol_error(str(e), cause=e))
             return
         n = len(cols.change)
         if _OBS.on:
@@ -652,11 +658,12 @@ class Decoder:
                            wire_len=self._frame_end - self._frame_start)
             # the receiver prices the savings with the encoder's exact
             # arithmetic, so both ends' counters agree to the byte
-            saved = batch_codec.estimate_per_record_bytes(
+            saved = int(batch_codec.estimate_per_record_bytes(
                 cols.key_len, cols.sub_len, cols.val_len, cols.change,
-                cols.from_, cols.to) - (self._frame_end - self._frame_start)
+                cols.from_, cols.to)) - (self._frame_end - self._frame_start)
             if saved > 0:
                 _M_BATCH_SAVED_RX.inc(saved)
+            self._lit_cost_batch(len(payload), saved)
         self._state = TYPE_HEADER
         # digest tap: the whole frame's rows are owed at acceptance, before
         # any row reaches a handler, keeping submit order = wire order
@@ -769,6 +776,10 @@ class Decoder:
             _trace_instant("decoder.frame", offset=self._frame_start,
                            kind=kind,
                            wire_len=self._frame_end - self._frame_start)
+            if kind == "reconcile":
+                self._lit_cost_reconcile(len(payload))
+            else:
+                self._lit_cost_snapshot(len(payload))
         self._state = TYPE_HEADER
         # delivery consumes the frame BEFORE the handler can raise: a
         # caught raise-then-resume re-enters at the next frame
@@ -784,6 +795,41 @@ class Decoder:
             ack.arm()
         # default: drop, as unhandled changes are
 
+    # -- wire cost helpers --------------------------------------------------
+    # Each site forks once on `_OBS.on` and calls one of these, which hold
+    # every wirecost name.  A frame's framing is its wire extent less its
+    # payload; the frame class is a literal at every call.
+
+    def _frame_framing(self, plen: int) -> int:
+        return self._frame_end - self._frame_start - plen
+
+    def _lit_cost_change(self, plen: int) -> None:
+        _wirecost.account("change", self.cost_link, "rx", plen,
+                          self._frame_framing(plen))
+
+    def _lit_cost_batch(self, plen: int, saved: int) -> None:
+        _wirecost.account("change_batch", self.cost_link, "rx", plen,
+                          self._frame_framing(plen))
+        if saved > 0:
+            _wirecost.note_saved(self.cost_link, "rx", saved)
+
+    def _lit_cost_reconcile(self, plen: int) -> None:
+        _wirecost.account("reconcile", self.cost_link, "rx", plen,
+                          self._frame_framing(plen))
+
+    def _lit_cost_snapshot(self, plen: int) -> None:
+        _wirecost.account("snapshot", self.cost_link, "rx", plen,
+                          self._frame_framing(plen))
+
+    def _lit_cost_blob(self, length: int) -> None:
+        # the whole frame at open, as the decoder.frame tag prices it
+        _wirecost.account("blob", self.cost_link, "rx", length,
+                          self._frame_framing(length))
+
+    def _lit_cost_failure(self, message: str) -> None:
+        # the ledger keeps its watermarks; only the failure count moves
+        _wirecost.note_failure(self.cost_link, "rx", message)
+
     def _open_blob_if_ready(self) -> None:
         """Create the reader and invoke the app handler.
 
@@ -798,6 +844,7 @@ class Decoder:
             _trace_instant("decoder.frame", offset=self._frame_start,
                            kind="blob",
                            wire_len=self._frame_end - self._frame_start)
+            self._lit_cost_blob(self._missing)
         latch = blob._latch
 
         def done() -> None:

@@ -39,6 +39,7 @@ from collections import deque
 from time import monotonic as _now
 from typing import Callable, Optional
 
+from ..obs import wirecost as _wirecost
 from ..obs.metrics import OBS as _OBS
 from ..obs.metrics import counter as _counter
 from ..obs.metrics import histogram as _histogram
@@ -46,7 +47,7 @@ from ..obs.tracing import trace_instant as _trace_instant
 from ..wire.change_codec import Change, _check_uint32, encode_change
 from ..wire.framing import CAP_CHANGE_BATCH, CAP_RECONCILE, CAP_SNAPSHOT, \
     TYPE_BLOB, TYPE_CHANGE, TYPE_CHANGE_BATCH, TYPE_RECONCILE, \
-    TYPE_SNAPSHOT, frame_header
+    TYPE_SNAPSHOT, frame_header, header_len
 
 OnDone = Optional[Callable[[], None]]
 
@@ -196,6 +197,7 @@ class BlobWriter:
                 _trace_instant("encoder.frame", offset=self._encoder.bytes,
                                kind="blob",
                                wire_len=len(self._parked[0][0]) + self.length)
+                self._encoder._lit_cost_blob(self.length)
         for data, cb, t0 in self._parked:
             self._encoder._parked_bytes -= len(data)
             if t0 is not None and _OBS.on:
@@ -216,6 +218,9 @@ class BlobWriter:
 
 class Encoder:
     """Pull-based frame producer.  See module docstring for semantics."""
+
+    # the wire cost ledger's link name for this session's tx bytes
+    cost_link = "session"
 
     def __init__(self, high_water: int = DEFAULT_HIGH_WATER,
                  peer_caps: int = 0,
@@ -332,12 +337,14 @@ class Encoder:
         self._note_change_run(payloads)
         out = bytearray()
         obs_on = _OBS.on
+        plen = 0
         for payload in payloads:
             header = frame_header(len(payload), TYPE_CHANGE)
             if obs_on:
                 _trace_instant("encoder.frame", offset=self.bytes + len(out),
                                kind="change",
                                wire_len=len(header) + len(payload))
+                plen += len(payload)
             out += header
             out += payload
         if not records:
@@ -347,6 +354,8 @@ class Encoder:
         self.changes += len(records)
         if obs_on:
             _M_ENC_CHANGES.inc(len(records))
+            # run totals: framing is the framed bytes less the payloads
+            self._lit_cost_change(len(out) - plen, plen, len(records))
         return self._push(bytes(out), on_flush)
 
     # -- ChangeBatch accumulation -------------------------------------------
@@ -443,6 +452,37 @@ class Encoder:
                     and _now() - self._batch_t0 >= pol.max_delay)):
             self.flush_batch()
 
+    # -- wire cost helpers --------------------------------------------------
+    # Each site forks once on `_OBS.on` and calls one of these, which hold
+    # every wirecost name: the disabled path never reaches the ledger.
+    # The frame class is a literal at every call.
+
+    def _lit_cost_change(self, framing: int, payload: int,
+                         frames: int = 1) -> None:
+        _wirecost.account("change", self.cost_link, "tx", payload,
+                          framing, frames)
+
+    def _lit_cost_batch(self, framing: int, payload: int,
+                        saved: int) -> None:
+        _wirecost.account("change_batch", self.cost_link, "tx", payload,
+                          framing)
+        if saved > 0:
+            _wirecost.note_saved(self.cost_link, "tx", saved)
+
+    def _lit_cost_reconcile(self, framing: int, payload: int) -> None:
+        _wirecost.account("reconcile", self.cost_link, "tx", payload,
+                          framing)
+
+    def _lit_cost_snapshot(self, framing: int, payload: int) -> None:
+        _wirecost.account("snapshot", self.cost_link, "tx", payload,
+                          framing)
+
+    def _lit_cost_blob(self, length: int) -> None:
+        # the whole frame at header time, as the encoder.frame tag prices
+        # it (the chunks stream the declared payload later)
+        _wirecost.account("blob", self.cost_link, "tx", length,
+                          header_len(length))
+
     def flush_batch(self) -> None:
         """Frame every pending batch row NOW as one ``TYPE_CHANGE_BATCH``
         frame (no-op when nothing is pending)."""
@@ -482,6 +522,7 @@ class Encoder:
             _trace_instant("encoder.frame", offset=self.bytes,
                            kind="change_batch", rows=n,
                            wire_len=len(header) + len(payload))
+            self._lit_cost_batch(len(header), len(payload), int(saved))
         if len(cbs) > 1:
             def all_cbs(cbs=cbs):
                 for cb in cbs:
@@ -501,6 +542,7 @@ class Encoder:
             _trace_instant("encoder.frame", offset=self.bytes,
                            kind="change",
                            wire_len=len(header) + len(payload))
+            self._lit_cost_change(len(header), len(payload))
         self._push(header, None)
         return self._push(payload, on_flush)
 
@@ -533,6 +575,10 @@ class Encoder:
             wire.inc(len(header) + len(payload))
             _trace_instant("encoder.frame", offset=self.bytes, kind=what,
                            wire_len=len(header) + len(payload))
+            if what == "reconcile":
+                self._lit_cost_reconcile(len(header), len(payload))
+            else:
+                self._lit_cost_snapshot(len(header), len(payload))
         return self._push(header + payload, on_flush)
 
     def reconcile_frame(self, payload, on_flush: OnDone = None) -> bool:
@@ -574,6 +620,7 @@ class Encoder:
             if _OBS.on:
                 _trace_instant("encoder.frame", offset=self.bytes,
                                kind="blob", wire_len=len(header) + length)
+                self._lit_cost_blob(length)
             self._push(header, None)
         self._open_blobs.append(ws)
         return ws

@@ -1,11 +1,15 @@
 """The sidecar: a daemon foreign clients pipe wire bytes to.
 
 The port of ``dat_replication_protocol_tpu/sidecar.py``'s digest reply
-(:121-393), its TCP accept loop (:741-926) and its anti-entropy modes
-(:517-643)::
+(:121-393), its TCP accept loop (:741-926), its anti-entropy modes
+(:517-643), its hub mode and its stats and scrape endpoints
+(:927-1141)::
 
     python -m dat_replication_protocol_tpu_torch.sidecar --stdio
     python -m dat_replication_protocol_tpu_torch.sidecar --tcp 127.0.0.1:7531
+    python -m dat_replication_protocol_tpu_torch.sidecar --tcp HOST:PORT \
+        --hub [--hub-max-sessions N] [--hub-parked-budget BYTES] \
+        [--stats-fd FD] [--obs-http PORT]
     python -m dat_replication_protocol_tpu_torch.sidecar --tcp HOST:PORT \
         --reconcile LOGFILE
     python -m dat_replication_protocol_tpu_torch.sidecar --tcp HOST:PORT \
@@ -40,8 +44,31 @@ the out-of-band capability advertisement.  Both run on ``--stdio`` and
 ``--tcp HOST:PORT`` serves one thread per connection and prints
 ``sidecar: listening on HOST:PORT`` (the bound port, for port 0) on
 stderr; bind and accept retry under ``--max-retries``/``--backoff-base``.
-The hub, fan-out, edge and replica modes of the reference sidecar are
-not ported, nor ``--stats-fd`` and ``--obs-http``.
+
+**Hub mode.**  ``--hub`` (``--tcp`` only) registers every accepted
+digest session with one shared :class:`~.hub.ReplicationHub` under the
+key ``c<n>:<host>:<port>``: their digest work is batched across
+sessions onto kernel B1, with admission (``--hub-max-sessions``,
+``--hub-parked-budget``), per-session windows and shedding.  A rejected
+connection sees EOF and logs a ``rejected`` record; a shed session or
+an engine failure tears down that session only; ``--drain-timeout``
+runs per session.  ``--hub-mesh auto|N`` shards each batch over the
+process group a launcher set up (``env://``: ``MASTER_ADDR``,
+``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``); rank 0 serves and every
+other rank runs :func:`~.hub.mesh_follower`.  If rank 0's hub fails,
+rank 0 exits 1 (a follower may be inside a batch's collectives, which
+end only with rank 0's process) and the followers exit 1 as their
+collectives raise.  Without such a group the sidecar exits with the
+error.
+
+**Stats.**  ``--stats-fd FD`` turns telemetry on and writes one
+self-contained snapshot line every ``--stats-interval`` seconds (JSON
+with ``emit_seq``, the hub's aggregate and per-session breakdown, the
+``wirecost`` ledger and ``healthz``; or with ``--stats-format prom``
+Prometheus text); SIGUSR1 forces a dump.  ``--obs-http PORT`` serves
+``/metrics``, ``/snapshot``, ``/healthz`` and ``/events`` on
+127.0.0.1 (:mod:`.obs.http`).  The fan-out, edge and replica modes of
+the reference sidecar are not ported.
 
 Telemetry, as the reference's flags give it (:1303-1328):
 ``--flight-dir DIR`` arms the flight recorder (a protocol error dumps a
@@ -61,13 +88,17 @@ import threading
 import time
 
 from . import decode, encode
+from .obs import device as obs_device
 from .obs import events as obs_events
 from .obs import flight as obs_flight
+from .obs import http as obs_http
 from .obs import metrics as obs_metrics
 from .obs import tracing as obs_tracing
 from .obs.events import emit as _emit
 from .obs.metrics import OBS as _OBS
 from .obs.metrics import counter as _counter
+from .obs.watermarks import WATERMARKS as _WATERMARKS
+from .obs.wirecost import WIRECOST as _WIRECOST
 from .session import pump as session_pump
 from .session.transport import once
 from .session.transport import write_all as _write_all
@@ -82,13 +113,27 @@ _WAKE = 0.5  # bound on every wait; wakeups are event-driven
 DEFAULT_DRAIN_TIMEOUT = 600.0
 _DRAIN_POLL = 0.25
 
+DEFAULT_STATS_INTERVAL = 5.0
+
 _M_SESSIONS = _counter("sidecar.sessions")
 _M_STALLS = _counter("sidecar.stalls")
+
+# hub mode: the one hub every accepted connection shares; its aggregate
+# and per-session breakdown ride the stats records
+_ACTIVE_HUB = None
+
+
+def set_active_hub(hub) -> None:
+    """Install the hub whose breakdown ``--stats-fd`` records and
+    ``/healthz`` carry (None detaches)."""
+    global _ACTIVE_HUB
+    _ACTIVE_HUB = hub
 
 
 def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
                 chunk_size: int = DEFAULT_CHUNK,
-                drain_timeout: float | None = DEFAULT_DRAIN_TIMEOUT) -> dict:
+                drain_timeout: float | None = DEFAULT_DRAIN_TIMEOUT,
+                hub=None, session_key: str | None = None) -> dict:
     """Serve one wire session over a blocking byte pair.
 
     ``read_bytes(n)`` returns up to n bytes (``b''`` at EOF);
@@ -100,11 +145,49 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
     makes no write progress for that many seconds, in the digest-flush
     backpressure wait or in the end-of-session drain, the reply encoder
     is destroyed and ``close_write`` invoked so the session tears down
-    instead of parking its thread; ``None`` waits forever.  Returns
-    ``{"changes", "blobs", "bytes", "digests", "ok"}``.
+    instead of parking its thread; ``None`` waits forever.  Each session
+    keeps its own clock, so in hub mode one session's deadline neither
+    extends nor cuts another's.  Returns ``{"changes", "blobs", "bytes",
+    "digests", "ok"}``.
+
+    ``hub`` (a :class:`~.hub.ReplicationHub`) puts the session's digest
+    work on the shared engine under ``session_key``, and the record
+    gains ``session`` and ``shed``.  A :class:`~.hub.HubBusy` rejection
+    consumes no wire byte: it closes the write side and returns
+    ``{"ok": False, "rejected": True, "sessions", "parked_bytes"}``.  A
+    :class:`~.hub.SessionShed` or :class:`~.hub.HubError` raised by the
+    decoder's submits tears this session down as any session-fatal
+    error does.
+
+    With telemetry on, the wire cost ledger gets the session's frames
+    and transport bytes on the link ``session_key`` (``"stdio"``
+    without one).
     """
+    hub_session = None
+    if hub is not None:
+        from .hub import HubBusy
+
+        try:
+            hub_session = hub.register(session_key)
+        except HubBusy as e:
+            out = {"changes": 0, "blobs": 0, "bytes": 0, "digests": 0,
+                   "ok": False, "rejected": True,
+                   "sessions": e.sessions, "parked_bytes": e.parked_bytes}
+            if close_write is not None:
+                try:
+                    close_write()
+                except OSError:
+                    pass
+            if _OBS.on:
+                _emit("sidecar.session", **out)
+            return out
     enc = encode()  # the reply: plain host encoder
-    dec = decode(backend="cuda", device=device)
+    if hub_session is not None:
+        dec = decode(backend="cuda", pipeline=hub_session)
+    else:
+        dec = decode(backend="cuda", device=device)
+    enc.cost_link = dec.cost_link = session_key if session_key else "stdio"
+    read_bytes = session_pump._metered_reader(dec, read_bytes)
     lock = threading.Lock()  # the encoder is shared by both threads
     readable = threading.Event()
     enc._attach_readable(readable.set)
@@ -184,6 +267,8 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
                     readable.clear()
                     continue
                 write_bytes(data)
+                if _OBS.on:
+                    session_pump._lit_tx(enc, len(data))
                 progress["t"] = time.monotonic()
         except OSError as e:  # the client went away
             destroy_enc(e)
@@ -214,7 +299,9 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
                                or dec.finished):
                         wake.wait(_WAKE)
                         wake.clear()
-    except OSError as e:  # the transport died mid-read
+    except Exception as e:  # noqa: BLE001 — session-fatal either way
+        # the transport died mid-read, or (in hub mode) a SessionShed or
+        # HubError rose from the decoder's digest submits
         if not dec.destroyed:
             dec.destroy(e)
     finally:
@@ -241,6 +328,12 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
            "digests": stats["digests"],
            "ok": (dec.finished and not dec.destroyed and not enc.destroyed
                   and not sender.is_alive())}
+    if hub_session is not None:
+        out["session"] = hub_session.key
+        out["shed"] = hub_session.shed_reason
+        # the hub slot goes last: queued work is dropped and in-flight
+        # completions are discarded, so nothing stays parked
+        hub_session.close()
     if _OBS.on:
         _M_SESSIONS.inc()
         _emit("sidecar.session", **out)
@@ -357,7 +450,7 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
               ready_cb=None, device="cuda",
               drain_timeout: float | None = DEFAULT_DRAIN_TIMEOUT,
               retry_policy=None, reconcile_replica=None,
-              snapshot_source=None) -> None:
+              snapshot_source=None, hub=None) -> None:
     """Accept loop: one concurrent session per connection.
 
     ``max_sessions`` bounds the loop (tests); ``ready_cb(port)`` fires
@@ -365,7 +458,8 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
     every connection is one snapshot joiner served off the shared source;
     with ``reconcile_replica`` one reconcile initiator against the shared
     replica (both read-only after construction, so sessions never step
-    on each other); otherwise a digest session on ``device``.
+    on each other); otherwise a digest session on ``device``, or with
+    ``hub`` on the shared hub under the key ``c<n>:<host>:<port>``.
 
     ``retry_policy`` (a :class:`~.session.reconnect.BackoffPolicy`)
     retries the bind through a lingering ``EADDRINUSE`` and rides out
@@ -403,7 +497,7 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
                                   describe="accept")
             served += 1
 
-            def _one(conn=conn, peer=peer):
+            def _one(conn=conn, peer=peer, n=served):
                 name = f"{peer[0]}:{peer[1]}"
 
                 def close_write() -> None:
@@ -422,7 +516,8 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
                     else:
                         stats = run_session(
                             conn.recv, conn.sendall, close_write=close_write,
-                            device=device, drain_timeout=drain_timeout)
+                            device=device, drain_timeout=drain_timeout,
+                            hub=hub, session_key=f"c{n}:{name}")
                     print(f"sidecar: {peer} {stats}", file=sys.stderr,
                           flush=True)
                 finally:
@@ -432,6 +527,200 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
                              daemon=True).start()
     finally:
         srv.close()
+
+
+class StatsEmitter:
+    """Periodic stats snapshots on a file descriptor (``--stats-fd``).
+
+    A daemon thread writes one record every ``interval`` seconds;
+    :meth:`kick` forces one now (the SIGUSR1 handler only sets an
+    event).  ``fmt="json"`` writes one self-contained JSON object a line
+    with a per-emitter ``emit_seq`` (every attempt takes a number, so a
+    skipped or lost line shows as a gap); ``fmt="prom"`` writes one
+    Prometheus text block a record.  The fd is made non-blocking: a
+    record is written whole or skipped when the pipe is full before its
+    first byte, and a record torn by a pipe that stays full latches the
+    emitter dead, so no later record is appended to a torn line.
+    """
+
+    def __init__(self, fd: int, interval: float = DEFAULT_STATS_INTERVAL,
+                 fmt: str = "json"):
+        if fmt not in ("json", "prom"):
+            raise ValueError(f"unknown stats format {fmt!r}")
+        self._fd = fd
+        try:
+            os.set_blocking(fd, False)
+        except OSError:
+            pass  # a closed fd surfaces at the first write
+        self._fmt = fmt
+        self._interval = interval
+        self._wake = threading.Event()
+        self._stopped = False
+        self._dead = False  # the fd failed or a line tore
+        self._emit_seq = 0
+        self._thread = threading.Thread(
+            target=self._run, name="sidecar-stats", daemon=True)
+
+    def start(self) -> "StatsEmitter":
+        self._thread.start()
+        return self
+
+    def kick(self) -> None:
+        """Ask for a dump now (only sets an event: signal-safe)."""
+        self._wake.set()
+
+    def stop(self) -> bool:
+        """Stop the thread; True once it has exited.  False means it is
+        still blocked, and the caller must not write the fd itself."""
+        self._stopped = True
+        self._wake.set()
+        self._thread.join(timeout=5)
+        return not self._thread.is_alive()
+
+    def dump_once(self) -> bool:
+        """Write one record now; False when the fd is dead or stayed
+        full past the grace period."""
+        import errno
+
+        if self._dead:
+            return False
+        seq = self._emit_seq
+        self._emit_seq += 1
+        if self._fmt == "prom":
+            body = snapshot_stats_prom()
+        else:
+            snap = snapshot_stats()
+            snap["emit_seq"] = seq
+            body = json.dumps(snap) + "\n"
+        line = body.encode("utf-8")
+        view = memoryview(line)
+        deadline = time.monotonic() + 2.0
+        while view:
+            try:
+                view = view[os.write(self._fd, view):]
+            except OSError as e:
+                # a full pipe is retried briefly to finish the record;
+                # a tick with nothing written yet is skipped whole
+                if e.errno in (errno.EAGAIN, errno.EWOULDBLOCK):
+                    if time.monotonic() < deadline:
+                        time.sleep(0.01)
+                        continue
+                    if len(view) == len(line):
+                        return True
+                self._dead = True  # torn line or hard error
+                return False
+        return True
+
+    def _run(self) -> None:
+        while not self._stopped:
+            self._wake.wait(self._interval)
+            self._wake.clear()
+            if self._stopped:
+                return
+            if not self.dump_once():
+                return
+
+
+def snapshot_stats() -> dict:
+    """One self-describing stats record: the metrics registry, the event
+    ring's drops, the kernel sentinel's sites, the watermarks and the
+    pump; in hub mode the hub's aggregate (``hub``) and per-session
+    breakdown (``sessions``); the wire cost ledger (``wirecost``) once it
+    holds a link; and the staged health (``healthz``).  JSON-able."""
+    out = {
+        "ts": time.time(),
+        "monotonic": time.monotonic(),
+        "metrics": obs_metrics.snapshot(),
+        "events_dropped": obs_events.EVENTS.dropped,
+        "jit_sites": obs_device.SENTINEL.snapshot(),
+        "watermarks": _WATERMARKS.snapshot(),
+        "pump": session_pump.probe_caps(),
+    }
+    if _ACTIVE_HUB is not None:
+        out["hub"] = _ACTIVE_HUB.snapshot()
+        out["sessions"] = _ACTIVE_HUB.sessions_snapshot()
+    wc = _WIRECOST.snapshot()
+    if wc["links"] or wc["amplification"]:
+        out["wirecost"] = wc
+    out["healthz"] = obs_http.default_healthz(_active_admission_fn())
+    return out
+
+
+def _active_admission_fn():
+    """The hub's lock-free admission view, when a hub runs."""
+    if _ACTIVE_HUB is not None:
+        return _ACTIVE_HUB.admission_state
+    return None
+
+
+def snapshot_stats_prom() -> str:
+    """The stats record as Prometheus text: the registry and the rings'
+    health."""
+    extra = (
+        "# TYPE dat_obs_events_dropped gauge\n"
+        f"dat_obs_events_dropped {obs_events.EVENTS.dropped}\n"
+        "# TYPE dat_obs_spans_dropped gauge\n"
+        f"dat_obs_spans_dropped {obs_tracing.SPANS.dropped}\n"
+        "# TYPE dat_obs_scrape_ts gauge\n"
+        f"dat_obs_scrape_ts {time.time()}\n"
+    )
+    return obs_metrics.to_prom_text() + extra
+
+
+def _install_sigusr1(emitter: StatsEmitter) -> bool:
+    """SIGUSR1 -> one dump; False off the main thread, where a handler
+    cannot be installed."""
+    import signal
+
+    if threading.current_thread() is not threading.main_thread():
+        return False
+    signal.signal(signal.SIGUSR1, lambda _sig, _frm: emitter.kick())
+    return True
+
+
+def _hub_mesh(spec: str, device):
+    """The mesh ``--hub-mesh auto|N`` asks for, over the process group
+    its launcher describes (``env://``), one process a card (the rank
+    picks it).  Raises when there is no such group."""
+    import torch
+    import torch.distributed as dist
+
+    from .parallel import make_mesh
+    from .utils.device import resolve_device
+
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method="env://")
+    if dev.type == "cuda":
+        dev = torch.device("cuda",
+                           dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return make_mesh(None if spec == "auto" else int(spec), device=dev)
+
+
+def _end_on_mesh_failure(hub) -> threading.Event:
+    """Rank 0 of a ``--hub-mesh`` of several ranks: a failed engine may
+    leave the followers inside a batch's collectives, and those end only
+    with this process (or at the group's timeout).  On a failure, stop
+    the main thread as SIGINT does; the returned event marks the exit
+    as the hub's failure."""
+    import signal
+
+    failed = threading.Event()
+
+    def watch() -> None:
+        err = hub.wait_failed()
+        if err is not None:
+            print(f"sidecar: the mesh hub failed ({err!r}); ending rank 0 "
+                  f"so that the followers' collectives raise",
+                  file=sys.stderr, flush=True)
+            failed.set()
+            signal.pthread_kill(threading.main_thread().ident, signal.SIGINT)
+
+    threading.Thread(target=watch, name="hub-mesh-watch",
+                     daemon=True).start()
+    return failed
 
 
 def main(argv=None) -> int:
@@ -467,6 +756,43 @@ def main(argv=None) -> int:
                         metavar="BYTES",
                         help="live-log wire offset the --snapshot dataset "
                              "materializes (default: 0)")
+    parser.add_argument("--hub", action="store_true",
+                        help="multiplex every accepted digest session onto "
+                             "one shared engine (--tcp only): batching "
+                             "across sessions, admission, per-session "
+                             "windows, shedding")
+    parser.add_argument("--hub-max-sessions", type=int, default=1024,
+                        metavar="N",
+                        help="hub admission bound on concurrent sessions "
+                             "(default: 1024)")
+    parser.add_argument("--hub-parked-budget", type=int, default=256 << 20,
+                        metavar="BYTES",
+                        help="hub admission and shedding bound on parked "
+                             "bytes: queued, in flight and undelivered "
+                             "(default: 256 MiB)")
+    parser.add_argument("--hub-mesh", default=None, metavar="N|auto",
+                        help="shard the hub's batches over the process "
+                             "group a launcher set up (env://): 'auto' "
+                             "takes the whole group, N pins its size; "
+                             "rank 0 serves, the other ranks follow")
+    parser.add_argument("--stats-fd", type=int, default=None, metavar="FD",
+                        help="enable telemetry and write one snapshot "
+                             "record to this fd every --stats-interval "
+                             "seconds; SIGUSR1 forces one")
+    parser.add_argument("--stats-interval", type=float,
+                        default=DEFAULT_STATS_INTERVAL, metavar="SECONDS",
+                        help="period between --stats-fd records "
+                             f"(default: {DEFAULT_STATS_INTERVAL:.0f})")
+    parser.add_argument("--stats-format", choices=("json", "prom"),
+                        default="json",
+                        help="--stats-fd records as JSON lines (default) "
+                             "or Prometheus text blocks")
+    parser.add_argument("--obs-http", type=int, default=None,
+                        metavar="PORT",
+                        help="enable telemetry and serve /metrics, "
+                             "/snapshot, /healthz and /events on "
+                             "127.0.0.1:PORT (0: an ephemeral port, printed "
+                             "on stderr)")
     parser.add_argument("--max-retries", type=int, default=5, metavar="N",
                         help="bind/accept errors are retried with backoff "
                              "at most N times (default: 5)")
@@ -486,19 +812,71 @@ def main(argv=None) -> int:
     if args.reconcile and args.snapshot:
         parser.error("--reconcile and --snapshot are separate session "
                      "modes; pick one")
+    if args.hub and args.stdio:
+        parser.error("--hub multiplexes many connections; it needs --tcp")
+    if args.hub and (args.reconcile or args.snapshot):
+        parser.error("--hub serves digest sessions; it cannot combine with "
+                     "--reconcile/--snapshot")
+    if args.hub_mesh is not None and not args.hub:
+        parser.error("--hub-mesh requires --hub")
     drain = args.drain_timeout if args.drain_timeout > 0 else None
     from .session.reconnect import BackoffPolicy
 
     policy = BackoffPolicy(base=args.backoff_base,
                            max_retries=args.max_retries)
     trace_sink = None
+    emitter = None
+    hub = None
+    mesh = None
+    mesh_failed = None
+    obs_srv = None
     if args.flight_dir:
         # arming enables telemetry: a dark ring has nothing to dump
         obs_flight.FLIGHT.arm(args.flight_dir)
     if args.trace_jsonl:
         obs_metrics.enable()
         trace_sink = obs_tracing.attach_jsonl_sink(args.trace_jsonl)
+    if args.stats_fd is not None:
+        obs_metrics.enable()  # the stats need metrics
+        emitter = StatsEmitter(args.stats_fd, args.stats_interval,
+                               fmt=args.stats_format).start()
+        _install_sigusr1(emitter)
     try:
+        if args.hub:
+            from .hub import ReplicationHub, mesh_follower
+
+            if args.hub_mesh is not None:
+                try:
+                    mesh = _hub_mesh(args.hub_mesh, args.device)
+                except (ValueError, RuntimeError) as e:
+                    print(f"sidecar: --hub-mesh needs the process group "
+                          f"of a launcher (env://): {e}", file=sys.stderr,
+                          flush=True)
+                    return 2
+                if mesh.rank != 0:
+                    try:
+                        batches = mesh_follower(mesh)
+                    except RuntimeError as e:
+                        # rank 0's hub failed and tore the group down
+                        print(f"sidecar: rank {mesh.rank}: the hub's group "
+                              f"failed: {e}", file=sys.stderr, flush=True)
+                        return 1
+                    print(f"sidecar: rank {mesh.rank} followed {batches} "
+                          f"hub batches", file=sys.stderr, flush=True)
+                    return 0
+            hub = ReplicationHub(mesh=mesh, device=args.device,
+                                 max_sessions=args.hub_max_sessions,
+                                 parked_budget=args.hub_parked_budget)
+            set_active_hub(hub)
+            if mesh is not None and mesh.size > 1:
+                mesh_failed = _end_on_mesh_failure(hub)
+        if args.obs_http is not None:
+            obs_metrics.enable()  # a dark endpoint would serve zeros
+            obs_srv = obs_http.ObsHttpServer(
+                args.obs_http, snapshot_fn=snapshot_stats,
+                admission_fn=_active_admission_fn()).start()
+            print(f"sidecar: obs endpoint on {obs_srv.url}",
+                  file=sys.stderr, flush=True)
         replica = (load_reconcile_replica(args.reconcile, args.device)
                    if args.reconcile else None)
         source = (load_snapshot_source(args.snapshot, args.snapshot_offset,
@@ -513,9 +891,29 @@ def main(argv=None) -> int:
         host, _, port = args.tcp.rpartition(":")
         serve_tcp(host or "127.0.0.1", int(port), device=args.device,
                   drain_timeout=drain, retry_policy=policy,
-                  reconcile_replica=replica, snapshot_source=source)
+                  reconcile_replica=replica, snapshot_source=source,
+                  hub=hub)
         return 0
+    except KeyboardInterrupt:
+        if mesh_failed is not None and mesh_failed.is_set():
+            return 1
+        raise
     finally:
+        if obs_srv is not None:
+            obs_srv.close()
+        if hub is not None:
+            set_active_hub(None)
+            hub.close()  # on a mesh, this sends the followers their stop
+        if args.hub_mesh is not None:
+            # the group's threads must not outlive the interpreter
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        if emitter is not None and emitter.stop():
+            # the last record, once the periodic thread has exited: two
+            # writers on one fd could tear a line
+            emitter.dump_once()
         if trace_sink is not None:
             obs_events.EVENTS.detach_sink()
             obs_tracing.SPANS.detach_sink()

@@ -32,6 +32,7 @@ from dat_replication_protocol_tpu_torch.ops import (
     reconcile,
 )
 from dat_replication_protocol_tpu_torch import weights
+from dat_replication_protocol_tpu_torch.hub import ReplicationHub
 from dat_replication_protocol_tpu_torch.parallel import mesh as pmesh
 from dat_replication_protocol_tpu_torch.runtime import (
     reconcile_driver,
@@ -193,6 +194,7 @@ def _no_card():
     lambda: snapshot_driver.snapshot_local(b"abc"),
     lambda: weights.snapshot_source_from_numpy(b"abc", [3],
                                                np.zeros((1, 32), np.uint8)),
+    lambda: ReplicationHub(),
 ], ids=["decode", "encode", "pipeline", "resolve", "resolve-index",
         "content-address", "content-digests", "chunk-stream", "diff-leaves",
         "log-summary", "log-summary-empty", "coded-symbols", "peel-decoder",
@@ -200,7 +202,8 @@ def _no_card():
         "leaves-rows", "leaves-canonical", "decode-batch-device",
         "encode-negotiated", "initial-state", "blake2b-stream", "make-mesh",
         "make-mesh-1", "rateless-replica", "snapshot-source",
-        "snapshot-joiner", "snapshot-local", "snapshot-source-weights"])
+        "snapshot-joiner", "snapshot-local", "snapshot-source-weights",
+        "hub"])
 def test_cuda_without_a_card_raises(make):
     _no_card()
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -344,6 +347,53 @@ def test_anti_entropy_sessions_load_no_jax_package_module():
         "    lambda: s.shutdown(socket.SHUT_WR), device='cpu')\n"
         "assert res['data'] == data.tobytes()\n"
         "s.close()\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] == 'dat_replication_protocol_tpu')\n"
+        "print(loaded)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_hub_modules_are_in_the_scan():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"hub/__init__.py", "hub/engine.py", "obs/wirecost.py",
+            "obs/http.py", "obs/events.py", "session/pump.py"} <= names
+
+
+def test_hub_sessions_load_no_jax_package_module():
+    code = (
+        "import json, os, sys, urllib.request\n"
+        "import dat_replication_protocol_tpu_torch as protocol\n"
+        "from dat_replication_protocol_tpu_torch import sidecar\n"
+        "from dat_replication_protocol_tpu_torch.hub import ReplicationHub\n"
+        "from dat_replication_protocol_tpu_torch.obs import http, metrics\n"
+        "metrics.enable()\n"
+        "hub = ReplicationHub(device='cpu')\n"
+        "sidecar.set_active_hub(hub)\n"
+        "s = hub.register('k')\n"
+        "d = protocol.decode(backend='cuda', pipeline=s)\n"
+        "got = []\n"
+        "d.on_digest(lambda k, q, x: got.append(x))\n"
+        "e = protocol.encode()\n"
+        "protocol.pipe(e, d)\n"
+        "e.change({'key': 'k', 'change': 1, 'from': 0, 'to': 1})\n"
+        "e.blob(3).end(b'abc')\n"
+        "e.finalize()\n"
+        "assert len(got) == 2 and d.finished\n"
+        "r, w = os.pipe()\n"
+        "assert sidecar.StatsEmitter(w).dump_once()\n"
+        "assert json.loads(os.read(r, 1 << 20))['sessions']['k']\n"
+        "srv = http.ObsHttpServer(0, snapshot_fn=sidecar.snapshot_stats,\n"
+        "                         admission_fn=hub.admission_state).start()\n"
+        "urllib.request.urlopen(srv.url + '/healthz', timeout=30).read()\n"
+        "srv.close()\n"
+        "s.close()\n"
+        "hub.close()\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] == 'dat_replication_protocol_tpu')\n"
         "print(loaded)\n"

@@ -239,7 +239,12 @@ def test_main_parses_the_new_flags(monkeypatch, tmp_path):
     assert calls["snapshot_source"].manifest.wire_offset == 9
     assert calls["drain_timeout"] == sidecar.DEFAULT_DRAIN_TIMEOUT
     for bad in ([], ["--stdio", "--tcp", "h:1"],
-                ["--tcp", "h:1", "--reconcile", "a", "--snapshot", "b"]):
+                ["--tcp", "h:1", "--reconcile", "a", "--snapshot", "b"],
+                ["--stdio", "--hub"],
+                ["--tcp", "h:1", "--hub", "--reconcile", "a"],
+                ["--tcp", "h:1", "--hub", "--snapshot", "b"],
+                ["--tcp", "h:1", "--hub-mesh", "auto"],
+                ["--tcp", "h:1", "--stats-format", "xml"]):
         with pytest.raises(SystemExit):
             sidecar.main(bad)
 
