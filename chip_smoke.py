@@ -214,13 +214,49 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    four of 15a's sessions, every batch through ``sharded_hash_begin``.
    B1's launches of 15a, 15c and 15d form the ``hub`` bucket; 15b's are
    the subprocess's, read from its kernel sentinel.
+16. fan-out and resume.  16a (bench.py config 10, uncut): a source wire
+   of 16,384 change rows with 64-byte values and one 2 MiB blob is
+   decoded once by ``decode(backend="cuda")`` (digests held against
+   ``hashlib`` in submit order) while it is published into a
+   ``FanoutServer`` with 1, 8, 64 and 256 accounting-only peers: the
+   aggregate delivered MiB/s per count, and the hash-once proof
+   (``device.submit.bytes``, ``device.h2d.bytes`` and B1's launches the
+   same at every count); the wire published again to peers that hash
+   what they get (each peer's length and BLAKE2b equal the wire's); the
+   stalled arm (8 peers, one taking nothing past half the wire for 3.0
+   s) beside the same without the staller, no peer shed.  16b: ``python
+   -m dat_replication_protocol_tpu_torch.sidecar --tcp 127.0.0.1:0
+   --fanout --hub --stats-fd FD``: a probe connection gives the source
+   claim back, then the source connects, 8 subscribers connect, the
+   source sends the wire; its reply against ``hashlib``, every
+   subscriber's bytes against the wire; then ``--fanout --snapshot DATA
+   --fanout-retention 1048576`` over a 64 MiB dataset (cut from config
+   12's 1 GiB: phase 14b times that bootstrap): a late subscriber reads
+   one ``snapshot_needed`` record whose hint names the bootstrap port,
+   and ``run_snapshot_joiner`` from there assembles the dataset byte for
+   byte; B1's and B6's launches read from each sidecar's sentinel.  16c
+   (bench.py config 6): a journaled 20,000-row wire into a
+   ``CudaDecoder`` under ``run_resumable`` with a drop at half the wire,
+   20 reps (cut from 100), each rep's digests held against ``hashlib``,
+   fault -> first re-delivered frame in ms; ``FaultPlan.for_sweep``
+   seeds 0..15 over a 2,000-row wire with a 64 KiB blob (byte-at-a-time
+   plans over the full wire would take minutes of Python), each ending
+   with the clean digest sequence, and a flipped type byte ending in one
+   ``ProtocolError``; an armed flight recorder keeps one ``recovered``
+   bundle a session, with its checkpoint, up to half of its budget.
+   16d (bench.py config 12's chaos arm): a ``SnapshotSource`` over a 4
+   MiB window of the dataset (B6 and B1), a stale joiner's wire recorded
+   in a ``WireJournal``, torn inside the first CHUNKS frame and resumed
+   through ``run_resumable``: byte-exact, every wanted chunk verified
+   once, none delivered twice.  B1's launches of 16a, 16c and 16d form
+   the ``fanout`` bucket; 16b's are the subprocesses'.
 
 Every launch counter (B1's per variant and per block count, and its
 chained entry's per variant, too) is set to 0 just before each main-path
 phase (3, 4, 7, 8, 10, 11, 12a's stream, 12b's mesh calls, 13's gated
 runs; in 14a the replicas and both clean arms, in 14b materialize and
-the cold and stale joiners, then the crowd; 15a, 15c, 15d) and read just
-after; a
+the cold and stale joiners, then the crowd; 15a, 15c, 15d; 16a, 16c,
+16d) and read just after; a
 kernel or B1 variant that the phases did not launch fails the run.
 The lines before the last carry the card, the per-kernel JSON and the
 times; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -4107,6 +4143,589 @@ def run_hub_mesh(device, wires: list, want: list) -> dict:
             "init_s": group.init_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: fan-out and resume
+# ---------------------------------------------------------------------------
+
+# 16a: bench.py config 10 (bench_fanout), uncut
+FAN_ROWS = 16_384
+FAN_BLOB = 2 * MIB
+FAN_PEERS = (1, 8, 64, 256)
+FAN_STALL_PEERS = 8
+FAN_STALL_S = 3.0
+FAN_STEP = 1 << 18
+# 16b: the sidecar's subscribers, and the snapshot composition's dataset
+# (cut from config 12's 1 GiB: phase 14b times that bootstrap already)
+FAN_SUBSCRIBERS = 8
+FAN_SNAP_BYTES = 64 * MIB
+FAN_RETENTION = MIB
+# 16c: bench.py config 6 (bench_resume): 20,000 rows, a drop at half the
+# wire; its reps cut from 100 to 20
+RESUME_ROWS = 20_000
+RESUME_REPS = 20
+# the sweep and the flight arm run a 2,000-row wire (config 6's quick
+# size, with a 64 KiB blob): byte-at-a-time plans over the full wire
+# would take minutes of Python a seed
+SWEEP_ROWS = 2_000
+SWEEP_SEEDS = 16
+# 16d: bench.py config 12's chaos arm, a 4 MiB window of the dataset
+CHAOS_BYTES = 4 * MIB
+P16_OUT = "build/phase16"  # .gitignore lists build/
+
+
+def fanout_wire() -> bytes:
+    """Config 10's source wire: a change run of 64-byte values, then one
+    2 MiB blob of zeros."""
+    import dat_replication_protocol_tpu_torch as protocol
+
+    e = protocol.encode()
+    e.change_many([{"key": f"f-{j:06d}", "change": j, "from": j,
+                    "to": j + 1, "value": b"v" * 64}
+                   for j in range(FAN_ROWS)])
+    e.blob(FAN_BLOB).end(bytes(FAN_BLOB))
+    e.finalize()
+    return wire_of(e)
+
+
+class CheckSink:
+    """A fan-out peer that takes every view and keeps its length and a
+    BLAKE2b of what it was given; ``count_only`` keeps the length only
+    (config 10's accounting-only consumer)."""
+
+    def __init__(self, count_only: bool = False):
+        self.n = 0
+        self.h = None if count_only else hashlib.blake2b(digest_size=32)
+
+    def __call__(self, views) -> int:
+        for v in views:
+            self.n += len(v)
+            if self.h is not None:
+                self.h.update(v)
+        return sum(len(v) for v in views)
+
+
+def fanout_once(device, wire: bytes, want: list, n: int) -> dict:
+    """One source decode of ``wire`` on B1 published to ``n``
+    accounting-only peers: the digests against ``want``, the seconds
+    from the first publish to the drain, the digest-work counters and
+    B1's launches."""
+    import dat_replication_protocol_tpu_torch as protocol
+    from dat_replication_protocol_tpu_torch import obs
+    from dat_replication_protocol_tpu_torch.fanout import FanoutServer
+
+    srv = FanoutServer(retention_budget=len(wire) + MIB, stall_timeout=60.0)
+    try:
+        sinks = [CheckSink(count_only=True) for _ in range(n)]
+        peers = [srv.attach_peer(f"p{i}", sink=s)
+                 for i, s in enumerate(sinks)]
+        dec = protocol.decode(backend="cuda", device=device)
+        got = []
+        dec.on_digest(lambda kind, seq, d: got.append((kind, seq, d)))
+        c0 = obs.snapshot()["counters"]
+        b0 = read_counters()["blake2b"]
+        t0 = time.perf_counter()
+        for off in range(0, len(wire), FAN_STEP):
+            chunk = wire[off:off + FAN_STEP]
+            srv.publish(chunk)  # the fan-out: bytes only
+            dec.write(chunk)  # the digest work: once
+        dec.end()
+        srv.seal()
+        if not srv.drain(300):
+            raise AssertionError(f"phase 16a: {n} peers did not drain")
+        seconds = time.perf_counter() - t0
+        c1 = obs.snapshot()["counters"]
+        if not dec.finished or got != want:
+            raise AssertionError(f"phase 16a: {n} peers: the source's "
+                                 f"digests differ from hashlib's")
+        stats = [p.stats() for p in peers]
+        if any(s.n != len(wire) for s in sinks) or not all(
+                st["done"] and st["shed"] is None for st in stats):
+            raise AssertionError(f"phase 16a: {n} peers: a peer did not "
+                                 f"get the whole wire")
+        work = {k: c1.get(k, 0) - c0.get(k, 0)
+                for k in ("device.submit.bytes", "device.h2d.bytes")}
+        p99 = [st["lat_p99_ms"] for st in stats
+               if st["lat_p99_ms"] is not None]
+        return {"seconds": seconds, "work": work,
+                "b1": read_counters()["blake2b"] - b0,
+                "mib_s": n * len(wire) / seconds / MIB,
+                "p99_ms": max(p99) if p99 else None}
+    finally:
+        srv.close()
+
+
+def fanout_check(wire: bytes, n: int) -> None:
+    """``wire`` published to ``n`` peers that hash what they get: every
+    peer's length and BLAKE2b must be the wire's."""
+    from dat_replication_protocol_tpu_torch.fanout import FanoutServer
+
+    want = blake(wire)
+    srv = FanoutServer(retention_budget=len(wire) + MIB, stall_timeout=60.0)
+    try:
+        sinks = [CheckSink() for _ in range(n)]
+        for i, s in enumerate(sinks):
+            srv.attach_peer(f"c{i}", sink=s)
+        for off in range(0, len(wire), FAN_STEP):
+            srv.publish(wire[off:off + FAN_STEP])
+        srv.seal()
+        if not srv.drain(300):
+            raise AssertionError(f"phase 16a: the {n}-peer check hung")
+        bad = [i for i, s in enumerate(sinks)
+               if s.n != len(wire) or s.h.digest() != want]
+        if bad:
+            raise AssertionError(f"phase 16a: peers {bad[:8]} of {n} did "
+                                 f"not get the wire byte for byte")
+    finally:
+        srv.close()
+
+
+def stalled_arm(wire: bytes, stall_s: float) -> dict:
+    """Config 10's stalled arm: ``FAN_STALL_PEERS`` peers, one of them
+    taking nothing past half the wire for ``stall_s`` seconds (0: no
+    staller, the unstalled arm); the other peers' worst p99 append ->
+    delivery latency, and no peer shed."""
+    from dat_replication_protocol_tpu_torch.fanout import FanoutServer
+
+    srv = FanoutServer(retention_budget=len(wire) + MIB,
+                       stall_timeout=max(60.0, stall_s * 4))
+    try:
+        gate: list = []
+        held = CheckSink(count_only=True)
+
+        def stall_sink(views) -> int:
+            if not gate:
+                gate.append(time.perf_counter() + stall_s)
+            budget = (len(wire) // 2 - held.n
+                      if time.perf_counter() < gate[0] else 1 << 60)
+            if budget <= 0:
+                return 0
+            take = 0
+            for v in views:
+                take += min(len(v), budget - take)
+                if take >= budget:
+                    break
+            held.n += take
+            return take
+
+        first = srv.attach_peer("staller", sink=(
+            stall_sink if stall_s else CheckSink(count_only=True)))
+        others = [srv.attach_peer(f"h{i}", sink=CheckSink(count_only=True))
+                  for i in range(FAN_STALL_PEERS - 1)]
+        t0 = time.perf_counter()
+        for off in range(0, len(wire), FAN_STEP):
+            srv.publish(wire[off:off + FAN_STEP])
+        srv.seal()
+        if not srv.drain(120 + stall_s):
+            raise AssertionError("phase 16a: the stalled arm hung")
+        seconds = time.perf_counter() - t0
+        stats = [p.stats() for p in others]
+        shed = [st["shed"] for st in stats] + [first.stats()["shed"]]
+        if any(shed) or not all(st["done"] for st in stats):
+            raise AssertionError(f"phase 16a: a peer was shed: {shed}")
+        if stall_s and seconds < stall_s:
+            raise AssertionError("phase 16a: the staller did not stall")
+        return {"p99_ms": max(st["lat_p99_ms"] for st in stats),
+                "seconds": seconds}
+    finally:
+        srv.close()
+
+
+def run_fanout(device, wire: bytes, want: list) -> dict:
+    """16a (see the module docstring)."""
+    from dat_replication_protocol_tpu_torch import obs
+
+    obs_reset()
+    obs.enable()  # the hash-once counters
+    try:
+        arms = {n: fanout_once(device, wire, want, n) for n in FAN_PEERS}
+    finally:
+        obs.disable()
+    for n in FAN_PEERS:
+        fanout_check(wire, n)
+    base = arms[FAN_PEERS[0]]
+    for n, arm in arms.items():
+        if arm["work"] != base["work"] or arm["b1"] != base["b1"]:
+            raise AssertionError(f"phase 16a: the digest work grew with "
+                                 f"the peers: {n}: {arm['work']}, B1 "
+                                 f"{arm['b1']}; 1: {base['work']}, B1 "
+                                 f"{base['b1']}")
+    if base["b1"] == 0 or base["work"]["device.h2d.bytes"] == 0:
+        raise AssertionError(f"phase 16a: the source hashed off the card: "
+                             f"{base}")
+    return {"arms": arms, "stalled": stalled_arm(wire, FAN_STALL_S),
+            "unstalled": stalled_arm(wire, 0.0)}
+
+
+def sentinel_launches(record: dict) -> dict:
+    """B1's and B6's launches, from a stats record's kernel sentinel."""
+    sites = record["jit_sites"]
+    return {"blake2b": sites.get("ops.blake2b_cuda.packed", {}).get(
+        "calls", 0),
+            "gear_window_first_checked": sites.get(
+                "ops.fused_cdc_hash.window_first_checked", {}).get(
+                "calls", 0)}
+
+
+def read_to_eof(sock) -> bytes:
+    out = bytearray()
+    while chunk := sock.recv(1 << 20):
+        out += chunk
+    return bytes(out)
+
+
+def run_fanout_sidecar(device, wire: bytes, want: list) -> dict:
+    """16b (see the module docstring)."""
+    import signal
+    import socket
+    import threading
+
+    from dat_replication_protocol_tpu_torch.runtime.snapshot_driver import (
+        run_snapshot_joiner)
+    from dat_replication_protocol_tpu_torch.wire.framing import CAP_SNAPSHOT
+
+    out = {}
+    stats = StatsReader()
+    side = Sidecar(["--tcp", "127.0.0.1:0", "--fanout", "--hub", "--device",
+                    device, "--stats-fd", str(stats.w), "--stats-interval",
+                    "3600"], pass_fds=(stats.w,))
+    stats.start()
+    try:
+        probe = _connect(side.port)  # a health check: no byte sent
+        probe.close()
+        # its session gives the source claim back before its record is
+        # printed (the hub's first session may take a while to end)
+        side.wait_for("'bytes': 0, 'digests': 0", 60)
+        src = _connect(side.port)
+        time.sleep(0.5)  # the source's session claims the slot
+        subs = [_connect(side.port) for _ in range(FAN_SUBSCRIBERS)]
+        got: list = [None] * FAN_SUBSCRIBERS
+
+        def read_sub(i: int) -> None:
+            got[i] = read_to_eof(subs[i])
+
+        readers = [threading.Thread(target=read_sub, args=(i,), daemon=True)
+                   for i in range(FAN_SUBSCRIBERS)]
+        for t in readers:
+            t.start()
+        time.sleep(0.2)
+        t0 = time.perf_counter()
+        sender = threading.Thread(target=lambda: (
+            src.sendall(wire), src.shutdown(socket.SHUT_WR)), daemon=True)
+        sender.start()
+        reply = read_to_eof(src)
+        sender.join(120)
+        for t in readers:
+            t.join(120)
+        out["seconds"] = time.perf_counter() - t0
+        src.close()
+        for s in subs:
+            s.close()
+        check_replies({"errors": [], "replies": [reply]}, [want],
+                      "phase 16b, the source")
+        if any(g is None or len(g) != len(wire) or blake(g) != blake(wire)
+               for g in got):
+            raise AssertionError("phase 16b: a subscriber did not read the "
+                                 "wire byte for byte")
+        side.wait_for(f"'digests': {len(want)}", 30)
+    finally:
+        side.close(signal.SIGINT)
+        stats.close()
+    final = stats.records[-1]
+    c = final["metrics"]["counters"]
+    out["hub"] = sentinel_launches(final)
+    out["sent"] = c.get("fanout.sent.bytes", 0)
+    if out["hub"]["blake2b"] == 0 or \
+            out["sent"] != FAN_SUBSCRIBERS * len(wire):
+        raise AssertionError(f"phase 16b: B1 {out['hub']}, fanout.sent.bytes"
+                             f" {out['sent']}")
+
+    # the snapshot composition: a late subscriber is redirected
+    os.makedirs(P16_OUT, exist_ok=True)
+    data = make_blob(FAN_SNAP_BYTES, seed=SEED + 161)
+    path = os.path.join(P16_OUT, "snapshot.bin")
+    data.tofile(path)
+    stats = StatsReader()
+    t0 = time.perf_counter()
+    side = Sidecar(["--tcp", "127.0.0.1:0", "--fanout", "--snapshot", path,
+                    "--fanout-retention", str(FAN_RETENTION), "--device",
+                    device, "--stats-fd", str(stats.w), "--stats-interval",
+                    "3600"], pass_fds=(stats.w,))
+    stats.start()
+    out["snap_start_s"] = time.perf_counter() - t0
+    try:
+        boot = side.wait_for("snapshot bootstrap on", 5)
+        snap_port = int(boot.rsplit(":", 1)[1])
+        src = _connect(side.port)
+        sender = threading.Thread(target=lambda: (
+            src.sendall(wire), src.shutdown(socket.SHUT_WR)), daemon=True)
+        sender.start()
+        reply = read_to_eof(src)
+        sender.join(120)
+        src.close()
+        check_replies({"errors": [], "replies": [reply]}, [want],
+                      "phase 16b, the composed source")
+        late = _connect(side.port)
+        rec = json.loads(read_to_eof(late))
+        late.close()
+        start, end = rec.get("retained", (None, None))
+        if not (rec.get("snapshot_needed") and end == len(wire)
+                and 0 < start and end - start <= FAN_RETENTION
+                and rec.get("hint") == {"port": snap_port,
+                                        "cap": CAP_SNAPSHOT}):
+            raise AssertionError(f"phase 16b: the late subscriber read "
+                                 f"{rec}")
+        out["refusal"] = rec
+        joiner = _connect(snap_port)
+        t1 = time.perf_counter()
+        res = run_snapshot_joiner(
+            joiner.recv, joiner.sendall,
+            close_write=lambda: joiner.shutdown(socket.SHUT_WR),
+            device=device)
+        out["bootstrap_s"] = time.perf_counter() - t1
+        joiner.close()
+        if not np.array_equal(np.frombuffer(res["data"], np.uint8), data):
+            raise AssertionError("phase 16b: the bootstrap's dataset differs")
+    finally:
+        side.close(signal.SIGINT)
+        stats.close()
+        os.remove(path)
+    out["snap"] = sentinel_launches(stats.records[-1])
+    if min(out["snap"].values()) == 0:
+        raise AssertionError(f"phase 16b: the composed sidecar's kernels "
+                             f"{out['snap']}")
+    return out
+
+
+def resume_wire(rows: int, blob: int = 0) -> bytes:
+    """Config 6's journaled wire: ``rows`` changes with values of
+    ``i % 48`` bytes (and one blob of seeded bytes when ``blob``)."""
+    import dat_replication_protocol_tpu_torch as protocol
+    from dat_replication_protocol_tpu_torch.session import WireJournal
+
+    enc = protocol.encode()
+    journal = WireJournal()
+    enc.attach_journal(journal)
+    for i in range(rows):
+        enc.change({"key": f"key-{i:07d}", "change": i, "from": i,
+                    "to": i + 1, "value": b"v" * (i % 48)})
+        if blob and i == rows // 2:
+            enc.blob(blob).end(np.random.default_rng(SEED + 162).bytes(blob))
+    enc.finalize()
+    while enc.read(1 << 18) is not None:
+        pass
+    return journal.read_from(0)
+
+
+def resumed(device, wire: bytes, plans, times=None) -> tuple:
+    """One ``run_resumable`` of a ``CudaDecoder`` over ``wire`` with
+    ``plans(ckpt, failures)`` giving each connection's ``FaultPlan``:
+    the digests, the stats (or the ``ProtocolError``) and the decoder.
+    ``times`` gets the fault's and the first re-delivered frame's
+    clock."""
+    import dat_replication_protocol_tpu_torch as protocol
+    from dat_replication_protocol_tpu_torch.session import (
+        BackoffPolicy, FaultyReader, TransportFault, run_resumable)
+    from dat_replication_protocol_tpu_torch.session.faults import (
+        bytes_reader)
+    from dat_replication_protocol_tpu_torch.wire.framing import ProtocolError
+
+    dec = protocol.decode(backend="cuda", device=device)
+    got = []
+    dec.on_digest(lambda kind, seq, d: got.append((kind, seq, d)))
+
+    class TimedReader(FaultyReader):
+        def read(self, n):
+            try:
+                return super().read(n)
+            except TransportFault:
+                if times is not None:
+                    times["fault"] = time.perf_counter()
+                raise
+
+    def on_change(c, done):
+        if times is not None and "fault" in times \
+                and "redeliver" not in times:
+            times["redeliver"] = time.perf_counter()
+        done()
+
+    dec.change(on_change)
+
+    def source(ckpt, failures):
+        return TimedReader(bytes_reader(wire[ckpt.wire_offset:]),
+                           plans(ckpt, failures), sleep=lambda s: None)
+
+    try:
+        stats = run_resumable(source, dec,
+                              BackoffPolicy(base=0.0, max_retries=4, seed=0),
+                              chunk_size=1 << 16, expected_total=len(wire),
+                              stall_timeout=30)
+    except ProtocolError as e:
+        return got, e, dec
+    return got, stats, dec
+
+
+def run_resume(device) -> dict:
+    """16c (see the module docstring)."""
+    import tempfile
+
+    from dat_replication_protocol_tpu_torch.obs import flight
+    from dat_replication_protocol_tpu_torch.session import FaultPlan
+    from dat_replication_protocol_tpu_torch.wire.framing import iter_frames
+
+    os.makedirs(P16_OUT, exist_ok=True)
+    out = {}
+    wire = resume_wire(RESUME_ROWS)
+    want = wire_digests(wire)
+    drop = len(wire) // 2
+    lat = []
+    for rep in range(RESUME_REPS + 1):  # the first is the warm-up
+        times: dict = {}
+        got, stats, dec = resumed(
+            device, wire, lambda ck, f: FaultPlan(
+                seed=f, drop_at=(drop - ck.wire_offset) if f == 0 else None),
+            times)
+        if isinstance(stats, Exception) or not dec.finished \
+                or stats["reconnects"] != 1 or got != want:
+            raise AssertionError(f"phase 16c: rep {rep}: {stats}; digests "
+                                 f"{'==' if got == want else '!='} hashlib")
+        if rep:
+            lat.append((times["redeliver"] - times["fault"]) * 1e3)
+    lat.sort()
+    out["resume_ms"] = {"median": lat[len(lat) // 2],
+                        "p90": lat[int(0.9 * (len(lat) - 1))],
+                        "all": lat}
+    out["wire"] = len(wire)
+
+    sweep = resume_wire(SWEEP_ROWS, blob=1 << 16)
+    swant = wire_digests(sweep)
+    scen = {}
+    for seed in range(SWEEP_SEEDS):
+        got, stats, dec = resumed(
+            device, sweep,
+            lambda ck, f, seed=seed: FaultPlan.for_sweep(seed, len(sweep), f))
+        if isinstance(stats, Exception) or not dec.finished or got != swant:
+            raise AssertionError(f"phase 16c: sweep seed {seed}: {stats}")
+        plan = FaultPlan.for_sweep(seed, len(sweep), 0)
+        kind = ("drop" if plan.drop_at is not None else
+                "truncate" if plan.truncate_at is not None else
+                "stall" if plan.stall_at is not None else "reseg")
+        scen[kind] = scen.get(kind, 0) + 1
+    out["sweep"] = scen
+    # the flip arm: frame 700's type id flipped to an unknown one
+    p0 = [f[2] for f in iter_frames(sweep)][700]
+    got, err, dec = resumed(device, sweep, lambda ck, f: FaultPlan(
+        flip_at=p0 - 1 - ck.wire_offset, flip_mask=0x40, max_segment=4096))
+    if not isinstance(err, Exception) or err.frame != 700 \
+            or got != swant[:len(got)]:
+        raise AssertionError(f"phase 16c: the flip arm ended in {err!r}")
+    out["flip"] = {"error": str(err), "digests_before": len(got)}
+
+    # the flight recorder: each recovered session, one routine bundle,
+    # up to half of the budget
+    with tempfile.TemporaryDirectory(dir=P16_OUT) as d:
+        flight.FLIGHT.arm(d, max_bundles=4)
+        try:
+            for _ in range(3):
+                got, stats, dec = resumed(device, sweep, lambda ck, f: (
+                    FaultPlan(drop_at=1000) if f == 0 else FaultPlan()))
+                if isinstance(stats, Exception) or got != swant:
+                    raise AssertionError(f"phase 16c: flight arm {stats}")
+            names = sorted(n for n in os.listdir(d) if n.startswith("bundle"))
+            man = flight.read_bundle(os.path.join(d, names[0]))["manifest"]
+            suppressed = flight.FLIGHT.suppressed
+        finally:
+            flight.FLIGHT._reset_for_tests()
+            from dat_replication_protocol_tpu_torch import obs
+
+            obs.disable()  # arming turned the gate on
+    if len(names) != 2 or not all(n.endswith("recovered") for n in names) \
+            or suppressed != 1 \
+            or man["checkpoint"]["wire_offset"] != len(sweep) \
+            or man["checkpoint"]["digest"] != {"change_seq": SWEEP_ROWS,
+                                               "blob_seq": 1}:
+        raise AssertionError(f"phase 16c: bundles {names}, suppressed "
+                             f"{suppressed}, manifest {man}")
+    out["bundles"] = names
+    out["checkpoint"] = man["checkpoint"]
+    return out
+
+
+def run_snapshot_chaos(device) -> dict:
+    """16d (see the module docstring)."""
+    import dat_replication_protocol_tpu_torch as protocol
+    from dat_replication_protocol_tpu_torch.runtime.snapshot_driver import (
+        SnapshotJoiner, SnapshotResponder, SnapshotSource)
+    from dat_replication_protocol_tpu_torch.session import (
+        BackoffPolicy, FaultPlan, FaultyReader, WireJournal, run_resumable)
+    from dat_replication_protocol_tpu_torch.session.faults import (
+        bytes_reader)
+    from dat_replication_protocol_tpu_torch.wire import snapshot_codec as sn
+    from dat_replication_protocol_tpu_torch.wire.framing import (
+        CAP_SNAPSHOT, iter_frames)
+
+    data = make_blob(FAN_SNAP_BYTES, seed=SEED + 161)[:CHAOS_BYTES].copy()
+    t0 = time.perf_counter()
+    src = SnapshotSource(data, device=device)
+    materialize_s = time.perf_counter() - t0
+    stale = data.copy()
+    stale[src.offs[::max(1, len(src.offs) // 20)]] ^= 0x5A
+    resp = SnapshotResponder(src)
+    pilot = SnapshotJoiner(stale.tobytes(), device=device)
+    e = protocol.encode(peer_caps=CAP_SNAPSHOT)
+    journal = WireJournal()
+    e.attach_journal(journal)
+    pending = list(resp.begin_payloads())
+    while pending and not pilot.done:
+        replies = []
+        for payload in pending:
+            e.snapshot_frame(payload)
+            replies.extend(pilot.handle(sn.decode_snapshot(payload)))
+        pending = []
+        for r in replies:
+            pending.extend(resp.handle(sn.decode_snapshot(r)))
+    e.finalize()
+    while e.read(1 << 16) is not None:
+        pass
+    wanted = pilot.chunks_verified
+    wire = journal.read_from(0)
+    cut = next(p0 + (end - p0) // 2 for _s, _t, p0, end in iter_frames(wire)
+               if wire[p0] == sn.SN_CHUNKS)
+
+    joiner = SnapshotJoiner(stale.tobytes(), device=device)
+    delivered = []
+    dec = protocol.decode()
+
+    def on_snapshot(msg, done):
+        if msg.kind == sn.SN_CHUNKS:
+            delivered.extend(bytes(d) for d, _c in msg.chunks)
+        joiner.handle(msg)
+        done()
+
+    dec.snapshot(on_snapshot)
+
+    def source(ckpt, failures):
+        plan = (FaultPlan(truncate_at=cut - ckpt.wire_offset)
+                if failures == 0 else FaultPlan())
+        return FaultyReader(bytes_reader(wire[ckpt.wire_offset:]), plan)
+
+    stats = run_resumable(source, dec,
+                          BackoffPolicy(base=0.0005, cap=0.005,
+                                        max_retries=4),
+                          expected_total=len(wire))
+    res = joiner.result()
+    if stats["reconnects"] < 1 or not np.array_equal(
+            np.frombuffer(res["data"], np.uint8), data) \
+            or joiner.chunks_verified != wanted \
+            or len(set(delivered)) != len(delivered):
+        raise AssertionError(f"phase 16d: reconnects {stats['reconnects']}, "
+                             f"chunks verified {joiner.chunks_verified} of "
+                             f"{wanted}, {len(delivered)} delivered, "
+                             f"{len(set(delivered))} distinct")
+    return {"chunks": len(src.offs), "wanted": wanted, "cut": cut,
+            "wire": len(wire), "reconnects": stats["reconnects"],
+            "delivered": len(delivered), "materialize_s": materialize_s}
+
+
 def main() -> int:
     import torch
 
@@ -4562,11 +5181,83 @@ def main() -> int:
             raise AssertionError(f"phase {what} never launched B1")
     log(f"phase 15: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    fwire = fanout_wire()
+    fwant = wire_digests(fwire)
+    reset_counters()
+    fan = run_fanout(device, fwire, fwant)
+    p16a = read_counters()
+    for n, arm in fan["arms"].items():
+        log(f"phase 16a: config 10's {len(fwire)} B wire ({FAN_ROWS} rows, "
+            f"a {FAN_BLOB} B blob) decoded once by decode(backend='cuda'), "
+            f"digests == hashlib in submit order, published to {n} "
+            f"accounting-only peers: {arm['mib_s']} MiB/s delivered in "
+            f"aggregate ({arm['seconds']} s from the first publish to the "
+            f"drain), peers' worst p99 append -> delivery {arm['p99_ms']} "
+            f"ms; digest work {arm['work']}, B1 launches {arm['b1']}; on "
+            f"{card}")
+    log(f"phase 16a: hash once: device.submit.bytes, device.h2d.bytes and "
+        f"B1's launches equal at {list(FAN_PEERS)} peers; each peer of a "
+        f"second publish at each count read the wire byte for byte (its "
+        f"length and BLAKE2b)")
+    log(f"phase 16a: {FAN_STALL_PEERS} peers, one stalled for {FAN_STALL_S} "
+        f"s at half the wire: the others' worst p99 "
+        f"{fan['stalled']['p99_ms']} ms ({fan['stalled']['seconds']} s); "
+        f"without the staller {fan['unstalled']['p99_ms']} ms "
+        f"({fan['unstalled']['seconds']} s); no peer shed; on {card}")
+    fs = run_fanout_sidecar(device, fwire, fwant)
+    log(f"phase 16b: --tcp --fanout --hub sidecar: a probe connection gave "
+        f"the source claim back; the source's reply == hashlib; "
+        f"{FAN_SUBSCRIBERS} subscribers read the wire byte for byte and "
+        f"EOF ({fs['seconds']} s from the source's first byte; "
+        f"fanout.sent.bytes {fs['sent']}); its sentinel: {fs['hub']}; on "
+        f"{card}")
+    log(f"phase 16b: --fanout --snapshot over {FAN_SNAP_BYTES} B (listening "
+        f"after {fs['snap_start_s']:.2f} s), --fanout-retention "
+        f"{FAN_RETENTION}: the late subscriber read {fs['refusal']}; the "
+        f"bootstrap from the hinted port byte-exact in {fs['bootstrap_s']} "
+        f"s; its sentinel: {fs['snap']}; on {card}")
+    reset_counters()
+    rs = run_resume(device)
+    p16c = read_counters()
+    r_ms = rs["resume_ms"]
+    log(f"phase 16c: config 6 ({RESUME_ROWS} rows, {rs['wire']} B, a drop "
+        f"at half the wire) into a CudaDecoder under run_resumable, "
+        f"{RESUME_REPS} reps (cut from 100): fault -> first re-delivered "
+        f"frame median {r_ms['median']} ms, p90 {r_ms['p90']} ms (all "
+        f"{r_ms['all']}); every rep's digests 0..{RESUME_ROWS - 1} once "
+        f"each == hashlib; on {card}")
+    log(f"phase 16c: for_sweep seeds 0..{SWEEP_SEEDS - 1} over a "
+        f"{SWEEP_ROWS}-row wire with a 64 KiB blob (scenarios {rs['sweep']}) "
+        f"each ended with the clean digest sequence; the flip arm: "
+        f"{rs['flip']}; the armed recorder kept bundles {rs['bundles']} "
+        f"(routine, half of 4), checkpoint {rs['checkpoint']}")
+    reset_counters()
+    ch = run_snapshot_chaos(device)
+    p16d = read_counters()
+    log(f"phase 16d: config 12's chaos arm: SnapshotSource over "
+        f"{CHAOS_BYTES} B ({ch['chunks']} chunks, {ch['materialize_s']:.3f} "
+        f"s), a joiner's {ch['wire']} B wire torn at byte {ch['cut']} inside "
+        f"the first CHUNKS frame and resumed from a WireJournal "
+        f"({ch['reconnects']} reconnect): byte-exact, chunks verified "
+        f"{ch['wanted']} == wanted, {ch['delivered']} chunks delivered, none "
+        f"twice")
+    p16 = {k: p16a[k] + p16c[k] + p16d[k] for k in launches}
+    for what, n in (("16a", p16a), ("16c", p16c), ("16d", p16d)):
+        if n["blake2b"] == 0:
+            raise AssertionError(f"phase {what} never launched B1")
+    if p16d["gear_window_first_checked"] == 0:
+        raise AssertionError("phase 16d never launched B6")
+    log(f"phase 16: launches 16a {p16a}; 16c {p16c}; 16d {p16d}")
+    log(f"phase 16: {time.perf_counter() - t0:.2f} s")
+
     for k in launches:
-        launches[k] += p10[k] + p11[k] + p12[k] + p13[k] + p14[k] + p15[k]
+        launches[k] += (p10[k] + p11[k] + p12[k] + p13[k] + p14[k] + p15[k]
+                        + p16[k])
     for r in rows:
-        r["launches"] += (p10[r["name"]] + p11[r["name"]] + p12[r["name"]]
-                          + p13[r["name"]] + p14[r["name"]] + p15[r["name"]])
+        n = r["name"]
+        r["launches"] += (p10[n] + p11[n] + p12[n] + p13[n] + p14[n]
+                          + p15[n] + p16[n])
     buckets = b1_buckets(session["launches"], side["launches"],
                          ent["launches"], cdc, streamed)
     buckets["reconcile"] = sum(p10["b1_blocks"].values())
@@ -4575,6 +5266,7 @@ def main() -> int:
     buckets["telemetry"] = p13["blake2b"]
     buckets["anti_entropy"] = p14["blake2b"]
     buckets["hub"] = p15["blake2b"]
+    buckets["fanout"] = p16["blake2b"]
     if sum(buckets.values()) != launches["blake2b"]:
         raise AssertionError(f"B1's launches by bucket {buckets} do not sum "
                              f"to its {launches['blake2b']} launches")

@@ -250,6 +250,13 @@ class CudaDecoder(_DigestTaps, Decoder):
         self._blob_parts: dict[int, list[bytes]] = {}
         self._blob_streams: dict[int, _HostStream] = {}
 
+    def _checkpoint_digest(self) -> dict:
+        # the next change/blob digest sequence numbers: per-payload
+        # digests are independent (no chaining across frames), so the
+        # counters are the whole state a resumed session continues from
+        # without gaps or repeats
+        return {"change_seq": self._change_seq, "blob_seq": self._blob_seq}
+
     def _deliver_change(self, change, payload) -> None:
         if self._digest_cbs:
             self._pipeline.submit(bytes(payload), self._emit_change_digest,

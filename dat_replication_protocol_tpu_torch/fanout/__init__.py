@@ -1,10 +1,16 @@
 """Broadcast replication: one shared log, many independent cursors.
 
-The port carries :mod:`.log` (:class:`BroadcastLog`, the offset-addressed
-log a snapshot source frames its cold answer into once).  The JAX
-package's fan-out server is not carried yet.
+One source session's wire becomes an offset-addressed
+:class:`BroadcastLog` that many downstream peers stream from at
+independent offsets: digest work is done once (wherever the source
+session decodes), and frames are fanned out by :class:`FanoutServer`
+with per-peer flow-control windows and the three-stage overload
+contract (admission, window stall, shed).  A snapshot source also frames
+its cold answer into a :class:`BroadcastLog` once.
 """
 
 from .log import BroadcastCursor, BroadcastLog, SnapshotNeeded
+from .server import FanoutBusy, FanoutPeer, FanoutServer, PeerShed
 
-__all__ = ["BroadcastLog", "BroadcastCursor", "SnapshotNeeded"]
+__all__ = ["BroadcastLog", "BroadcastCursor", "SnapshotNeeded",
+           "FanoutServer", "FanoutPeer", "FanoutBusy", "PeerShed"]

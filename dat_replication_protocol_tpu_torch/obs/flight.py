@@ -5,21 +5,25 @@ stdlib only.  When armed (a directory is set), a structured
 :class:`~..wire.framing.ProtocolError` (every decoder error funnels
 through ``Decoder._protocol_error``) or a stuck backend init dumps one
 self-contained bundle, in the reference's layout, so the JAX package's
-offline ``dump`` command reads it::
+offline ``dump`` command reads it; so does a resumable session that
+absorbed transport faults (``recovered``) or failed (``session-failed``)::
 
     bundle-<pid>-c<capture>-<seq>-<reason>/
         manifest.json   reason, wall and monotonic time, the structured
-                        error (type/message/frame/offset/cause), extra
-                        fields, ring-drop accounting
+                        error (type/message/frame/offset/cause), the
+                        session checkpoint, the fault plans noted,
+                        extra fields, ring-drop accounting
         metrics.json    the registry snapshot
         events.jsonl    the event ring, one record per line
         spans.jsonl     the span ring
 
 The bundle is written under a ``.tmp-`` name and renamed into place, so
 no reader sees half of one.  Dumps are bounded (``max_bundles`` per
-armed capture) and deduplicated (one error object, one bundle).
-:meth:`FlightRecorder.note_plan` is kept as the reference's hook for
-fault plans; the port has no fault injector, so nothing calls it yet.
+armed capture; routine dumps, such as a recovered session's, at half of
+it) and deduplicated (one error object, one bundle).  The fault injector
+(``session/faults.py``) notes each plan it runs with
+:meth:`FlightRecorder.note_plan`, so the chaos coordinates ride the next
+bundle.
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ class FlightRecorder:
         self.dir: Optional[str] = None
         self.max_bundles = DEFAULT_MAX_BUNDLES
         self._seq = 0
+        self._routine = 0  # routine dumps of this capture
         # bumped by every arm() and never reset, so re-arming into the
         # same directory cannot collide with a previous capture's names
         self._capture = 0
@@ -94,6 +99,7 @@ class FlightRecorder:
             self.dir = directory
             self.max_bundles = max_bundles
             self._seq = 0
+            self._routine = 0
             self._capture += 1
             self._last_error = None
             self.suppressed = 0
@@ -117,9 +123,17 @@ class FlightRecorder:
             self._plans.append(d)
 
     def dump(self, reason: str, *, error: Optional[BaseException] = None,
-             extra: Optional[dict] = None) -> Optional[str]:
+             checkpoint=None, extra: Optional[dict] = None,
+             routine: bool = False) -> Optional[str]:
         """Write one bundle; returns its path, or None when disarmed, over
-        budget, or the error object was already bundled."""
+        budget, or the error object was already bundled.
+
+        ``checkpoint`` (a :class:`~..session.resume.SessionCheckpoint` or
+        a dict) goes into the manifest.  ``routine`` marks a non-failure
+        dump (a recovered session's incident record): routine dumps are
+        also capped at half of the budget, so a long-lived process that
+        absorbs transient faults never spends the bundles kept for a
+        genuine failure."""
         with self._lock:
             directory = self.dir
             if directory is None:
@@ -129,11 +143,14 @@ class FlightRecorder:
             if error is not None and error is last:
                 self.suppressed += 1
                 return None
-            if self._seq >= self.max_bundles:
+            if self._seq >= self.max_bundles or (
+                    routine and self._routine >= max(1, self.max_bundles // 2)):
                 self.suppressed += 1
                 return None
             seq = self._seq
             self._seq += 1
+            if routine:
+                self._routine += 1
             capture = self._capture
             if error is not None:
                 try:
@@ -163,6 +180,10 @@ class FlightRecorder:
                 "cause": (None if cause is None
                           else f"{type(cause).__name__}: {cause}"),
             }
+        if checkpoint is not None:
+            as_dict = getattr(checkpoint, "as_dict", None)
+            manifest["checkpoint"] = (as_dict() if as_dict is not None
+                                      else dict(checkpoint))
         if extra:
             manifest["extra"] = extra
         try:
@@ -191,6 +212,7 @@ class FlightRecorder:
         with self._lock:
             self.dir = None
             self._seq = 0
+            self._routine = 0
             self._last_error = None
             self._plans.clear()
             self.last_bundle = None

@@ -25,8 +25,8 @@ Layering:
   harness and the property suite's workhorse.
 * :func:`run_initiator` / :func:`run_responder` — the live duplex
   drivers over blocking byte pairs (the :mod:`..session.transport`
-  contract).  The JAX package's resume journal (``journal=``) is not
-  carried.
+  contract); ``run_initiator(journal=)`` tees the outgoing wire into a
+  resume journal.
 * The sidecar serves :func:`run_responder` under ``--reconcile`` (the
   mode IS the out-of-band capability advertisement; WIRE.md).
 
@@ -456,17 +456,21 @@ def reconcile_local(replica_a: RatelessReplica, replica_b: RatelessReplica,
 
 def run_initiator(replica: RatelessReplica, read_bytes, write_bytes,
                   close_write=None, batch0: int = DEFAULT_BATCH0,
-                  chunk_size: int = 64 * 1024) -> dict:
+                  journal=None, chunk_size: int = 64 * 1024) -> dict:
     """Drive one reconciliation as the initiator over a duplex byte
     pair (the :mod:`..session.transport` contract: blocking
     ``read_bytes(n)`` / ``write_bytes(data)``).
 
     Streams BEGIN + doubling symbol batches, answers the responder's
     MORE/DONE/FAIL, ships the requested records as ChangeBatch frames,
-    and collects the responder's differing records.  Returns
+    and collects the responder's differing records.  ``journal`` (a
+    :class:`~..session.resume.WireJournal`) tees the outgoing wire for
+    resume after a reconnect.  Returns
     ``{"ok", "symbols", "rounds", "records_sent", "received"}``;
     raises the session's structured ProtocolError on failure."""
     enc = Encoder(peer_caps=CAP_RECONCILE | CAP_CHANGE_BATCH)
+    if journal is not None:
+        enc.attach_journal(journal)
     dec = Decoder()
     syms = replica.coded_symbols()
     received: list = []

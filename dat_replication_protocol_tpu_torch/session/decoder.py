@@ -32,8 +32,10 @@ wire_len, kind; ``rows`` on a batch frame), ``decoder.requeue`` and
 ``protocol.error`` events, and a flight bundle on a protocol error when
 the recorder is armed.
 
-Only the streaming scanner is carried: the JAX package's native bulk
-index and checkpoints are not.
+:meth:`checkpoint` exports the resume point (``session/resume.py``) and
+:meth:`watermark` the wire cursors on the fleet plane.  Only the
+streaming scanner is carried: the JAX package's native bulk index is
+not.
 Subclasses tap payloads through :meth:`_deliver_change`,
 :meth:`_note_change_batch` and the blob hooks
 (:meth:`_open_blob_if_ready`, :meth:`_note_blob_bytes`,
@@ -54,6 +56,7 @@ from ..obs.metrics import OBS as _OBS
 from ..obs.metrics import counter as _counter
 from ..obs.metrics import histogram as _histogram
 from ..obs.tracing import trace_instant as _trace_instant
+from ..obs.watermarks import WATERMARKS as _WATERMARKS
 from ..wire.change_codec import Change, decode_change
 from ..wire.framing import (LOCAL_CAPS, MAX_HEADER_LEN, TYPE_BLOB,
                             TYPE_CHANGE, TYPE_CHANGE_BATCH, TYPE_HEADER,
@@ -243,6 +246,12 @@ class Decoder:
         # frames tile the wire, so each header adds its frame's length
         self._frame_start = 0
         self._frame_end = 0
+        # wire bytes the parser fully consumed (bytes minus what still
+        # sits unparsed in the overflow queue): the watermark's
+        # ``parsed`` cursor
+        self._parsed = 0
+        # the wire offset of the last exported checkpoint
+        self._ckpt_offset = 0
         # parked ChangeBatch delivery cursor: a batch whose rows could not
         # all be delivered (async ack / pause) resumes here, and nothing
         # after it is parsed until it drains
@@ -414,6 +423,54 @@ class Decoder:
                 + self.reconcile_frames + self.snapshot_frames
                 - (1 if self._current_blob is not None else 0))
 
+    def checkpoint(self, emit_event: bool = True):
+        """Export this instant's session progress (resume support).
+
+        Cheap and side-effect-free: a :class:`~.resume.SessionCheckpoint`
+        whose ``wire_offset`` is the count of wire bytes this decoder has
+        accepted, the exact byte a reconnecting sender must resume from
+        (parser state, including mid-frame cursors and unparsed overflow,
+        lives on in this object).  The frame/row/blob cursors and the
+        backend digest state ride along for observability and structured
+        error context.
+
+        ``emit_event=False`` skips the ``session.checkpoint`` event: the
+        flight recorder snapshots a checkpoint as bundle context, which
+        is not a resume point taken.
+        """
+        from .resume import SessionCheckpoint
+
+        self._ckpt_offset = self.bytes
+        if emit_event and _OBS.on:
+            _emit("session.checkpoint", wire_offset=self.bytes,
+                  frame=self._frames_delivered(), row=self.changes)
+        blob = self._current_blob
+        return SessionCheckpoint(
+            wire_offset=self.bytes,
+            frame=self._frames_delivered(),
+            row=self.changes,
+            blob_offset=blob.received if blob is not None else 0,
+            digest=self._checkpoint_digest(),
+        )
+
+    def watermark(self, link: str) -> None:
+        """Export this decoder's wire-position cursors on the fleet
+        plane under ``link``: ``accepted`` (bytes taken from the
+        transport, the resume point), ``parsed`` (bytes the parser fully
+        consumed) and ``checkpoint`` (the last exported resume point).
+        Values are read only at snapshot time, so the hot path pays
+        nothing.  Call ``WATERMARKS.untrack(link)`` when the session
+        ends."""
+        _WATERMARKS.track("accepted", link, lambda: self.bytes)
+        _WATERMARKS.track("parsed", link, lambda: self._parsed)
+        _WATERMARKS.track("checkpoint", link, lambda: self._ckpt_offset)
+
+    def _checkpoint_digest(self) -> dict:
+        """Backend hook: running digest state to carry in a checkpoint
+        (the digest decoder records its sequence counters).  Base: no
+        digest surface, nothing to record."""
+        return {}
+
     def _protocol_error(self, message: str,
                         cause: BaseException | None = None) -> ProtocolError:
         """The structured wire error, and the flight recorder's hook:
@@ -427,7 +484,8 @@ class Decoder:
                   message=message)
             self._lit_cost_failure(message)
         if _FLIGHT.armed:
-            _FLIGHT.dump("protocol-error", error=err)
+            _FLIGHT.dump("protocol-error", error=err,
+                         checkpoint=self.checkpoint(emit_event=False))
         return err
 
     # -- flow control -----------------------------------------------------------
@@ -537,6 +595,7 @@ class Decoder:
             self._header.append(chunk[i])
             i += 1
             if len(self._header) >= 2 and not (self._header[-2] & 0x80):
+                self._parsed += i
                 try:
                     framed_len, _ = decode_uvarint(self._header)
                 except ValueError as e:  # varint exceeds 64 bits
@@ -570,8 +629,10 @@ class Decoder:
                     return None
                 return chunk[i:]
             if len(self._header) >= MAX_HEADER_LEN:
+                self._parsed += i
                 self.destroy(self._protocol_error("frame header too long"))
                 return None
+        self._parsed += n  # header still accumulating across chunks
         return None
 
     def _change_data(self, chunk: memoryview) -> memoryview | None:
@@ -586,6 +647,7 @@ class Decoder:
             # whole payload inside one chunk: zero-copy slice
             payload = chunk[: self._missing]
             rest = chunk[self._missing:]
+            self._parsed += self._missing
             self._missing = 0
             try:
                 finish(payload)
@@ -597,6 +659,7 @@ class Decoder:
             self._payload_parts = []
         take = min(len(chunk), self._missing)
         self._payload_parts.append(bytes(chunk[:take]))
+        self._parsed += take
         self._missing -= take
         rest = chunk[take:]
         if self._missing == 0:
@@ -868,6 +931,7 @@ class Decoder:
     def _blob_data(self, chunk: memoryview) -> memoryview | None:
         blob = self._current_blob
         take = min(len(chunk), self._missing)
+        self._parsed += take
         self._missing -= take
         # materialize once: the reader and the _note_blob_bytes tap
         # share this bytes object

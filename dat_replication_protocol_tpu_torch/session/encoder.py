@@ -24,7 +24,9 @@ A trimmed copy of ``dat_replication_protocol_tpu/session/encoder.py``
 Telemetry (behind :data:`..obs.metrics.OBS`): the reference's session
 counters and ``encoder.frame`` instants that tile the wire; a corked
 blob is tagged when it uncorks, where its true offset is known.
-Journals are not carried.
+* :meth:`Encoder.attach_journal` tees every byte :meth:`Encoder.read`
+  hands out into a resume journal at absolute wire offsets
+  (``session/resume.py``).
 * Negotiated control frames: :meth:`Encoder.reconcile_frame` and
   :meth:`Encoder.snapshot_frame` frame one message of the anti-entropy
   protocols (``wire/reconcile_codec.py``, ``wire/snapshot_codec.py``),
@@ -257,6 +259,9 @@ class Encoder:
         # single consumer hook (the pipe / a transport pump): called when
         # new wire bytes become readable
         self._on_readable: Optional[Callable[[], None]] = None
+        # resume tee (session.resume.WireJournal): every byte read()
+        # hands out is also appended here
+        self._journal = None
 
     def _attach_readable(self, cb: Callable[[], None]) -> None:
         if self._on_readable is not None:
@@ -266,6 +271,29 @@ class Encoder:
 
     def _detach_readable(self) -> None:
         self._on_readable = None
+
+    def attach_journal(self, journal) -> None:
+        """Tee every wire byte :meth:`read` returns into ``journal``
+        (anything with ``append(bytes)``: a
+        :class:`~.resume.WireJournal` or a broadcast log), so the session
+        can resume from a receiver checkpoint after a transport failure.
+        ``read`` is the single exit of the output queue, so the journal
+        sees bytes in wire order.
+
+        Journal positions are absolute wire offsets: attaching after
+        bytes were already read out aligns the journal's window past
+        them with ``journal.seek``; a journal that cannot seek is refused
+        then, since recording them at offset 0 would make every
+        ``read_from(checkpoint.wire_offset)`` replay the wrong bytes."""
+        delivered = self.bytes - self._queued_bytes  # already read out
+        if delivered:
+            seek = getattr(journal, "seek", None)
+            if seek is None:
+                raise RuntimeError(
+                    f"encoder already emitted {delivered} byte(s) and the "
+                    "journal cannot seek; attach before the first read")
+            seek(delivered)
+        self._journal = journal
 
     # -- capability negotiation ---------------------------------------------
 
@@ -679,6 +707,10 @@ class Encoder:
         data = bytes(out)
         if _OBS.on and data:
             _M_ENC_BYTES.inc(len(data))
+        if self._journal is not None and data:
+            # before the flush callbacks: an on_flush hook that acks the
+            # journal window must find its bytes there
+            self._journal.append(data)
         below = not self._above_high_water()
         for cb in fired:
             cb()

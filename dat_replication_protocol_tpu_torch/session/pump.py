@@ -1,5 +1,6 @@
-"""Wire pump route selection, trimmed to the plain route, and the pump's
-transport notes for the wire cost ledger.
+"""Wire pump route selection, trimmed to the plain route, the receive
+side's broadcast tap, and the pump's transport notes for the wire cost
+ledger.
 
 The JAX package's ``session/pump.py`` routes the transport's byte loops
 through a batched-syscall C extension (``recvmmsg``/``sendmmsg``) when
@@ -9,6 +10,10 @@ route only: :func:`effective_pump_route` is always ``"python"`` and
 the portable pumps of :mod:`.transport`.  Both routes put the same
 bytes on the wire; the batched route is host work still to come.
 
+:func:`_tapped_reader` is the plain route's tap: the fan-out source's
+``FanoutServer.publish`` observes every received chunk as the exact
+bytes object the decoder is fed (the JAX package's ``recv_pump(tap=)``).
+
 The pump is the transport, so it reports the bytes it moves to the wire
 cost ledger (:mod:`..obs.wirecost`) as the ground truth the per-frame
 ledger is audited against: :func:`_metered_reader` on the receive side,
@@ -16,6 +21,8 @@ ledger is audited against: :func:`_metered_reader` on the receive side,
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 from ..obs import wirecost as _wirecost
 from ..obs.metrics import OBS as _OBS
@@ -63,3 +70,22 @@ def _metered_reader(decoder, read_bytes):
         return data
 
     return metered
+
+
+def _tapped_reader(read_bytes: Callable[[int], bytes],
+                   tap: Optional[Callable[[bytes], None]]
+                   ) -> Callable[[int], bytes]:
+    """``read_bytes`` that hands every non-empty read to ``tap`` before
+    returning it (the broadcast tee: an append and an O(1) mark, never a
+    block)."""
+    if tap is None:
+        return read_bytes
+
+    def tapped(n: int) -> bytes:
+        data = read_bytes(n)
+        if data:
+            tap(data)
+        return data
+
+    return tapped
+

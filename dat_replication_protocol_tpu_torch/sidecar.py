@@ -2,8 +2,8 @@
 
 The port of ``dat_replication_protocol_tpu/sidecar.py``'s digest reply
 (:121-393), its TCP accept loop (:741-926), its anti-entropy modes
-(:517-643), its hub mode and its stats and scrape endpoints
-(:927-1141)::
+(:517-643), its hub mode, its fan-out mode with the snapshot redirect
+(:394-515, :645-712) and its stats and scrape endpoints (:927-1141)::
 
     python -m dat_replication_protocol_tpu_torch.sidecar --stdio
     python -m dat_replication_protocol_tpu_torch.sidecar --tcp 127.0.0.1:7531
@@ -14,6 +14,11 @@ The port of ``dat_replication_protocol_tpu/sidecar.py``'s digest reply
         --reconcile LOGFILE
     python -m dat_replication_protocol_tpu_torch.sidecar --tcp HOST:PORT \
         --snapshot DATAFILE [--snapshot-offset BYTES]
+    python -m dat_replication_protocol_tpu_torch.sidecar --tcp HOST:PORT \
+        --fanout [--hub] [--fanout-retention BYTES] [--fanout-window BYTES] \
+        [--fanout-stall-timeout SECONDS]
+    python -m dat_replication_protocol_tpu_torch.sidecar --tcp HOST:PORT \
+        --fanout --snapshot DATAFILE [--snapshot-port PORT]
 
 **Digest reply** (the default mode).  A client pipes a session (changes
 + blobs) in; the sidecar decodes it with ``decode(backend='cuda')``,
@@ -67,8 +72,26 @@ with ``emit_seq``, the hub's aggregate and per-session breakdown, the
 ``wirecost`` ledger and ``healthz``; or with ``--stats-format prom``
 Prometheus text); SIGUSR1 forces a dump.  ``--obs-http PORT`` serves
 ``/metrics``, ``/snapshot``, ``/healthz`` and ``/events`` on
-127.0.0.1 (:mod:`.obs.http`).  The fan-out, edge and replica modes of
-the reference sidecar are not ported.
+127.0.0.1 (:mod:`.obs.http`).  The edge and replica modes of the
+reference sidecar are not ported.
+
+**Fan-out mode.**  ``--fanout`` (``--tcp`` only) runs one shared
+:class:`~.fanout.FanoutServer`.  The first connection to claim the
+source slot is the broadcast source: it is served as a digest session
+(its digests on B1, or on the hub with ``--hub``) and every wire byte it
+sends is also published into the broadcast log; its EOF seals the log.
+A claimant that closes without publishing a byte gives the claim back.
+Every other connection is a subscriber streamed the source's raw wire
+bytes by the fan-out's ``os.writev`` dispatcher (it never hashes).  A
+subscriber gets one JSON line and EOF instead of the stream when it
+asks below what the log retains (``{"snapshot_needed": true,
+"retained": [start, end]}``), when the fan-out is full (``"rejected"``)
+or when it sends bytes (``"not_source"``).  With ``--snapshot
+DATAFILE`` the bootstrap is served on its own port (``--snapshot-port``,
+printed on stderr as ``snapshot bootstrap on HOST:PORT``), and the
+snapshot-needed record carries ``"hint": {"port", "cap"}`` naming it.
+The stats records gain the fan-out's ``fanout`` and per-peer ``peers``
+sections.
 
 Telemetry, as the reference's flags give it (:1303-1328):
 ``--flight-dir DIR`` arms the flight recorder (a protocol error dumps a
@@ -121,6 +144,9 @@ _M_STALLS = _counter("sidecar.stalls")
 # hub mode: the one hub every accepted connection shares; its aggregate
 # and per-session breakdown ride the stats records
 _ACTIVE_HUB = None
+# fan-out mode: the one fan-out server, whose per-peer breakdown rides
+# the stats records
+_ACTIVE_FANOUT = None
 
 
 def set_active_hub(hub) -> None:
@@ -130,10 +156,18 @@ def set_active_hub(hub) -> None:
     _ACTIVE_HUB = hub
 
 
+def set_active_fanout(server) -> None:
+    """Install the fan-out server whose per-peer breakdown
+    ``--stats-fd`` records carry (None detaches)."""
+    global _ACTIVE_FANOUT
+    _ACTIVE_FANOUT = server
+
+
 def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
                 chunk_size: int = DEFAULT_CHUNK,
                 drain_timeout: float | None = DEFAULT_DRAIN_TIMEOUT,
-                hub=None, session_key: str | None = None) -> dict:
+                hub=None, session_key: str | None = None,
+                publish=None) -> dict:
     """Serve one wire session over a blocking byte pair.
 
     ``read_bytes(n)`` returns up to n bytes (``b''`` at EOF);
@@ -159,9 +193,14 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
     decoder's submits tears this session down as any session-fatal
     error does.
 
-    With telemetry on, the wire cost ledger gets the session's frames
-    and transport bytes on the link ``session_key`` (``"stdio"``
-    without one).
+    ``publish`` (the fan-out's ``FanoutServer.publish``) observes every
+    received chunk before the decoder takes it: the broadcast source.
+
+    The decoder's wire cursors (``accepted``, ``parsed``,
+    ``checkpoint``) are on the fleet plane under the link ``session_key``
+    (``"stdio"`` without one) while the session runs; with telemetry on,
+    the wire cost ledger gets the session's frames and transport bytes on
+    the same link.
     """
     hub_session = None
     if hub is not None:
@@ -186,8 +225,11 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
         dec = decode(backend="cuda", pipeline=hub_session)
     else:
         dec = decode(backend="cuda", device=device)
-    enc.cost_link = dec.cost_link = session_key if session_key else "stdio"
-    read_bytes = session_pump._metered_reader(dec, read_bytes)
+    link = session_key if session_key else "stdio"
+    enc.cost_link = dec.cost_link = link
+    dec.watermark(link)
+    read_bytes = session_pump._metered_reader(
+        dec, session_pump._tapped_reader(read_bytes, publish))
     lock = threading.Lock()  # the encoder is shared by both threads
     readable = threading.Event()
     enc._attach_readable(readable.set)
@@ -334,6 +376,106 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
         # the hub slot goes last: queued work is dropped and in-flight
         # completions are discarded, so nothing stays parked
         hub_session.close()
+    _WATERMARKS.untrack(link)
+    if _OBS.on:
+        _M_SESSIONS.inc()
+        _emit("sidecar.session", **out)
+    return out
+
+
+# a refusal goes to a peer about to be dropped: the send is bounded so a
+# receiver that stopped draining cannot park the session thread (a
+# healthy peer's kernel buffer takes the short record at once)
+_REFUSAL_SEND_TIMEOUT = 5.0
+
+
+def _send_refusal(conn: socket.socket, out: dict) -> dict:
+    """Write one structured refusal line and shut the write side, under
+    ``_REFUSAL_SEND_TIMEOUT``; a refused, reset or wedged receiver is
+    given up on (``socket.timeout`` is an ``OSError``).  The record is
+    the session's: it is emitted and returned."""
+    try:
+        conn.settimeout(_REFUSAL_SEND_TIMEOUT)
+        conn.sendall((json.dumps(out) + "\n").encode())
+        conn.shutdown(socket.SHUT_WR)
+    except OSError:
+        pass
+    if _OBS.on:
+        _emit("sidecar.session", **out)
+    return out
+
+
+def run_subscriber(conn: socket.socket, fanout, key: str) -> dict:
+    """Serve one fan-out subscriber connection: attach the socket as a
+    downstream peer of the shared broadcast log and stream it until the
+    sealed log is fully delivered or the peer is shed.  The subscriber
+    never decodes and never hashes: the digest work happened once, on
+    the source session.
+
+    A subscriber needs the stream from byte 0.  Once the log has
+    trimmed past it, the subscriber gets one ``{"snapshot_needed": true,
+    "retained": [start, end]}`` record and EOF, with ``"hint"`` naming
+    the snapshot bootstrap port when the deployment serves one.  At
+    capacity it gets ``{"rejected": true}``.  A subscriber that sends
+    bytes is a misrouted source (it raced the connection holding the
+    source claim): it gets ``{"not_source": true}`` rather than having
+    its session silently dropped."""
+    from .fanout import FanoutBusy, SnapshotNeeded
+
+    try:
+        peer = fanout.attach_peer(key, fd=conn.fileno(), offset=0)
+    except SnapshotNeeded as e:
+        out = {"fanout_peer": key, "ok": False, "snapshot_needed": True,
+               "retained": list(e.retained)}
+        if e.hint is not None:
+            out["hint"] = dict(e.hint)
+        return _send_refusal(conn, out)
+    except FanoutBusy as e:
+        # the record is the rejection: a bare EOF would read as an empty
+        # sealed broadcast
+        return _send_refusal(conn, {
+            "fanout_peer": key, "ok": False, "rejected": True,
+            "peers": e.peers, "max_peers": e.max_peers})
+    try:
+        # bounded waits with an EOF probe between them: a subscriber
+        # that leaves while the broadcast is idle surfaces no EPIPE (no
+        # bytes are in flight to it), and its slot would leak
+        done = False
+        not_source = False
+        while True:
+            if peer.wait_done(timeout=0.5):
+                done = True
+                break
+            if peer.shed_reason is not None:
+                break
+            try:
+                # the fd is O_NONBLOCK (the fan-out's dup shares the
+                # open file description): a silent subscriber answers
+                # EAGAIN at once
+                probe = conn.recv(4096)
+            except (BlockingIOError, InterruptedError):
+                continue
+            except OSError:
+                break
+            if probe == b"":
+                break  # the client went away: release the slot
+            not_source = True
+            break
+        stats = peer.stats()
+    finally:
+        peer.close()
+    if not_source:
+        return _send_refusal(conn, {
+            "fanout_peer": key, "ok": False, "not_source": True,
+            "detail": "subscriber connections must not send data; the "
+                      "broadcast source slot was already claimed — "
+                      "reconnect to retry as source"})
+    try:
+        conn.shutdown(socket.SHUT_WR)  # the subscriber reads a clean EOF
+    except OSError:
+        pass
+    out = {"fanout_peer": key, "sent_bytes": stats["sent_bytes"],
+           "shed": stats["shed"], "ok": done and stats["shed"] is None}
     if _OBS.on:
         _M_SESSIONS.inc()
         _emit("sidecar.session", **out)
@@ -417,6 +559,64 @@ def load_snapshot_source(path: str, wire_offset: int = 0, device="cuda"):
                               device=device)
 
 
+class SnapshotListener:
+    """The snapshot bootstrap's own port in the ``--fanout --snapshot``
+    composition: an accept loop serving each connection as one responder
+    session off the shared source.  The bound ``port`` goes into the
+    fan-out's ``snapshot_hint``, so the snapshot-needed record a
+    trimmed-past subscriber gets names where to bootstrap.  A port that
+    cannot be bound raises ``OSError`` from the constructor."""
+
+    def __init__(self, source, host: str, port: int = 0):
+        self.source = source
+        self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            self._srv.bind((host, port))
+            self._srv.listen(8)
+        except OSError:
+            self._srv.close()
+            raise
+        # a bounded accept: the timeout re-checks for close
+        self._srv.settimeout(1.0)
+        self.port = self._srv.getsockname()[1]
+        self._served = 0
+        self._thread = threading.Thread(
+            target=self._loop, name="sidecar-snapshot", daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while True:
+            try:
+                conn, peer = self._srv.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return  # closed: the daemon is shutting down
+            self._served += 1
+
+            def _one(conn=conn, peer=peer):
+                try:
+                    rd, wr = session_pump.io_for_socket(conn)
+                    stats = run_snapshot_session(
+                        rd, wr, lambda: conn.shutdown(socket.SHUT_WR),
+                        self.source, peer=f"{peer[0]}:{peer[1]}")
+                    print(f"sidecar: snapshot {peer} {stats}",
+                          file=sys.stderr, flush=True)
+                finally:
+                    conn.close()
+
+            threading.Thread(target=_one, name=f"sidecar-snap-{self._served}",
+                             daemon=True).start()
+
+    def close(self) -> None:
+        try:
+            self._srv.close()
+        except OSError:
+            pass
+        self._thread.join(timeout=5)
+
+
 def _swap_stdout_for_devnull() -> None:
     """Release the stdout pipe (the reader sees EOF) while keeping fd 1
     occupied, so a late retried write lands in /dev/null rather than in
@@ -450,7 +650,7 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
               ready_cb=None, device="cuda",
               drain_timeout: float | None = DEFAULT_DRAIN_TIMEOUT,
               retry_policy=None, reconcile_replica=None,
-              snapshot_source=None, hub=None) -> None:
+              snapshot_source=None, hub=None, fanout=None) -> None:
     """Accept loop: one concurrent session per connection.
 
     ``max_sessions`` bounds the loop (tests); ``ready_cb(port)`` fires
@@ -460,6 +660,13 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
     replica (both read-only after construction, so sessions never step
     on each other); otherwise a digest session on ``device``, or with
     ``hub`` on the shared hub under the key ``c<n>:<host>:<port>``.
+
+    ``fanout`` (a :class:`~.fanout.FanoutServer`): the first connection
+    to claim the source slot is the broadcast source, a digest session
+    (on ``hub`` when given) whose received bytes are also published into
+    the fan-out; its end seals the log, and a claimant that published
+    nothing gives the claim back.  Every other connection is a
+    subscriber (:func:`run_subscriber`), keyed ``p<n>:<host>:<port>``.
 
     ``retry_policy`` (a :class:`~.session.reconnect.BackoffPolicy`)
     retries the bind through a lingering ``EADDRINUSE`` and rides out
@@ -484,6 +691,35 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
 
     srv = retrying(_bind, policy, retry_on=(OSError,),
                    describe=f"bind {host}:{port}")
+    # the fan-out's source slot is claimed, not "connection #1": a stray
+    # first connection that closes without publishing (a health check, a
+    # port scan) must not seal an empty log for the daemon's lifetime
+    src_claim = {"taken": False}
+    src_lock = threading.Lock()
+
+    def _fanout_connection(conn, name: str, n: int) -> dict:
+        is_source = False
+        if not fanout.log.sealed:
+            with src_lock:
+                if not src_claim["taken"]:
+                    src_claim["taken"] = True
+                    is_source = True
+        if not is_source:
+            return run_subscriber(conn, fanout, key=f"p{n}:{name}")
+        try:
+            return run_session(
+                conn.recv, conn.sendall,
+                close_write=lambda: conn.shutdown(socket.SHUT_WR),
+                device=device, drain_timeout=drain_timeout, hub=hub,
+                session_key=f"c{n}:{name}", publish=fanout.publish)
+        finally:
+            if fanout.log.end > fanout.log.start:
+                fanout.seal()
+            else:
+                # nothing published: a probe, not the feed
+                with src_lock:
+                    src_claim["taken"] = False
+
     bound = srv.getsockname()[1]
     print(f"sidecar: listening on {host}:{bound}", file=sys.stderr,
           flush=True)
@@ -513,6 +749,8 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
                         stats = run_reconcile_session(
                             rd, wr, close_write, reconcile_replica,
                             peer=name)
+                    elif fanout is not None:
+                        stats = _fanout_connection(conn, name, n)
                     else:
                         stats = run_session(
                             conn.recv, conn.sendall, close_write=close_write,
@@ -625,8 +863,10 @@ def snapshot_stats() -> dict:
     """One self-describing stats record: the metrics registry, the event
     ring's drops, the kernel sentinel's sites, the watermarks and the
     pump; in hub mode the hub's aggregate (``hub``) and per-session
-    breakdown (``sessions``); the wire cost ledger (``wirecost``) once it
-    holds a link; and the staged health (``healthz``).  JSON-able."""
+    breakdown (``sessions``); in fan-out mode the server's aggregate
+    (``fanout``) and per-peer breakdown (``peers``); the wire cost ledger
+    (``wirecost``) once it holds a link; and the staged health
+    (``healthz``).  JSON-able."""
     out = {
         "ts": time.time(),
         "monotonic": time.monotonic(),
@@ -639,6 +879,9 @@ def snapshot_stats() -> dict:
     if _ACTIVE_HUB is not None:
         out["hub"] = _ACTIVE_HUB.snapshot()
         out["sessions"] = _ACTIVE_HUB.sessions_snapshot()
+    if _ACTIVE_FANOUT is not None:
+        out["fanout"] = _ACTIVE_FANOUT.snapshot()
+        out["peers"] = _ACTIVE_FANOUT.peers_snapshot()
     wc = _WIRECOST.snapshot()
     if wc["links"] or wc["amplification"]:
         out["wirecost"] = wc
@@ -647,9 +890,13 @@ def snapshot_stats() -> dict:
 
 
 def _active_admission_fn():
-    """The hub's lock-free admission view, when a hub runs."""
+    """The lock-free admission view of the shared engine: the hub's when
+    a hub runs (the fan-out composes with it as the broadcast layer),
+    else the fan-out's."""
     if _ACTIVE_HUB is not None:
         return _ACTIVE_HUB.admission_state
+    if _ACTIVE_FANOUT is not None:
+        return _ACTIVE_FANOUT.admission_state
     return None
 
 
@@ -726,8 +973,8 @@ def _end_on_mesh_failure(hub) -> threading.Event:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m dat_replication_protocol_tpu_torch.sidecar",
-        description="Serve digest, reconcile or snapshot sessions over "
-                    "stdin/stdout or TCP.")
+        description="Serve digest, reconcile, snapshot or fan-out sessions "
+                    "over stdin/stdout or TCP.")
     mode = parser.add_mutually_exclusive_group(required=True)
     mode.add_argument("--stdio", action="store_true",
                       help="serve one session on stdin, reply on stdout")
@@ -752,6 +999,12 @@ def main(argv=None) -> int:
                         help="materialize DATAFILE once as content-"
                              "addressed chunks and serve every session "
                              "as a snapshot bootstrap responder")
+    parser.add_argument("--snapshot-port", type=int, default=0,
+                        metavar="PORT",
+                        help="the snapshot bootstrap's own port in the "
+                             "--fanout --snapshot composition (default: 0, "
+                             "an ephemeral port; the bound port rides the "
+                             "snapshot-needed record's hint)")
     parser.add_argument("--snapshot-offset", type=int, default=0,
                         metavar="BYTES",
                         help="live-log wire offset the --snapshot dataset "
@@ -761,6 +1014,25 @@ def main(argv=None) -> int:
                              "one shared engine (--tcp only): batching "
                              "across sessions, admission, per-session "
                              "windows, shedding")
+    parser.add_argument("--fanout", action="store_true",
+                        help="broadcast mode (--tcp only): the first "
+                             "connection is the source session, decoded and "
+                             "hashed once; every other connection is a "
+                             "subscriber streamed the source's wire bytes")
+    parser.add_argument("--fanout-retention", type=int, default=64 << 20,
+                        metavar="BYTES",
+                        help="how much broadcast wire stays servable to "
+                             "late joiners and laggards; a subscriber "
+                             "trimmed past gets a snapshot-needed record "
+                             "(default: 64 MiB)")
+    parser.add_argument("--fanout-window", type=int, default=1 << 20,
+                        metavar="BYTES",
+                        help="per-subscriber flow-control window, bytes in "
+                             "flight (default: 1 MiB)")
+    parser.add_argument("--fanout-stall-timeout", type=float, default=30.0,
+                        metavar="SECONDS",
+                        help="shed a subscriber that makes no delivery "
+                             "progress for this long (default: 30)")
     parser.add_argument("--hub-max-sessions", type=int, default=1024,
                         metavar="N",
                         help="hub admission bound on concurrent sessions "
@@ -819,6 +1091,12 @@ def main(argv=None) -> int:
                      "--reconcile/--snapshot")
     if args.hub_mesh is not None and not args.hub:
         parser.error("--hub-mesh requires --hub")
+    if args.fanout and args.stdio:
+        parser.error("--fanout broadcasts to many connections; it needs "
+                     "--tcp")
+    if args.fanout and args.reconcile:
+        parser.error("--reconcile is its own session mode; it cannot "
+                     "combine with --hub/--fanout")
     drain = args.drain_timeout if args.drain_timeout > 0 else None
     from .session.reconnect import BackoffPolicy
 
@@ -830,6 +1108,8 @@ def main(argv=None) -> int:
     mesh = None
     mesh_failed = None
     obs_srv = None
+    fanout = None
+    snap_listener = None
     if args.flight_dir:
         # arming enables telemetry: a dark ring has nothing to dump
         obs_flight.FLIGHT.arm(args.flight_dir)
@@ -870,6 +1150,14 @@ def main(argv=None) -> int:
             set_active_hub(hub)
             if mesh is not None and mesh.size > 1:
                 mesh_failed = _end_on_mesh_failure(hub)
+        if args.fanout:
+            from .fanout import FanoutServer
+
+            fanout = FanoutServer(
+                retention_budget=args.fanout_retention,
+                window_bytes=args.fanout_window,
+                stall_timeout=args.fanout_stall_timeout)
+            set_active_fanout(fanout)
         if args.obs_http is not None:
             obs_metrics.enable()  # a dark endpoint would serve zeros
             obs_srv = obs_http.ObsHttpServer(
@@ -889,18 +1177,42 @@ def main(argv=None) -> int:
             print(json.dumps(out), file=sys.stderr)
             return 0 if out["ok"] else 1
         host, _, port = args.tcp.rpartition(":")
-        serve_tcp(host or "127.0.0.1", int(port), device=args.device,
+        host = host or "127.0.0.1"
+        if fanout is not None and source is not None:
+            # the composition: snapshot sessions get their own port, and
+            # the broadcast's snapshot-needed refusals name it
+            from .wire.framing import CAP_SNAPSHOT
+
+            try:
+                snap_listener = SnapshotListener(source, host,
+                                                 args.snapshot_port)
+            except OSError as e:
+                print(f"sidecar: cannot serve the snapshot bootstrap on "
+                      f"{host}:{args.snapshot_port}: {e}", file=sys.stderr,
+                      flush=True)
+                return 1
+            fanout.snapshot_hint = {"port": snap_listener.port,
+                                    "cap": CAP_SNAPSHOT}
+            print(f"sidecar: snapshot bootstrap on "
+                  f"{host}:{snap_listener.port}", file=sys.stderr, flush=True)
+            source = None  # the main loop keeps broadcasting
+        serve_tcp(host, int(port), device=args.device,
                   drain_timeout=drain, retry_policy=policy,
                   reconcile_replica=replica, snapshot_source=source,
-                  hub=hub)
+                  hub=hub, fanout=fanout)
         return 0
     except KeyboardInterrupt:
         if mesh_failed is not None and mesh_failed.is_set():
             return 1
         raise
     finally:
+        if snap_listener is not None:
+            snap_listener.close()
         if obs_srv is not None:
             obs_srv.close()
+        if fanout is not None:
+            set_active_fanout(None)
+            fanout.close()
         if hub is not None:
             set_active_hub(None)
             hub.close()  # on a mesh, this sends the followers their stop
