@@ -250,13 +250,61 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    through ``run_resumable``: byte-exact, every wanted chunk verified
    once, none delivered twice.  B1's launches of 16a, 16c and 16d form
    the ``fanout`` bucket; 16b's are the subprocesses'.
+17. the event-driven edge and the asyncio transport.  17a (bench.py
+   config 15, uncut): an ``EdgeLoop`` on ``ReplicationHub(device="cuda",
+   max_sessions=N+8, linger_s=0.002)`` with alternating latency and
+   throughput classes, ``tick=0.02``, ``drain_timeout=60``, the obs gate
+   on (the loop's profiler lit); N = 1, 100, 1,000 and 10,000 clients of
+   config 15's one-change wire run in a subprocess (``python3
+   chip_smoke.py --edge-client N PORT WIRE``, its own fds; this process
+   raises its fd limit toward N + 512, and a count the hard limit cannot
+   carry is dropped and printed), ramp and park mid-wire until the whole
+   cohort is in the table (the loop's peak occupancy must equal it), then
+   finish at once.  Each distinct reply must hold one change equal to
+   ``hashlib`` of the change payload; rejected and shed must be 0; the
+   flood's sessions/s, p99, ramp and finish seconds, ``loop_lag_max_s``,
+   ``p99_turn_s`` and the loop's turns are printed.  17b: one
+   ``EdgeLoop`` on one ``ReplicationHub(device="cuda")`` serving 16
+   sessions of 15b's 8 MiB wire, two broadcast groups (16a's wire under
+   two key prefixes, each claimed by its source, 8 subscribers each), a
+   reconcile leg serving 14a's replica B to its replica A (k = 1,000)
+   and a snapshot leg over a 64 MiB dataset from the seed (B6 and B1 in
+   materialize), all connected first (every fd in the table must be
+   non-blocking), then run at once: every reply against ``hashlib``,
+   every subscriber's length and BLAKE2b against its wire, the
+   reconcile records against 14a's oracle with socket bytes equal to
+   ``reconcile_local``'s, the cold joiner byte-exact; the session
+   records against the threaded legs' (``run_session`` on the same hub
+   and wire, ``run_snapshot_session`` on the same source, 14a's
+   sidecar record of the same pair).  17c: 16 healthy sessions of
+   ``SESSION_4``'s shape beside one faulted by ``FaultPlan``'s session
+   axis, seeds 0-7 (stall, truncate, flip), each on its own loop on one
+   hub: the neighbours byte-exact, exactly one record not ok; the
+   neighbours' worst latency beside a run without the fault.  17d:
+   ``python -m dat_replication_protocol_tpu_torch.sidecar --tcp
+   127.0.0.1:0 --edge --stats-fd FD --obs-http 0``: 16 clients of 15b's
+   wire held halfway until a stats record's ``edge`` section holds all
+   16 (by kind and class, each named in the hub's breakdown by its
+   client port), ``/healthz`` 200 with its ``loop_lag`` stage, then
+   released: each reply against ``hashlib``, every stats line parsed;
+   then ``--edge --hub-max-sessions 2``: a third client reads EOF and is
+   logged ``rejected``, the two held finish byte-exact.  17e:
+   ``session_over_asyncio`` over 13a's 256-blob session into
+   ``decode(backend="cuda")``, every digest against ``hashlib`` in submit
+   order before finalize, its GiB/s beside 13a's gate-off median through
+   ``pipe``; then ``recv_over_async`` under ``AsyncFaultyReader``, seeds
+   0-7 (``for_sweep``'s plans without the faults that end a session),
+   over 16c's 2,000-row wire with a 64 KiB blob: the clean digests each
+   time.  B1's launches of 17a, 17b, 17c and 17e form the ``edge``
+   bucket (17b's B6 launches join B6's row); 17d's are the
+   subprocesses'.
 
 Every launch counter (B1's per variant and per block count, and its
 chained entry's per variant, too) is set to 0 just before each main-path
 phase (3, 4, 7, 8, 10, 11, 12a's stream, 12b's mesh calls, 13's gated
 runs; in 14a the replicas and both clean arms, in 14b materialize and
 the cold and stale joiners, then the crowd; 15a, 15c, 15d; 16a, 16c,
-16d) and read just after; a
+16d; 17a, 17b, 17c, 17e) and read just after; a
 kernel or B1 variant that the phases did not launch fails the run.
 The lines before the last carry the card, the per-kernel JSON and the
 times; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -3274,7 +3322,15 @@ def reconcile_arm(sidecar, replica, want_a_only, want_b_only,
             f"{local['symbols']}, {local['rounds']}")
     return {"seconds": seconds, "symbols": res["symbols"],
             "rounds": res["rounds"], "wire": wire,
-            "received": len(got), "sent": len(shipped)}
+            "received": len(got), "sent": len(shipped),
+            "record": session_record(line)}
+
+
+def session_record(line: str) -> dict:
+    """The record dict of a sidecar's ``sidecar: PEER {...}`` line."""
+    import ast
+
+    return ast.literal_eval(line[line.index("{"):])
 
 
 def run_anti_entropy_reconcile(device, shared=AE_SHARED, own=AE_OWN,
@@ -3351,7 +3407,10 @@ def run_anti_entropy_reconcile(device, shared=AE_SHARED, own=AE_OWN,
                 side, rep_a10, [delivered(r) for r in a_own[:small_own]],
                 b_rows[own - small_own:], local10)
             out["launches"] = read_counters()
-            del rep_a10, rep_b, local, local10
+            # phase 17b serves rep_b from an edge loop to rep_a again
+            out["edge"] = {"rep_a": rep_a, "rep_b": rep_b, "a_rows": a_rows,
+                           "b_rows": b_rows, "local": local}
+            del rep_a10, local10
 
             # the corrupt arms: one byte of the first SYMBOLS frame
             # flipped, in its start index and in cell 0's key sum
@@ -4173,13 +4232,13 @@ CHAOS_BYTES = 4 * MIB
 P16_OUT = "build/phase16"  # .gitignore lists build/
 
 
-def fanout_wire() -> bytes:
+def fanout_wire(prefix: str = "f") -> bytes:
     """Config 10's source wire: a change run of 64-byte values, then one
-    2 MiB blob of zeros."""
+    2 MiB blob of zeros (``prefix`` starts every key)."""
     import dat_replication_protocol_tpu_torch as protocol
 
     e = protocol.encode()
-    e.change_many([{"key": f"f-{j:06d}", "change": j, "from": j,
+    e.change_many([{"key": f"{prefix}-{j:06d}", "change": j, "from": j,
                     "to": j + 1, "value": b"v" * 64}
                    for j in range(FAN_ROWS)])
     e.blob(FAN_BLOB).end(bytes(FAN_BLOB))
@@ -4726,6 +4785,863 @@ def run_snapshot_chaos(device) -> dict:
             "delivered": len(delivered), "materialize_s": materialize_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the event-driven edge and the asyncio transport
+# ---------------------------------------------------------------------------
+
+# 17a: bench.py config 15, uncut: N concurrent one-change sessions
+# through one EdgeLoop, the client cohort in a subprocess
+EDGE_COUNTS = (1, 100, 1000, 10000)
+EDGE_FD_SLACK = 512  # fds a side beyond one a session
+EDGE_CONNECT_CHUNK = 128  # a client's outstanding connects (the backlog)
+EDGE_LIMIT_S = 300.0
+# 17b: the mixed table
+EDGE_HUB_SESSIONS = 16  # phase 15b's 8 MiB wire each
+EDGE_GROUP_SUBS = 8  # accounting-only subscribers a broadcast group
+EDGE_SNAP_BYTES = 64 * MIB
+# 17c: the chaos arm
+EDGE_CHAOS_HEALTHY = 16
+EDGE_CHAOS_SEEDS = 8
+# 17e: phase 13a's session over asyncio, then the faulted reader; a plan
+# that re-segments into reads of 1 byte reads at least this many (one
+# byte a read took ~17 s of asyncio over the 0.2 MB wire on the H100's
+# host)
+AIO_SEEDS = 8
+AIO_MIN_SEGMENT = 16
+
+
+def edge_wire() -> tuple:
+    """Config 15's session wire (one change of a 64-byte value) and the
+    ``hashlib`` digest its reply must carry."""
+    import dat_replication_protocol_tpu_torch as protocol
+
+    rec = {"key": "edge-bench", "change": 0, "from": 0, "to": 1,
+           "value": b"v" * 64}
+    e = protocol.encode()
+    e.change(rec)
+    e.finalize()
+    return wire_of(e), blake(protocol.encode_change(rec))
+
+
+def edge_client_main(n: int, port: int, wire_hex: str) -> int:
+    """17a's client cohort: ``python3 chip_smoke.py --edge-client N PORT
+    WIRE_HEX``, run by phase 17a in a subprocess (its own fds: N sessions
+    are N fds on each side).  Connects N clients, sends each half the
+    wire and parks; prints ``HELD k``, waits for ``GO`` on stdin, sends
+    every second half, reads every reply to EOF and prints one JSON line
+    (the distinct replies, hex, with their counts)."""
+    import selectors
+    import socket
+
+    wire = bytes.fromhex(wire_hex)
+    half = len(wire) // 2
+    addr = ("127.0.0.1", port)
+    sel = selectors.DefaultSelector()
+    clients = []  # [sock, state, t_sent, latency, reply]
+    t_ramp0 = time.perf_counter()
+    started = held = failures = 0
+    deadline = time.monotonic() + EDGE_LIMIT_S
+    while held + failures < n:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"edge client ramp stuck at {held}/{n}")
+        while started < n and started - held - failures < EDGE_CONNECT_CHUNK:
+            s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            s.setblocking(False)
+            s.connect_ex(addr)
+            row = [s, "connecting", 0.0, 0.0, bytearray()]
+            clients.append(row)
+            sel.register(s, selectors.EVENT_WRITE, row)
+            started += 1
+        for skey, _mask in sel.select(0.05):
+            row = skey.data
+            s = row[0]
+            err = s.getsockopt(socket.SOL_SOCKET, socket.SO_ERROR)
+            sel.unregister(s)
+            if err:
+                s.close()
+                row[1] = "failed"
+                failures += 1
+                continue
+            s.sendall(wire[:half])
+            row[1] = "held"
+            held += 1
+    ramp_s = time.perf_counter() - t_ramp0
+    print(f"HELD {held}", flush=True)
+    if sys.stdin.readline().strip() != "GO":
+        raise RuntimeError("edge client: no GO")
+    t0 = time.perf_counter()
+    reading = 0
+    for row in clients:
+        if row[1] != "held":
+            continue
+        s = row[0]
+        s.sendall(wire[half:])
+        s.shutdown(socket.SHUT_WR)
+        row[1] = "reading"
+        row[2] = time.perf_counter()
+        sel.register(s, selectors.EVENT_READ, row)
+        reading += 1
+    done = 0
+    while done < reading:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"edge client finish stuck at {done}/{reading}")
+        for skey, _mask in sel.select(0.05):
+            row = skey.data
+            s = row[0]
+            try:
+                data = s.recv(1 << 16)
+            except (BlockingIOError, InterruptedError):
+                continue
+            except OSError:
+                data = b""
+            if data:
+                row[4] += data
+                continue
+            row[3] = time.perf_counter() - row[2]
+            row[1] = "done"
+            sel.unregister(s)
+            s.close()
+            done += 1
+    finish_s = time.perf_counter() - t0
+    sel.close()
+    replies: dict = {}
+    for row in clients:
+        if row[1] == "done":
+            key = bytes(row[4]).hex()
+            replies[key] = replies.get(key, 0) + 1
+    lats = sorted(row[3] for row in clients if row[1] == "done")
+    p99 = lats[max(0, int(0.99 * (len(lats) - 1)))] if lats else 0.0
+    print(json.dumps({"held": held, "failures": failures, "done": done,
+                      "ramp_s": ramp_s, "finish_s": finish_s, "p99_s": p99,
+                      "replies": replies}), flush=True)
+    return 0
+
+
+def decoded_changes(raw: bytes) -> list:
+    """The changes of a reply, decoded by the port's host decoder (which
+    must finish)."""
+    import dat_replication_protocol_tpu_torch as protocol
+
+    got = []
+    dec = protocol.decode()
+    dec.change(lambda c, done: (got.append(c), done()))
+    dec.write(raw)
+    dec.end()
+    if not dec.finished:
+        raise AssertionError("a reply did not decode to its end")
+    return got
+
+
+def session_records() -> list:
+    """The ``sidecar.session`` records in the port's event ring."""
+    from dat_replication_protocol_tpu_torch import obs
+
+    return [e["fields"] for e in obs.EVENTS.events("sidecar.session")]
+
+
+def serve_loop(loop):
+    """``loop.serve()`` on a thread of this process."""
+    import threading
+
+    port = loop.bind("127.0.0.1", 0)
+    t = threading.Thread(target=loop.serve, daemon=True)
+    t.start()
+    return port, t
+
+
+def run_edge_scaling(device) -> dict:
+    """17a (see the module docstring): with the obs gate on, as config 15
+    runs it (the loop's profiler lit)."""
+    import resource
+    import subprocess
+
+    from dat_replication_protocol_tpu_torch import obs
+    from dat_replication_protocol_tpu_torch.edge import EdgeLoop
+    from dat_replication_protocol_tpu_torch.hub import ReplicationHub
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want = max(EDGE_COUNTS) + EDGE_FD_SLACK
+    if soft < want:
+        cap = want if hard == resource.RLIM_INFINITY else min(want, hard)
+        try:
+            resource.setrlimit(resource.RLIMIT_NOFILE, (cap, hard))
+        except (ValueError, OSError):
+            pass
+        soft = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    counts = [n for n in EDGE_COUNTS if n + EDGE_FD_SLACK <= soft]
+    out = {"fd_soft": soft, "fd_hard": hard,
+           "dropped": [n for n in EDGE_COUNTS if n not in counts],
+           "arms": {}}
+    wire, digest = edge_wire()
+    qos_of = lambda n, peer, mode: \
+        "latency" if n % 2 else "throughput"  # noqa: E731
+    obs.enable()
+    try:
+        for n in counts:
+            obs_reset()
+            b1_before = read_counters()["blake2b"]
+            hub = ReplicationHub(device=device, max_sessions=n + 8,
+                                 linger_s=0.002)
+            loop = EdgeLoop(hub, qos_of=qos_of, max_sessions=n, tick=0.02,
+                            drain_timeout=60.0, name=f"edge17a-{n}")
+            port, server = serve_loop(loop)
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--edge-client",
+                 str(n), str(port), wire.hex()],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=subprocess.DEVNULL, text=True)
+            try:
+                line = proc.stdout.readline().strip()
+                if not line.startswith("HELD "):
+                    raise AssertionError(f"17a: the client cohort died in "
+                                         f"its ramp: {line!r}")
+                held = int(line.split()[1])
+                deadline = time.monotonic() + 120
+                peak = loop.snapshot()["sessions"]
+                while peak < held and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                    peak = max(peak, loop.snapshot()["sessions"])
+                proc.stdin.write("GO\n")
+                proc.stdin.flush()
+                res = json.loads(proc.stdout.readline())
+                proc.wait(60)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(10)
+                loop.close()
+            server.join(60)
+            snap = loop.snapshot()
+            hub.close()
+            if server.is_alive():
+                raise AssertionError(f"17a: the loop of {n} did not stop")
+            if not (held == peak == res["done"] == snap["admitted"] == n):
+                raise AssertionError(f"17a at {n}: held {held}, peak {peak},"
+                                     f" done {res['done']}, admitted "
+                                     f"{snap['admitted']}")
+            if snap["rejected"] or snap["shed"]:
+                raise AssertionError(f"17a at {n}: rejected "
+                                     f"{snap['rejected']}, shed "
+                                     f"{snap['shed']}")
+            if sum(res["replies"].values()) != n:
+                raise AssertionError(f"17a at {n}: {res['replies']} replies")
+            for raw in res["replies"]:
+                ch = decoded_changes(bytes.fromhex(raw))
+                if len(ch) != 1 or bytes(ch[0].value) != digest:
+                    raise AssertionError(f"17a at {n}: a reply is not the "
+                                         f"change's hashlib digest")
+            prof = snap["loop"]
+            out["arms"][n] = {
+                "sessions_s": n / res["finish_s"], "p99_s": res["p99_s"],
+                "ramp_s": res["ramp_s"], "finish_s": res["finish_s"],
+                "peak": peak, "admitted": snap["admitted"],
+                "rejected": snap["rejected"], "shed": snap["shed"],
+                "loop_lag_max_s": prof["lag_max_s"],
+                "p99_turn_s": prof["p99_work_s"], "turns": prof["turns"],
+                "distinct_replies": len(res["replies"]),
+                "b1": read_counters()["blake2b"] - b1_before}
+    finally:
+        obs.disable()
+        obs_reset()
+    return out
+
+
+def read_hashed(sock) -> tuple:
+    """Read ``sock`` to EOF: its length and BLAKE2b-256."""
+    h = hashlib.blake2b(digest_size=32)
+    n = 0
+    while chunk := sock.recv(1 << 20):
+        h.update(chunk)
+        n += len(chunk)
+    return n, h.digest()
+
+
+def hub_record(wire: bytes, want: list, session: str) -> dict:
+    """The record a digest session of ``wire`` owes (``run_session``'s)."""
+    kinds = [k for k, _s, _d in want]
+    return {"changes": kinds.count("change"), "blobs": kinds.count("blob"),
+            "bytes": len(wire), "digests": len(want), "ok": True,
+            "session": session, "shed": None}
+
+
+def run_edge_mixed(device, ae: dict) -> dict:
+    """17b (see the module docstring).  ``ae`` is phase 14a's replica
+    pair, its rows and ``reconcile_local``'s metering.  Reads the launch
+    counters itself once the edge's sessions end, before the threaded
+    legs it holds the records against."""
+    import socket
+    import threading
+
+    from dat_replication_protocol_tpu_torch import obs, sidecar
+    from dat_replication_protocol_tpu_torch.edge import EdgeLoop
+    from dat_replication_protocol_tpu_torch.fanout import FanoutServer
+    from dat_replication_protocol_tpu_torch.hub import ReplicationHub
+    from dat_replication_protocol_tpu_torch.runtime.reconcile_driver import (
+        run_initiator)
+    from dat_replication_protocol_tpu_torch.runtime.snapshot_driver import (
+        SnapshotSource, run_snapshot_joiner)
+
+    out = {}
+    data = make_blob(EDGE_SNAP_BYTES, seed=SEED + 170)
+    t0 = time.perf_counter()
+    source = SnapshotSource(data, device=device)  # B6 and B1
+    out["materialize_s"] = time.perf_counter() - t0
+    hub_wires = [hub_client_wire(200 + i) for i in range(EDGE_HUB_SESSIONS)]
+    hub_want = [wire_digests(w) for w in hub_wires]
+    fan_wires = {"a": fanout_wire("a"), "b": fanout_wire("b")}
+    fan_want = {g: wire_digests(w) for g, w in fan_wires.items()}
+    # the connection schedule: n -> (mode, group)
+    plan = {}
+    n = 0
+    for _ in range(EDGE_HUB_SESSIONS):
+        n += 1
+        plan[n] = ("hub", None)
+    for g in ("a", "b"):
+        n += 1
+        plan[n] = ("fanout", g)  # the group's source claims first
+    for g in ("a", "b"):
+        for _ in range(EDGE_GROUP_SUBS):
+            n += 1
+            plan[n] = ("fanout", g)
+    plan[n + 1] = ("reconcile", None)
+    plan[n + 2] = ("snapshot", None)
+    fans = {"a": FanoutServer(), "b": FanoutServer()}
+    hub = ReplicationHub(device=device)
+    loop = EdgeLoop(hub, fanouts=fans, reconcile_replica=ae["rep_b"],
+                    snapshot_source=source,
+                    mode_of=lambda i, peer: plan[i][0],
+                    group_of=lambda i, peer: plan[i][1],
+                    drain_timeout=120.0, max_sessions=len(plan),
+                    name="edge17b")
+    obs.enable()
+    obs_reset()
+    results: dict = {}
+    errors: list = []
+    socks: dict = {}
+    try:
+        port, server = serve_loop(loop)
+        socks = {}
+        for i in sorted(plan):
+            socks[i] = _connect(port)
+            deadline = time.monotonic() + 60
+            while loop.snapshot()["served"] < i:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"17b: connection {i} not served")
+                time.sleep(0.002)
+        table = list(loop._table.values())
+        if any(os.get_blocking(s.fd) for s in table):
+            raise AssertionError("17b: a blocking fd in the session table")
+        out["table"] = loop.snapshot()["by_kind"]
+
+        def guard(fn, *args):
+            def run():
+                try:
+                    fn(*args)
+                except BaseException as e:  # noqa: BLE001 — reported
+                    errors.append(f"{fn.__name__}{args[:1]}: "
+                                  f"{type(e).__name__}: {e}")
+            return threading.Thread(target=run, daemon=True)
+
+        def digest_client(i: int, wire: bytes) -> None:
+            sock = socks[i]
+            sender = threading.Thread(target=lambda: (
+                sock.sendall(wire), sock.shutdown(socket.SHUT_WR)),
+                daemon=True)
+            sender.start()
+            results[i] = read_to_eof(sock)
+            sender.join(120)
+
+        def subscriber(i: int) -> None:
+            results[i] = read_hashed(socks[i])
+
+        def reconcile(i: int) -> None:
+            sock = socks[i]
+            rd, wr, seen = counted_io(sock)
+            res = run_initiator(ae["rep_a"], rd, wr, close_write=lambda:
+                                sock.shutdown(socket.SHUT_WR))
+            results[i] = (res, seen)
+
+        def joiner(i: int) -> None:
+            sock = socks[i]
+            results[i] = run_snapshot_joiner(
+                sock.recv, sock.sendall,
+                close_write=lambda: sock.shutdown(socket.SHUT_WR),
+                device=device)
+
+        threads = []
+        srcs = {}
+        for i, (mode, g) in sorted(plan.items()):
+            if mode == "hub":
+                threads.append(guard(digest_client, i, hub_wires[i - 1]))
+            elif mode == "fanout" and g not in srcs:
+                srcs[g] = i
+                threads.append(guard(digest_client, i, fan_wires[g]))
+            elif mode == "fanout":
+                threads.append(guard(subscriber, i))
+            elif mode == "reconcile":
+                threads.append(guard(reconcile, i))
+            else:
+                threads.append(guard(joiner, i))
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        out["seconds"] = time.perf_counter() - t0
+        server.join(120)  # the loop ends once its table drains
+        if server.is_alive():
+            raise AssertionError(f"17b: sessions left {loop.snapshot()}")
+        out["launches"] = read_counters()
+        records = session_records()
+    finally:
+        loop.close()
+        obs.disable()
+        for f in fans.values():
+            f.close()
+        for s in socks.values():
+            s.close()
+    if errors:
+        raise AssertionError(f"17b: {errors[:3]}")
+    # the hub legs and the sources: every digest against hashlib, in order
+    for i, (mode, g) in plan.items():
+        if mode == "hub" or (mode == "fanout" and srcs[g] == i):
+            want = hub_want[i - 1] if mode == "hub" else fan_want[g]
+            check_replies({"errors": [], "replies": [results[i]]}, [want],
+                          f"17b, connection {i}")
+        elif mode == "fanout":
+            wire = fan_wires[g]
+            if results[i] != (len(wire), blake(wire)):
+                raise AssertionError(f"17b: subscriber {i} of group {g} "
+                                     f"read {results[i][0]} B, not the wire")
+    res, seen = results[n + 1]
+    got = sorted(delivered(c) for c in res["received"])
+    shipped = sorted(batch_rows(bytes(seen["tx"])))
+    local = ae["local"]
+    wire = {"a2b": len(seen["tx"]), "b2a": len(seen["rx"])}
+    if got != sorted(ae["b_rows"]) or shipped != sorted(ae["a_rows"]) \
+            or wire != {"a2b": local["wire_a2b"],
+                        "b2a": local["wire_b2a"]}:
+        raise AssertionError(f"17b: the reconcile leg received {len(got)} "
+                             f"and shipped {len(shipped)} records over "
+                             f"{wire}")
+    snap = results[n + 2]
+    if not snap["ok"] or not np.array_equal(
+            np.frombuffer(snap["data"], np.uint8), data):
+        raise AssertionError("17b: the cold joiner's dataset differs")
+    out["reconcile"] = {"symbols": res["symbols"], "rounds": res["rounds"],
+                        "wire": wire}
+    # the records, against what the threaded legs record for the same work
+    by_key = {}
+    for rec in records:
+        key = rec.get("session") or rec.get("fanout_peer") or (
+            "reconcile" if rec.get("reconcile") else "snapshot")
+        by_key[key.split(":")[0]] = rec
+    if len(by_key) != len(plan):
+        raise AssertionError(f"17b: {len(records)} session records for "
+                             f"{len(plan)} connections")
+    for i, (mode, g) in plan.items():
+        if mode == "hub" or (mode == "fanout" and srcs[g] == i):
+            rec = by_key[f"c{i}"]
+            wire = hub_wires[i - 1] if mode == "hub" else fan_wires[g]
+            want = hub_want[i - 1] if mode == "hub" else fan_want[g]
+            if rec != hub_record(wire, want, rec["session"]):
+                raise AssertionError(f"17b: the record of {i}: {rec}")
+        elif mode == "fanout":
+            rec = by_key[f"p{i}"]
+            if rec != {"fanout_peer": rec["fanout_peer"],
+                       "sent_bytes": len(fan_wires[g]), "shed": None,
+                       "ok": True}:
+                raise AssertionError(f"17b: the record of {i}: {rec}")
+    if by_key["reconcile"] != ae["record"]:
+        raise AssertionError(f"17b: the reconcile record "
+                             f"{by_key['reconcile']}, the threaded sidecar's "
+                             f"in 14a {ae['record']}")
+    # the threaded legs on the same inputs (not counted: after the read)
+    a, b = socket.socketpair()
+    try:
+        threaded = {}
+        t = threading.Thread(target=lambda: threaded.setdefault(
+            "snapshot", sidecar.run_snapshot_session(
+                a.recv, a.sendall, lambda: a.shutdown(socket.SHUT_WR),
+                source, peer="threaded")), daemon=True)
+        t.start()
+        res = run_snapshot_joiner(b.recv, b.sendall,
+                                  close_write=lambda: b.shutdown(
+                                      socket.SHUT_WR), device=device)
+        t.join(120)
+    finally:
+        a.close()
+        b.close()
+    if not res["ok"] or by_key["snapshot"] != threaded["snapshot"]:
+        raise AssertionError(f"17b: the snapshot record {by_key['snapshot']}"
+                             f", the threaded leg's {threaded['snapshot']}")
+    a, b = socket.socketpair()
+    try:
+        t = threading.Thread(target=lambda: threaded.setdefault(
+            "hub", sidecar.run_session(
+                a.recv, a.sendall, lambda: a.shutdown(socket.SHUT_WR),
+                hub=hub, session_key="c1:threaded")), daemon=True)
+        t.start()
+        sender = threading.Thread(target=lambda: (
+            b.sendall(hub_wires[0]), b.shutdown(socket.SHUT_WR)),
+            daemon=True)
+        sender.start()
+        read_to_eof(b)
+        sender.join(120)
+        t.join(120)
+    finally:
+        a.close()
+        b.close()
+        hub.close()
+    edge_rec = dict(by_key["c1"], session="c1:threaded")
+    if edge_rec != threaded["hub"]:
+        raise AssertionError(f"17b: the hub record {by_key['c1']}, the "
+                             f"threaded leg's {threaded['hub']}")
+    out["records"] = len(records)
+    out["snapshot_record"] = by_key["snapshot"]
+    out["wire_bytes"] = (sum(map(len, hub_wires))
+                         + sum(map(len, fan_wires.values())))
+    return out
+
+
+def chaos_wire() -> tuple:
+    """``SESSION_4``'s shape (the tests' fixture): an 11-byte blob, then
+    one change; its digests by ``hashlib``."""
+    import dat_replication_protocol_tpu_torch as protocol
+
+    e = protocol.encode()
+    e.blob(11).end(b"hello world")
+    e.change({"key": "key", "change": 1, "from": 0, "to": 1,
+              "value": b"hello"})
+    e.finalize()
+    wire = wire_of(e)
+    return wire, wire_digests(wire)
+
+
+def faulty_client(port: int, wire: bytes, scenario: str) -> None:
+    """One connection misbehaving as ``scenario`` says (the tests'
+    ``stall`` / ``truncate`` / ``flip``)."""
+    import socket
+
+    sock = _connect(port)
+    half = len(wire) // 2
+    if scenario == "flip":
+        bad = bytearray(wire)
+        bad[half] ^= 0x40
+        sock.sendall(bytes(bad))
+        sock.shutdown(socket.SHUT_WR)
+        read_to_eof(sock)
+    elif scenario == "truncate":
+        sock.sendall(wire[:half])
+        sock.shutdown(socket.SHUT_WR)
+        read_to_eof(sock)
+    else:  # stall: park mid-wire, then go without a clean shutdown
+        sock.sendall(wire[:half])
+        time.sleep(0.3)
+    sock.close()
+
+
+def run_edge_chaos(device) -> dict:
+    """17c (see the module docstring)."""
+    import socket
+    import threading
+
+    from dat_replication_protocol_tpu_torch import obs
+    from dat_replication_protocol_tpu_torch.edge import EdgeLoop
+    from dat_replication_protocol_tpu_torch.hub import ReplicationHub
+    from dat_replication_protocol_tpu_torch.session.faults import FaultPlan
+
+    wire, want = chaos_wire()
+    n = EDGE_CHAOS_HEALTHY + 1
+    hub = ReplicationHub(device=device, linger_s=0.002)
+    qos_of = lambda i, peer, mode: \
+        "latency" if i % 2 else "throughput"  # noqa: E731
+    out = {"arms": {}}
+    obs.enable()
+    try:
+        for seed in [None, *range(EDGE_CHAOS_SEEDS)]:
+            obs_reset()
+            faulty = (None if seed is None
+                      else FaultPlan.faulty_session(seed, n))
+            scenario = (None if seed is None
+                        else FaultPlan.session_scenario(seed, n))
+            loop = EdgeLoop(hub, qos_of=qos_of, max_sessions=n,
+                            drain_timeout=2.0, tick=0.02,
+                            name=f"edge17c-{seed}")
+            port, server = serve_loop(loop)
+            times: dict = {}
+            replies: dict = {}
+
+            def healthy(i: int) -> None:
+                t0 = time.perf_counter()
+                sock = _connect(port)
+                sock.sendall(wire)
+                sock.shutdown(socket.SHUT_WR)
+                replies[i] = read_to_eof(sock)
+                times[i] = time.perf_counter() - t0
+                sock.close()
+
+            threads = []
+            for i in range(n):
+                target = ((lambda: faulty_client(port, wire, scenario))
+                          if i == faulty else (lambda i=i: healthy(i)))
+                threads.append(threading.Thread(target=target, daemon=True))
+                threads[-1].start()
+                time.sleep(0.002)  # the admission order is the start order
+            for t in threads:
+                t.join(60)
+            server.join(60)
+            if server.is_alive() or any(t.is_alive() for t in threads):
+                raise AssertionError(f"17c seed {seed}: a hang")
+            check_replies({"errors": [], "replies": [replies[i] for i in
+                                                     sorted(replies)]},
+                          [want] * len(replies), f"17c seed {seed}")
+            recs = session_records()
+            bad = [r for r in recs if not r["ok"]]
+            if len(recs) != n or len(bad) != (0 if seed is None else 1):
+                raise AssertionError(f"17c seed {seed} ({scenario}): records"
+                                     f" {recs}")
+            lats = sorted(times.values())
+            out["arms"][seed] = {
+                "scenario": scenario,
+                "p99_ms": 1e3 * lats[max(0, int(0.99 * (len(lats) - 1)))],
+                "healthy": len(lats)}
+    finally:
+        obs.disable()
+        obs_reset()
+        hub.close()
+    return out
+
+
+def healthz(url: str) -> tuple:
+    """``GET url/healthz``: the status and the JSON body (503 included)."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def run_edge_sidecar(device) -> dict:
+    """17d (see the module docstring)."""
+    import signal
+    import threading
+
+    out = {}
+    stats = StatsReader()
+    side = Sidecar(["--tcp", "127.0.0.1:0", "--edge", "--device", device,
+                    "--stats-fd", str(stats.w), "--stats-interval",
+                    str(HUB_STATS_S), "--obs-http", "0"],
+                   pass_fds=(stats.w,))
+    stats.start()
+    try:
+        url = side.wait_for("obs endpoint on", 5).split(" on ", 1)[1]
+        wires = [hub_client_wire(300 + i) for i in range(EDGE_HUB_SESSIONS)]
+        want = [wire_digests(w) for w in wires]
+        # timed: all clients at once, as 15b's arms
+        res = hub_clients(side.port, wires)
+        check_replies(res, want, "17d, timed")
+        out["seconds"] = res["seconds"]
+        # held halfway: the table, its stats and /healthz at 16 sessions
+        hold = threading.Event()
+        held = hub_clients(side.port, wires, hold=hold)
+        rec = stats.wait_for(lambda r: r.get("edge", {}).get("sessions")
+                             == len(wires), 120)
+        edge = rec["edge"]
+        if edge["by_kind"] != {"hub": len(wires)} \
+                or edge["by_class"] != {"throughput": len(wires)}:
+            raise AssertionError(f"17d: the edge section {edge}")
+        # the loop is still digesting the first halves when the table
+        # fills: its lag may read "behind" (503) until it catches up
+        deadline = time.monotonic() + 60
+        out["healthz_503"] = []
+        while True:
+            status, hz = healthz(url)
+            lag = hz["stages"].get("loop_lag")
+            if status == 200 or time.monotonic() > deadline:
+                break
+            out["healthz_503"].append(
+                {k: v for k, v in hz["stages"].items() if not v["ok"]})
+            time.sleep(0.1)
+        if status != 200 or lag is None or not lag["ok"] \
+                or list(lag["lag_s"]) != [edge["loop"]["name"]]:
+            raise AssertionError(f"17d: /healthz {status} {hz['stages']}")
+        out["healthz"] = {"status": status, "loop_lag": lag}
+        first = len(stats.records)
+        hold.set()
+        for t in held["threads"]:
+            t.join(600)
+        check_replies(held, want, "17d, held")
+        stats.wait_for(lambda r: r.get("edge", {}).get("sessions") == 0, 60,
+                       after=len(stats.records))
+        live = set(held["ports"]) | set(res["ports"])
+        out["named"] = check_stats_lines(stats.records, live, "17d")
+        for r in stats.records:
+            e = r.get("edge")
+            if e is None:
+                continue  # a record from before the loop was installed
+            if sum(e["by_kind"].values()) != e["sessions"] or \
+                    e["sessions"] > len(wires):
+                raise AssertionError(f"17d: an edge section {e}")
+        out["records_after_release"] = len(stats.records) - first
+    finally:
+        side.close(signal.SIGINT)
+        stats.close()
+    if stats.errors:
+        raise AssertionError(f"17d: stats lines {stats.errors[:3]}")
+    final = stats.records[-1]
+    out["launches"] = sentinel_launches(final)
+    # the record at shutdown comes after the loop left the stats
+    out["edge"] = next(r["edge"] for r in reversed(stats.records)
+                       if "edge" in r)
+    items = final["metrics"]["counters"].get("hub.dispatch.items")
+    if out["launches"]["blake2b"] == 0 or items != 2 * sum(map(len, want)):
+        raise AssertionError(f"17d: B1 {out['launches']}, items {items}")
+    out["bytes"] = sum(map(len, wires))
+    out["records"] = len(stats.records)
+
+    # the rejected arm: two clients hold the hub's two slots halfway
+    stats = StatsReader()
+    side = Sidecar(["--tcp", "127.0.0.1:0", "--edge", "--device", device,
+                    "--hub-max-sessions", "2", "--stats-fd", str(stats.w),
+                    "--stats-interval", str(HUB_STATS_S)],
+                   pass_fds=(stats.w,))
+    stats.start()
+    try:
+        wires = [hub_client_wire(400 + i) for i in range(2)]
+        hold = threading.Event()
+        held = hub_clients(side.port, wires, hold=hold)
+        stats.wait_for(lambda r: r.get("edge", {}).get("sessions") == 2, 60)
+        sock = _connect(side.port)  # the surplus client
+        eof = sock.recv(1 << 16)
+        sock.close()
+        line = side.wait_for("'rejected': True", 30)
+        hold.set()
+        for t in held["threads"]:
+            t.join(600)
+        check_replies(held, [wire_digests(w) for w in wires],
+                      "17d, the held clients")
+        if eof != b"":
+            raise AssertionError(f"17d: the surplus client read {len(eof)} "
+                                 f"B, not EOF")
+        rec = stats.wait_for(lambda r: r.get("edge", {}).get("sessions")
+                             == 0, 60, after=len(stats.records))
+    finally:
+        side.close(signal.SIGINT)
+        stats.close()
+    out["rejected"] = {"record": session_record(line),
+                       "edge": {k: rec["edge"][k] for k in (
+                           "served", "admitted", "rejected")}}
+    if out["rejected"]["edge"] != {"served": 3, "admitted": 2,
+                                   "rejected": 1}:
+        raise AssertionError(f"17d: {out['rejected']}")
+    return out
+
+
+def run_aio(device, pipe_s: float, n_blobs=P13_BLOBS, blob_bytes=BLOB_BYTES,
+            changes_per_blob=CHANGES_PER_BLOB) -> dict:
+    """17e (see the module docstring): ``pipe_s`` is phase 13a's median
+    gate-off seconds of the same session through ``pipe``."""
+    import asyncio
+    import dataclasses
+    import socket
+
+    import dat_replication_protocol_tpu_torch as protocol
+    from dat_replication_protocol_tpu_torch.session.aio import (
+        recv_over_async, session_over_asyncio)
+    from dat_replication_protocol_tpu_torch.session.faults import (
+        AsyncFaultyReader, FaultPlan)
+
+    blobs, changes = make_session(n_blobs, blob_bytes, changes_per_blob)
+    enc = protocol.encode()
+    dec = protocol.decode(backend="cuda", device=device)
+    got = []
+    at_finalize = []
+    dec.on_digest(lambda kind, seq, d: got.append((kind, seq, d)))
+    dec.change(lambda c, done: done())
+    dec.finalize(lambda done: (at_finalize.append(len(got)), done()))
+
+    async def feed() -> None:
+        for b in range(n_blobs):
+            for c in changes[b * changes_per_blob:(b + 1) * changes_per_blob]:
+                enc.change(c)
+            enc.blob(blob_bytes).end(blobs[b * blob_bytes:
+                                           (b + 1) * blob_bytes])
+            await asyncio.sleep(0)  # the pumps run between blobs
+        enc.finalize()
+
+    async def session() -> None:
+        await asyncio.wait_for(asyncio.gather(
+            feed(), session_over_asyncio(enc, dec)), 600)
+
+    t0 = time.perf_counter()
+    asyncio.run(session())
+    sync(device)
+    seconds = time.perf_counter() - t0
+    total = len(changes) + n_blobs
+    if not dec.finished or at_finalize != [total]:
+        raise AssertionError(f"17e: finished {dec.finished}, digests before "
+                             f"finalize {at_finalize} of {total}")
+    want = ([("change", i, blake(protocol.encode_change(c)))
+             for i, c in enumerate(changes)]
+            + [("blob", b, blake(blobs[b * blob_bytes:(b + 1) * blob_bytes]))
+               for b in range(n_blobs)])
+    if [g for g in got if g[0] == "change"] != want[:len(changes)] or \
+            [g for g in got if g[0] == "blob"] != want[len(changes):]:
+        raise AssertionError("17e: the digests are not hashlib's in submit "
+                             "order")
+    out = {"seconds": seconds, "bytes": dec.bytes,
+           "gib_s": dec.bytes / seconds / (1 << 30),
+           "pipe_gib_s": dec.bytes / pipe_s / (1 << 30),
+           "dispatches": dec.digest_pipeline.dispatches}
+
+    # the faulted reader: every seed's plan, its faults that end a
+    # session taken out, re-segments and delays the same wire
+    wire = resume_wire(SWEEP_ROWS, blob=64 << 10)
+    clean = wire_digests(wire)
+    out["seeds"] = {}
+
+    async def faulted(plan, dec) -> None:
+        a, b = socket.socketpair()
+        a.setblocking(False)
+        b.setblocking(False)
+        _, writer = await asyncio.open_connection(sock=a)
+        reader, writer_b = await asyncio.open_connection(sock=b)
+        try:
+            writer.write(wire)
+            writer.write_eof()
+            await asyncio.wait_for(
+                recv_over_async(dec, AsyncFaultyReader(reader, plan)), 120)
+        finally:
+            for w in (writer, writer_b):
+                w.transport.abort()
+            a.close()
+            b.close()
+
+    for seed in range(AIO_SEEDS):
+        plan = FaultPlan.for_sweep(seed, len(wire), attempt=0)
+        seg = plan.max_segment
+        plan = dataclasses.replace(
+            plan, drop_at=None, truncate_at=None, flip_at=None,
+            max_segment=None if seg is None else max(seg, AIO_MIN_SEGMENT))
+        dec = protocol.decode(backend="cuda", device=device)
+        got = []
+        dec.on_digest(lambda kind, seq, d: got.append((kind, seq, d)))
+        dec.change(lambda c, done: done())
+        t0 = time.perf_counter()
+        asyncio.run(faulted(plan, dec))
+        if not dec.finished or got != clean:
+            raise AssertionError(f"17e seed {seed}: {len(got)} digests, not "
+                                 f"the clean {len(clean)}")
+        out["seeds"][seed] = {"seconds": time.perf_counter() - t0,
+                              "max_segment": (seg, plan.max_segment),
+                              "stall_s": plan.stall_s}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5107,6 +6023,7 @@ def main() -> int:
         f"materialize B1 {m['blake2b']}, B6 "
         f"{m['gear_window_first_checked']}, then {grew}")
     log(f"phase 14: {time.perf_counter() - t0:.2f} s")
+    edge_in = dict(ae["edge"], record=a["record"])  # phase 17b's reconcile
     del ae, snap
 
     t0 = time.perf_counter()
@@ -5251,13 +6168,109 @@ def main() -> int:
     log(f"phase 16: launches 16a {p16a}; 16c {p16c}; 16d {p16d}")
     log(f"phase 16: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    reset_counters()
+    sc = run_edge_scaling(device)
+    p17a = read_counters()
+    log(f"phase 17a: RLIMIT_NOFILE soft {sc['fd_soft']} hard {sc['fd_hard']}"
+        f"; counts dropped for fds: {sc['dropped']}")
+    for n, arm in sc["arms"].items():
+        log(f"phase 17a: config 15, {n} concurrent one-change sessions "
+            f"(alternating latency/throughput) through one EdgeLoop on "
+            f"ReplicationHub(device='cuda'), gate on: peak table {arm['peak']}"
+            f" == held; {arm['sessions_s']} sessions/s in the finish flood "
+            f"({arm['finish_s']} s), p99 {arm['p99_s']} s, ramp "
+            f"{arm['ramp_s']} s; admitted {arm['admitted']}, rejected "
+            f"{arm['rejected']}, shed {arm['shed']}; loop_lag_max_s "
+            f"{arm['loop_lag_max_s']}, p99_turn_s {arm['p99_turn_s']}, "
+            f"{arm['turns']} turns; B1 launches {arm['b1']}; every reply one "
+            f"change == hashlib ({arm['distinct_replies']} distinct); on "
+            f"{card}")
+    log(f"phase 17a: B1 launches {p17a['blake2b']}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    t1 = time.perf_counter()
+    reset_counters()
+    mx = run_edge_mixed(device, edge_in)
+    p17b = mx["launches"]
+    del edge_in
+    log(f"phase 17b: one EdgeLoop, one ReplicationHub(device='cuda'): "
+        f"{EDGE_HUB_SESSIONS} hub sessions of phase 15b's {HUB_WIRE_MIB} MiB "
+        f"wire, two broadcast groups (16a's wire, {EDGE_GROUP_SUBS} "
+        f"subscribers each), phase 14a's reconcile pair (k = 1000) and a "
+        f"snapshot leg over {EDGE_SNAP_BYTES} B (materialized in "
+        f"{mx['materialize_s']:.3f} s); table {mx['table']}, every fd "
+        f"non-blocking; every reply == hashlib, every subscriber's length "
+        f"and BLAKE2b == the wire's, the reconcile records == the oracle's "
+        f"with socket bytes {mx['reconcile']['wire']} == reconcile_local's, "
+        f"the joiner byte-exact; {mx['records']} records == the threaded "
+        f"legs'; {mx['wire_bytes']} request bytes, all legs in "
+        f"{mx['seconds']} s; launches B1 {p17b['blake2b']}, B6 "
+        f"{p17b['gear_window_first_checked']}; on {card}")
+    log(f"phase 17b: {time.perf_counter() - t1:.2f} s")
+    t1 = time.perf_counter()
+    reset_counters()
+    ch17 = run_edge_chaos(device)
+    p17c = read_counters()
+    base = ch17["arms"][None]["p99_ms"]
+    for seed, arm in ch17["arms"].items():
+        if seed is not None:
+            log(f"phase 17c: seed {seed} ({arm['scenario']}): "
+                f"{arm['healthy']} neighbours byte-exact, worst "
+                f"{arm['p99_ms']} ms (without a fault {base} ms), the "
+                f"faulted session's record not ok; on {card}")
+    log(f"phase 17c: B1 launches {p17c['blake2b']}; "
+        f"{time.perf_counter() - t1:.2f} s")
+    t1 = time.perf_counter()
+    sd = run_edge_sidecar(device)
+    log(f"phase 17d: --tcp --edge --stats-fd --obs-http sidecar, "
+        f"{EDGE_HUB_SESSIONS} concurrent clients of a {HUB_WIRE_MIB} MiB "
+        f"wire: every reply == hashlib, "
+        f"{sd['bytes'] / sd['seconds'] / (1 << 30)} GiB/s ({sd['seconds']} "
+        f"s, {sd['bytes']} B); on {card}")
+    log(f"phase 17d: the same {EDGE_HUB_SESSIONS} clients held halfway in "
+        f"the table (the edge section named each, by kind and class), "
+        f"/healthz {sd['healthz']['status']} with loop_lag "
+        f"{sd['healthz']['loop_lag']} (503 before it {len(sd['healthz_503'])}"
+        f" times, the first failing {sd['healthz_503'][:1]}); released: "
+        f"every reply == hashlib; {sd['records']} stats records parsed; the "
+        f"last edge section "
+        f"{ {k: sd['edge'][k] for k in ('served', 'admitted', 'shed')} }; "
+        f"its sentinel: {sd['launches']}; on {card}")
+    log(f"phase 17d: --edge --hub-max-sessions 2: the third client read EOF"
+        f" and the sidecar logged {sd['rejected']['record']}; "
+        f"{sd['rejected']['edge']}; the held clients' replies == hashlib; "
+        f"{time.perf_counter() - t1:.2f} s on {card}")
+    t1 = time.perf_counter()
+    reset_counters()
+    aio = run_aio(device, tel["gate"]["median_off_s"])
+    p17e = read_counters()
+    log(f"phase 17e: session_over_asyncio over phase 13a's {P13_BLOBS}-blob "
+        f"session into decode(backend='cuda'): every digest == hashlib in "
+        f"submit order, before finalize; {aio['gib_s']} GiB/s ({aio['seconds']}"
+        f" s, {aio['bytes']} B, {aio['dispatches']} dispatches) beside pipe "
+        f"{aio['pipe_gib_s']} GiB/s (13a's gate-off median); on {card}")
+    log(f"phase 17e: recv_over_async under AsyncFaultyReader, seeds "
+        f"0..{AIO_SEEDS - 1} (for_sweep's plans without the faults that end "
+        f"a session): the clean digests each time {aio['seeds']}; B1 "
+        f"launches {p17e['blake2b']}; {time.perf_counter() - t1:.2f} s on "
+        f"{card}")
+    p17 = {k: p17a[k] + p17b[k] + p17c[k] + p17e[k] for k in launches}
+    for what, n in (("17a", p17a), ("17b", p17b), ("17c", p17c),
+                    ("17e", p17e)):
+        if n["blake2b"] == 0:
+            raise AssertionError(f"phase {what} never launched B1")
+    if p17b["gear_window_first_checked"] == 0:
+        raise AssertionError("phase 17b never launched B6")
+    log(f"phase 17: launches 17a {p17a}; 17b {p17b}; 17c {p17c}; 17e {p17e}")
+    log(f"phase 17: {time.perf_counter() - t0:.2f} s")
+
     for k in launches:
         launches[k] += (p10[k] + p11[k] + p12[k] + p13[k] + p14[k] + p15[k]
-                        + p16[k])
+                        + p16[k] + p17[k])
     for r in rows:
         n = r["name"]
         r["launches"] += (p10[n] + p11[n] + p12[n] + p13[n] + p14[n]
-                          + p15[n] + p16[n])
+                          + p15[n] + p16[n] + p17[n])
     buckets = b1_buckets(session["launches"], side["launches"],
                          ent["launches"], cdc, streamed)
     buckets["reconcile"] = sum(p10["b1_blocks"].values())
@@ -5267,6 +6280,7 @@ def main() -> int:
     buckets["anti_entropy"] = p14["blake2b"]
     buckets["hub"] = p15["blake2b"]
     buckets["fanout"] = p16["blake2b"]
+    buckets["edge"] = p17["blake2b"]
     if sum(buckets.values()) != launches["blake2b"]:
         raise AssertionError(f"B1's launches by bucket {buckets} do not sum "
                              f"to its {launches['blake2b']} launches")
@@ -5309,4 +6323,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--edge-client"]:
+        sys.exit(edge_client_main(int(sys.argv[2]), int(sys.argv[3]),
+                                  sys.argv[4]))
     sys.exit(main())

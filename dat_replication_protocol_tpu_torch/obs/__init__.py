@@ -16,12 +16,14 @@ The counterpart of ``dat_replication_protocol_tpu/obs/`` (its core):
 * :mod:`.device` — the kernel sentinel (:func:`kernel_site`: launches
   and launch shapes per call site), engine attribution, device memory
   gauges and the backend-init watchdog.
+* :mod:`.loopprof` — the edge loop's per-turn phase accounting, loop
+  lag and sampling turn profiler (:class:`LoopProfiler`).
 
 Names of counters, events and spans are the reference's
 (``OBSERVABILITY.md``), so the JAX package's offline tools read the
-port's logs.  ``metrics``, ``events``, ``tracing`` and ``flight`` use
-the standard library only; ``device`` reads ``torch`` only if the
-process already loaded it.
+port's logs.  ``metrics``, ``events``, ``tracing``, ``flight`` and
+``loopprof`` use the standard library only; ``device`` reads ``torch``
+only if the process already loaded it.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from .device import (
 )
 from .events import EVENTS, DeferredEmitQueue, EventLog, emit
 from .flight import FLIGHT, FlightRecorder, read_bundle
+from .loopprof import PHASES, LoopProfiler
 from .metrics import (
     OBS,
     REGISTRY,
@@ -73,6 +76,8 @@ __all__ = [
     "DeferredEmitQueue",
     "SpanLog",
     "FlightRecorder",
+    "LoopProfiler",
+    "PHASES",
     "Counter",
     "Gauge",
     "Histogram",

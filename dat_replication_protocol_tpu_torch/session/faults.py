@@ -23,8 +23,8 @@ Everything is derived from ``random.Random(seed)``: the same plan over
 the same bytes produces the same faults, so a failing seed is a
 reproducer, not a flake.  The scenario generators (:meth:`FaultPlan.for_sweep`
 and its session, partition and link axes) give field-for-field the JAX
-package's plans for the same arguments.  The asyncio reader of the JAX
-package is not carried: the port has no asyncio transport yet.
+package's plans for the same arguments.  :class:`AsyncFaultyReader` is
+:class:`FaultyReader`'s twin for the asyncio transport (:mod:`.aio`).
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ __all__ = [
     "TransportFault",
     "FaultPlan",
     "FaultyReader",
+    "AsyncFaultyReader",
     "FaultyWriter",
     "bytes_reader",
 ]
@@ -421,6 +422,40 @@ class FaultyReader:
             return b""  # injected truncation: a clean-looking EOF
         while not self._pending:
             data = self._read(n)
+            if not data:
+                return b""  # upstream EOF
+            self._pending += data
+        take = min(limit, len(self._pending))
+        out = bytes(self._pending[:take])
+        del self._pending[:take]
+        return self._state.deliver(out)
+
+
+class AsyncFaultyReader:
+    """The asyncio twin of :class:`FaultyReader`: wraps any object with
+    ``async read(n)`` (an ``asyncio.StreamReader``, say) and delivers,
+    byte for byte, what :class:`FaultyReader` delivers for the same
+    plan."""
+
+    def __init__(self, reader, plan: FaultPlan):
+        self._reader = reader
+        self._state = _FaultState(plan)
+        self._pending = bytearray()
+
+    @property
+    def offset(self) -> int:
+        return self._state.offset
+
+    async def read(self, n: int) -> bytes:
+        import asyncio
+
+        limit, sleep_s = self._state.pre_read(n)
+        if sleep_s:
+            await asyncio.sleep(sleep_s)
+        if limit is None:
+            return b""  # injected truncation: a clean-looking EOF
+        while not self._pending:
+            data = await self._reader.read(n)
             if not data:
                 return b""  # upstream EOF
             self._pending += data

@@ -3,7 +3,8 @@
 The port of ``dat_replication_protocol_tpu/sidecar.py``'s digest reply
 (:121-393), its TCP accept loop (:741-926), its anti-entropy modes
 (:517-643), its hub mode, its fan-out mode with the snapshot redirect
-(:394-515, :645-712) and its stats and scrape endpoints (:927-1141)::
+(:394-515, :645-712), its stats and scrape endpoints (:927-1141) and its
+event-driven edge (:87-97, :1091-1111, :1466-1483)::
 
     python -m dat_replication_protocol_tpu_torch.sidecar --stdio
     python -m dat_replication_protocol_tpu_torch.sidecar --tcp 127.0.0.1:7531
@@ -19,6 +20,8 @@ The port of ``dat_replication_protocol_tpu/sidecar.py``'s digest reply
         [--fanout-stall-timeout SECONDS]
     python -m dat_replication_protocol_tpu_torch.sidecar --tcp HOST:PORT \
         --fanout --snapshot DATAFILE [--snapshot-port PORT]
+    python -m dat_replication_protocol_tpu_torch.sidecar --tcp HOST:PORT \
+        --edge [--hub*] [--fanout*] [--reconcile F] [--snapshot F]
 
 **Digest reply** (the default mode).  A client pipes a session (changes
 + blobs) in; the sidecar decodes it with ``decode(backend='cuda')``,
@@ -72,8 +75,8 @@ with ``emit_seq``, the hub's aggregate and per-session breakdown, the
 ``wirecost`` ledger and ``healthz``; or with ``--stats-format prom``
 Prometheus text); SIGUSR1 forces a dump.  ``--obs-http PORT`` serves
 ``/metrics``, ``/snapshot``, ``/healthz`` and ``/events`` on
-127.0.0.1 (:mod:`.obs.http`).  The edge and replica modes of the
-reference sidecar are not ported.
+127.0.0.1 (:mod:`.obs.http`).  The replica mode of the reference
+sidecar is not ported.
 
 **Fan-out mode.**  ``--fanout`` (``--tcp`` only) runs one shared
 :class:`~.fanout.FanoutServer`.  The first connection to claim the
@@ -92,6 +95,18 @@ printed on stderr as ``snapshot bootstrap on HOST:PORT``), and the
 snapshot-needed record carries ``"hint": {"port", "cap"}`` naming it.
 The stats records gain the fan-out's ``fanout`` and per-peer ``peers``
 sections.
+
+**Edge mode.**  ``--edge`` (``--tcp`` only) serves every connection from
+ONE selector loop (:class:`~.edge.EdgeLoop`) instead of a thread each:
+hub sessions, ``--fanout`` sources and subscribers, ``--reconcile`` and
+``--snapshot`` responders, with the same records and the same overload
+ladder (hub admission, the hub window as a read gate, shedding).
+``--edge`` implies ``--hub`` for the digest sessions it serves (hub
+sessions and a broadcast source), and prints ``sidecar: edge listening
+on :PORT`` on stderr.  The stats
+records gain an ``edge`` section (sessions by QoS class and by kind,
+admission tallies, the loop's turns and lag), ``/healthz`` reads the
+edge's admission and the loop's ``loop_lag`` stage.
 
 Telemetry, as the reference's flags give it (:1303-1328):
 ``--flight-dir DIR`` arms the flight recorder (a protocol error dumps a
@@ -147,6 +162,9 @@ _ACTIVE_HUB = None
 # fan-out mode: the one fan-out server, whose per-peer breakdown rides
 # the stats records
 _ACTIVE_FANOUT = None
+# edge mode: the EdgeLoop whose table aggregate rides the stats records
+# and whose admission stage fronts /healthz (it composes the hub's)
+_ACTIVE_EDGE = None
 
 
 def set_active_hub(hub) -> None:
@@ -161,6 +179,13 @@ def set_active_fanout(server) -> None:
     ``--stats-fd`` records carry (None detaches)."""
     global _ACTIVE_FANOUT
     _ACTIVE_FANOUT = server
+
+
+def set_active_edge(loop) -> None:
+    """Install the :class:`~.edge.EdgeLoop` whose table aggregate
+    ``--stats-fd`` records carry (None detaches)."""
+    global _ACTIVE_EDGE
+    _ACTIVE_EDGE = loop
 
 
 def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
@@ -865,8 +890,9 @@ def snapshot_stats() -> dict:
     pump; in hub mode the hub's aggregate (``hub``) and per-session
     breakdown (``sessions``); in fan-out mode the server's aggregate
     (``fanout``) and per-peer breakdown (``peers``); the wire cost ledger
-    (``wirecost``) once it holds a link; and the staged health
-    (``healthz``).  JSON-able."""
+    (``wirecost``) once it holds a link; in edge mode the session table's
+    aggregate (``edge``); and the staged health (``healthz``).
+    JSON-able."""
     out = {
         "ts": time.time(),
         "monotonic": time.monotonic(),
@@ -885,14 +911,19 @@ def snapshot_stats() -> dict:
     wc = _WIRECOST.snapshot()
     if wc["links"] or wc["amplification"]:
         out["wirecost"] = wc
+    if _ACTIVE_EDGE is not None:
+        out["edge"] = _ACTIVE_EDGE.snapshot()
     out["healthz"] = obs_http.default_healthz(_active_admission_fn())
     return out
 
 
 def _active_admission_fn():
-    """The lock-free admission view of the shared engine: the hub's when
-    a hub runs (the fan-out composes with it as the broadcast layer),
-    else the fan-out's."""
+    """The lock-free admission view of the shared engine: the edge's
+    when an edge loop runs (it composes the hub's verdict with its own
+    table), else the hub's when a hub runs (the fan-out composes with it
+    as the broadcast layer), else the fan-out's."""
+    if _ACTIVE_EDGE is not None:
+        return _ACTIVE_EDGE.admission_state
     if _ACTIVE_HUB is not None:
         return _ACTIVE_HUB.admission_state
     if _ACTIVE_FANOUT is not None:
@@ -981,7 +1012,8 @@ def main(argv=None) -> int:
     mode.add_argument("--tcp", metavar="HOST:PORT",
                       help="listen on HOST:PORT (port 0 binds an ephemeral "
                            "port, printed on stderr) and serve every "
-                           "connection on its own thread")
+                           "connection on its own thread (or, with --edge, "
+                           "from one event loop)")
     parser.add_argument("--device", default="cuda",
                         help="torch device for the digests and the "
                              "anti-entropy state (default: cuda)")
@@ -1009,6 +1041,13 @@ def main(argv=None) -> int:
                         metavar="BYTES",
                         help="live-log wire offset the --snapshot dataset "
                              "materializes (default: 0)")
+    parser.add_argument("--edge", action="store_true",
+                        help="event-driven edge (--tcp only): serve every "
+                             "connection (hub sessions, --fanout peers, "
+                             "--reconcile/--snapshot responders) from ONE "
+                             "selector session table instead of a thread "
+                             "each, with the same overload ladder; implies "
+                             "--hub for digest sessions")
     parser.add_argument("--hub", action="store_true",
                         help="multiplex every accepted digest session onto "
                              "one shared engine (--tcp only): batching "
@@ -1097,6 +1136,14 @@ def main(argv=None) -> int:
     if args.fanout and args.reconcile:
         parser.error("--reconcile is its own session mode; it cannot "
                      "combine with --hub/--fanout")
+    if args.edge and args.stdio:
+        parser.error("--edge is the event-driven TCP front; it needs --tcp")
+    if args.edge and not args.hub and (
+            args.fanout or not (args.reconcile or args.snapshot)):
+        # --edge implies --hub for digest sessions (a broadcast source is
+        # one): the table's hub sessions ride the shared engine's
+        # admission/window/shed ladder
+        args.hub = True
     drain = args.drain_timeout if args.drain_timeout > 0 else None
     from .session.reconnect import BackoffPolicy
 
@@ -1196,6 +1243,22 @@ def main(argv=None) -> int:
             print(f"sidecar: snapshot bootstrap on "
                   f"{host}:{snap_listener.port}", file=sys.stderr, flush=True)
             source = None  # the main loop keeps broadcasting
+        if args.edge:
+            from .edge import EdgeLoop
+
+            edge_loop = EdgeLoop(
+                hub, fanouts={"main": fanout} if fanout else None,
+                reconcile_replica=replica, snapshot_source=source,
+                drain_timeout=drain,
+                # a stable loop label a process: edge.loop.lag{loop=}
+                name=f"edge:{host}:{int(port)}")
+            set_active_edge(edge_loop)
+            try:
+                edge_loop.bind(host, int(port))
+                edge_loop.serve()
+            finally:
+                set_active_edge(None)
+            return 0
         serve_tcp(host, int(port), device=args.device,
                   drain_timeout=drain, retry_policy=policy,
                   reconcile_replica=replica, snapshot_source=source,
