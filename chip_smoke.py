@@ -298,13 +298,47 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    time.  B1's launches of 17a, 17b, 17c and 17e form the ``edge``
    bucket (17b's B6 launches join B6's row); 17d's are the
    subprocesses'.
+18. the gossip mesh (``cluster/``, ``obs/propagation.py``, the sidecar's
+   ``--replica``, the edge's replica leg).  18a (bench.py config 14,
+   uncut): ``ClusterSim(N, seed=20240, chaos=False, records_per=192,
+   divergence=24, device="cuda")`` at N = 4, 16 and 64 with the obs gate
+   on: the expected digest and every replica's content digest equal to a
+   ``hashlib`` oracle of the union (each canonical record hashed by
+   ``hashlib``, the unique digests sorted by their little-endian 64-bit
+   words and hashed again), ``rounds`` within ``rounds_bound()``; each
+   N's rounds, seconds, wire and divergence bytes, ``wire_x``,
+   ``exchange_p99_s``, goodput and overhead from the wire cost ledger and
+   B1's launches.  18b: four ``python -m
+   dat_replication_protocol_tpu_torch.sidecar --tcp 127.0.0.1:P --replica
+   LOG --gossip-peers ... --gossip-interval 0.2 --stats-fd FD`` sidecars
+   on the card, one of them with ``--edge`` (its inbound exchanges served
+   by ``replica_machine``), each dialling the other three; each log holds
+   the same 262,144 records and 1,024 of its own in phase 14a's record
+   shape (configs[4]'s 1M records a replica, cut to 262,144 for the time
+   limit), 266,240 in the union.  Converged: every sidecar's stats record
+   carries ``gossip.digest`` equal to the ``hashlib`` oracle of the union
+   in the delivered form and 266,240 records; then a further round of
+   each driver (``exchanges_ok`` grows) applies and ships nothing.  The
+   seconds from the last ``listening`` line to convergence, each
+   replica's counters, each sidecar's B1 launches (its sentinel) and the
+   edge section are printed.  18c: ``test_cluster_faults.py``'s
+   scenarios for seeds 0-7 (N = 4, 16, 64, a partition that heals, chaos
+   links, churn with a 2,048-byte retention, a flash crowd, the
+   wrong-symbol and wrong-chunk arms) on ``device="cuda"``, with the
+   sweep's asserts (convergence within the bound, identical healthy
+   replicas, the exact union with no byzantine replica, no exchange
+   across the cut, every quarantine explained); each seed's rounds,
+   bootstraps (seed 6's flash crowd always bootstraps over
+   ``snapshot_local``: B6 and B1), quarantines and seconds.  B1's
+   launches of 18a and 18c form the ``cluster`` bucket (18c's B6
+   launches join B6's row); 18b's are the subprocesses'.
 
 Every launch counter (B1's per variant and per block count, and its
 chained entry's per variant, too) is set to 0 just before each main-path
 phase (3, 4, 7, 8, 10, 11, 12a's stream, 12b's mesh calls, 13's gated
 runs; in 14a the replicas and both clean arms, in 14b materialize and
 the cold and stale joiners, then the crowd; 15a, 15c, 15d; 16a, 16c,
-16d; 17a, 17b, 17c, 17e) and read just after; a
+16d; 17a, 17b, 17c, 17e; 18a, 18c) and read just after; a
 kernel or B1 variant that the phases did not launch fails the run.
 The lines before the last carry the card, the per-kernel JSON and the
 times; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -3150,7 +3184,11 @@ class Sidecar:
         self.cond = threading.Condition()
         self.reader = threading.Thread(target=self._read, daemon=True)
         self.reader.start()
-        line = self.wait_for("listening on", SIDECAR_START_S)
+        try:
+            line = self.wait_for("listening on", SIDECAR_START_S)
+        except AssertionError:
+            self.close()  # a sidecar that never listened is stopped too
+            raise
         self.port = int(line.rsplit(":", 1)[1])
 
     def _read(self) -> None:
@@ -5642,6 +5680,383 @@ def run_aio(device, pipe_s: float, n_blobs=P13_BLOBS, blob_bytes=BLOB_BYTES,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the gossip mesh
+# ---------------------------------------------------------------------------
+
+# 18a: bench.py config 14, uncut: N in {4, 16, 64}, 192 base + 24 own
+# records a replica, clean links, the fixed seed, the plane lit
+CLUSTER_NS = (4, 16, 64)
+CLUSTER_SEED = 20_240
+CLUSTER_RECORDS = 192
+CLUSTER_DIVERGENCE = 24
+# 18b: four --replica sidecars; configs[4]'s 1M records a replica cut to
+# 262,144 shared for the time limit, 1,024 own records each
+MESH_REPLICAS = 4
+MESH_SHARED = 262_144
+MESH_OWN = 1_024
+MESH_INTERVAL_S = 0.2
+MESH_STATS_S = 0.5
+MESH_LIMIT_S = 240.0
+# 18c: test_cluster_faults.py's scenarios, seeds 0-7
+CLUSTER_CHAOS_SEEDS = 8
+CLUSTER_BYZ_ARMS = ("wrong-symbol", "wrong-chunk", "feed-corrupt")
+
+
+def content_oracle(digests) -> str:
+    """The replica content digest's definition, in ``hashlib``: BLAKE2b-256
+    over the unique 32-byte record digests, sorted by their four
+    little-endian 64-bit words (the first word first)."""
+    uniq = {bytes(d) for d in digests}
+    order = sorted(uniq, key=lambda d: tuple(
+        int.from_bytes(d[i:i + 8], "little") for i in (0, 8, 16, 24)))
+    return hashlib.blake2b(b"".join(order), digest_size=32).hexdigest()
+
+
+def wire_oracle(wire: bytes) -> str:
+    """``content_oracle`` of every canonical record of a change-log wire,
+    each record hashed by ``hashlib``."""
+    from dat_replication_protocol_tpu_torch.runtime import replay
+
+    cols, _ = replay.replay_log(np.frombuffer(wire, np.uint8))
+    return content_oracle(blake(p)
+                          for p in replay.canonical_change_payloads(cols))
+
+
+def cost_totals(board_snapshot: dict) -> dict:
+    """The goodput and overhead ratios bench.py prints: payload and
+    framing bytes over the ledger bytes of every link of a wire cost
+    snapshot."""
+    payload = framing = total = 0
+    for rec in board_snapshot["links"].values():
+        payload += rec["payload_bytes"]
+        framing += rec["framing_bytes"]
+        total += rec["ledger_bytes"]
+    return {"goodput": payload / total if total else None,
+            "overhead": framing / total if total else None}
+
+
+def run_cluster_converge(device) -> dict:
+    """18a (see the module docstring)."""
+    from dat_replication_protocol_tpu_torch.cluster import ClusterSim
+    from dat_replication_protocol_tpu_torch.obs import metrics as obs_metrics
+    from dat_replication_protocol_tpu_torch.obs.propagation import (
+        PROPAGATION)
+    from dat_replication_protocol_tpu_torch.obs.wirecost import WIRECOST
+
+    out = {}
+    was_on = obs_metrics.OBS.on
+    obs_metrics.enable()
+    try:
+        for n in CLUSTER_NS:
+            PROPAGATION.reset_for_tests()
+            WIRECOST.reset_for_tests()
+            b1 = read_counters()["blake2b"]
+            t0 = time.perf_counter()
+            sim = ClusterSim(n, seed=CLUSTER_SEED, chaos=False,
+                             records_per=CLUSTER_RECORDS,
+                             divergence=CLUSTER_DIVERGENCE, device=device)
+            build_s = time.perf_counter() - t0
+            want = wire_oracle(b"".join(nd.canonical_wire()
+                                        for nd in sim.nodes.values()))
+            if sim.expected_digest.hex() != want:
+                raise AssertionError(f"18a n={n}: the expected digest is not "
+                                     "the hashlib oracle's")
+            t0 = time.perf_counter()
+            res = sim.run()
+            seconds = time.perf_counter() - t0
+            if not res["converged"] or res["rounds"] > sim.rounds_bound():
+                raise AssertionError(f"18a n={n}: {res['rounds']} rounds of "
+                                     f"{sim.rounds_bound()}, converged "
+                                     f"{res['converged']}")
+            got = {nd.content_digest().hex() for nd in sim.nodes.values()}
+            if got != {want}:
+                raise AssertionError(f"18a n={n}: replica digests {got} are "
+                                     "not the hashlib oracle's")
+            cost = cost_totals(WIRECOST.snapshot())
+            out[n] = {"rounds": res["rounds"], "bound": sim.rounds_bound(),
+                      "seconds": seconds, "build_s": build_s,
+                      "wire_bytes": sim.wire_bytes,
+                      "divergence_bytes": sim.divergence_bytes,
+                      "wire_x": sim.wire_bytes / sim.divergence_bytes,
+                      "exchange_p99_s": PROPAGATION.exchange_p99(),
+                      "goodput": cost["goodput"],
+                      "overhead": cost["overhead"],
+                      "records": sim.nodes["r0"].record_count,
+                      "b1": read_counters()["blake2b"] - b1}
+    finally:
+        PROPAGATION.reset_for_tests()
+        WIRECOST.reset_for_tests()
+        obs_metrics.OBS.on = was_on
+        obs_reset()
+    return out
+
+
+def _free_ports(n: int) -> list:
+    import socket
+
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def mesh_logs(seed: int = SEED + 180) -> tuple:
+    """18b's four change logs in phase 14a's record shape (a subset absent
+    on every third row): the shared base and each replica's own records,
+    and the ``hashlib`` oracle of the union in the delivered form the
+    live replicas hold (absent optionals as ''/b'')."""
+    from dat_replication_protocol_tpu_torch.runtime import replay
+
+    rng = np.random.default_rng(seed)
+    shared = ae_records(0, MESH_SHARED, rng)
+    owns = [ae_records(MESH_SHARED + i * MESH_OWN,
+                       MESH_SHARED + (i + 1) * MESH_OWN, rng)
+            for i in range(MESH_REPLICAS)]
+    w_shared = replay.encode_change_log(shared)
+    logs = [w_shared + replay.encode_change_log(own) for own in owns]
+    union = shared + [r for own in owns for r in own]
+    as_delivered = [dict(r, value=r["value"] or b"", subset=r["subset"] or "")
+                    for r in union]
+    return logs, content_oracle(canonical_digests(as_delivered)), len(union)
+
+
+def run_live_mesh(device) -> dict:
+    """18b (see the module docstring)."""
+    import signal
+    import tempfile
+    import threading
+
+    t0 = time.perf_counter()
+    logs, want, n_union = mesh_logs()
+    out = {"make_s": time.perf_counter() - t0, "union": n_union,
+           "digest": want}
+    ports = _free_ports(MESH_REPLICAS)
+    stats = [StatsReader() for _ in range(MESH_REPLICAS)]
+    sides: list = [None] * MESH_REPLICAS
+    listening: list = [None] * MESH_REPLICAS
+    errors: list = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def start(i: int) -> None:
+            path = os.path.join(tmp, f"r{i}.log")
+            with open(path, "wb") as f:
+                f.write(logs[i])
+            peers = ",".join(f"127.0.0.1:{p}" for j, p in enumerate(ports)
+                             if j != i)
+            args = ["--tcp", f"127.0.0.1:{ports[i]}", "--replica", path,
+                    "--replica-key", f"r{i}", "--gossip-peers", peers,
+                    "--gossip-interval", str(MESH_INTERVAL_S),
+                    "--device", str(device), "--stats-fd", str(stats[i].w),
+                    "--stats-interval", str(MESH_STATS_S)]
+            if i == 0:
+                args.append("--edge")  # replica_machine serves its inbound
+            try:
+                sides[i] = Sidecar(args, pass_fds=(stats[i].w,))
+                listening[i] = time.time()
+            except Exception as e:  # reported after every start is joined
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        starters = [threading.Thread(target=start, args=(i,))
+                    for i in range(MESH_REPLICAS)]
+        for t in starters:
+            t.start()
+        for t in starters:
+            t.join()
+        out["start_s"] = time.perf_counter() - t0
+        try:
+            for s in stats:
+                s.start()
+            if errors:
+                raise errors[0]
+            last_listen = max(listening)
+
+            def converged(rec) -> bool:
+                g = rec.get("gossip")
+                return bool(g) and g["digest"] == want \
+                    and g["records"] == n_union
+
+            firsts = [s.wait_for(converged, MESH_LIMIT_S) for s in stats]
+            t_conv = max(r["ts"] for r in firsts)
+            out["converge_s"] = t_conv - last_listen
+
+            def next_round(after_ts: float) -> list:
+                """Each sidecar's first record at or after ``after_ts``,
+                then its first record whose driver completed one more
+                exchange than that one."""
+                marks = [s.wait_for(lambda r: r["ts"] >= after_ts
+                                    and "gossip" in r, 60) for s in stats]
+                return [s.wait_for(
+                    lambda r, m=m: r["ts"] >= m["ts"] and "gossip" in r
+                    and r["gossip"]["exchanges_ok"]
+                    > m["gossip"]["exchanges_ok"], 60) for s, m in
+                    zip(stats, marks)]
+
+            # an exchange in flight when the last replica converged may
+            # still apply records the node holds already (duplicates are
+            # harmless); once every driver completed one more exchange,
+            # those have ended, and a further round of each driver must
+            # apply and ship nothing
+            settled = next_round(t_conv)
+            base = next_round(max(r["ts"] for r in settled))
+            base_ts = max(r["ts"] for r in base)
+            after = [r["gossip"] for r in next_round(base_ts)]
+            for b, a in zip(base, after):
+                b = b["gossip"]
+                if (a["repairs_applied"], a["repairs_sent"]) != \
+                        (b["repairs_applied"], b["repairs_sent"]) \
+                        or a["digest"] != want:
+                    raise AssertionError(f"18b: {a['replica']} moved after "
+                                         f"convergence: {b} -> {a}")
+            out["replicas"] = {
+                a["replica"]: {k: a[k] for k in (
+                    "rounds", "exchanges_ok", "repairs_applied",
+                    "repairs_sent", "transport_failures",
+                    "corrupt_exchanges", "quarantines")}
+                for a in after}
+            out["edge"] = next(r["edge"] for r in reversed(stats[0].records)
+                               if "edge" in r)
+            # the kinds the edge's table held when a record was taken
+            out["edge_kinds"] = sorted(set().union(*(
+                r["edge"]["by_kind"] for r in stats[0].records
+                if "edge" in r)))
+            if out["edge"]["served"] == 0 or \
+                    set(out["edge_kinds"]) - {"replica"}:
+                raise AssertionError(f"18b: r0's edge section {out['edge']},"
+                                     f" kinds {out['edge_kinds']}")
+            out["tx_bytes"] = {
+                f"r{i}": sum(rec["ledger_bytes"] for name, rec in
+                             s.records[-1].get("wirecost", {}).get(
+                                 "links", {}).items() if name.endswith("|tx"))
+                for i, s in enumerate(stats)}
+            out["propagation"] = all("propagation" in s.records[-1]
+                                     for s in stats)
+        finally:
+            for s in sides:
+                if s is not None:
+                    s.close(signal.SIGINT)
+            for s in stats:
+                s.close()
+    for s in stats:
+        if s.errors:
+            raise AssertionError(f"18b: stats lines {s.errors[:3]}")
+    out["b1"] = {f"r{i}": sentinel_launches(s.records[-1])["blake2b"]
+                 for i, s in enumerate(stats)}
+    if not out["propagation"] or min(out["b1"].values()) == 0:
+        raise AssertionError(f"18b: propagation {out['propagation']}, B1 "
+                             f"{out['b1']}")
+    for side in sides:
+        for line in side.lines:
+            if line.startswith("sidecar: ('"):
+                session_record(line)  # every session line one whole record
+    return out
+
+
+def cluster_scenario(seed: int) -> dict:
+    """test_cluster_faults.py's scenario of ``seed``: N in {4, 16, 64}, a
+    partition that heals, chaos links, and one of churn with a trim, a
+    flash crowd or a byzantine replica."""
+    n = (4, 16, 64)[seed % 3]
+    kw: dict = {"n": n, "seed": seed, "chaos": True}
+    if n == 64:
+        kw.update(records_per=12, divergence=3)
+    arm = None
+    mode = seed % 4
+    if mode == 1:
+        kw.update(churn=True, fanout=True, fanout_retention=2048)
+    elif mode == 2 and n <= 16:
+        kw.update(flash_crowd=2)
+    elif mode == 3:
+        arm = CLUSTER_BYZ_ARMS[(seed // 4) % len(CLUSTER_BYZ_ARMS)]
+        kw.update(byzantine=1 if n == 4 else 2, byzantine_arm=arm)
+        if arm == "feed-corrupt":
+            kw.update(fanout=True)
+    return kw, arm
+
+
+def check_chaos_seed(seed: int, sim, out: dict, arm) -> None:
+    """test_cluster_faults.py's asserts on one run."""
+    from dat_replication_protocol_tpu_torch.session.faults import FaultPlan
+
+    what = f"18c seed {seed}"
+    if not out["converged"] or out["rounds"] > out["bound"]:
+        raise AssertionError(f"{what}: {out['rounds']} rounds of "
+                             f"{out['bound']}, converged {out['converged']}")
+    healthy = {sim.nodes[k].content_digest().hex() for k in sim.healthy()}
+    if len(healthy) != 1:
+        raise AssertionError(f"{what}: healthy replicas diverge")
+    if sim.byzantine_key is None and healthy != {out["expected_digest"]}:
+        raise AssertionError(f"{what}: converged to the wrong content")
+    sc = out["partition"]
+    minority = sc["groups"][0]
+    for ev in sim.events:
+        if not sc["cut_round"] <= ev["round"] < sc["heal_round"]:
+            continue
+        for ex in ev["exchanges"]:
+            li = sim._index.get(ex["initiator"])
+            lt = sim._index.get(ex["responder"])
+            if ex["outcome"] != "ok" or li is None or lt is None \
+                    or li >= sim.n0 or lt >= sim.n0:
+                continue
+            if (li in minority) != (lt in minority):
+                raise AssertionError(f"{what}: {ex} crossed the cut")
+    byz = sim.byzantine_key
+    if byz is not None:
+        if arm in ("wrong-symbol", "feed-corrupt") and not any(
+                q["peer"] == byz for q in out["quarantines"]):
+            raise AssertionError(f"{what}: byzantine ({arm}) never "
+                                 "quarantined")
+        lies = [ex for ev in sim.events for ex in ev["exchanges"]
+                if ex["outcome"] == "corruption"
+                and byz in (ex["initiator"], ex["responder"])]
+        if arm == "wrong-chunk" and not any(
+                f"repair records from '{byz}'" in ex["error"]
+                for ex in lies):
+            raise AssertionError(f"{what}: no wrong-chunk lie refused")
+    for q in out["quarantines"]:
+        if byz in (q["by"], q["peer"]):
+            continue
+        li, lt = sim._index[q["by"]], sim._index[q["peer"]]
+        scen, _ = FaultPlan.link_scenario(seed, sim.n0,
+                                          (min(li, lt), max(li, lt)))
+        if scen != "flip":
+            raise AssertionError(f"{what}: quarantine {q} unexplained "
+                                 f"(link scenario {scen!r})")
+    if out["wire_bytes"] <= 0:
+        raise AssertionError(f"{what}: no wire moved")
+
+
+def run_cluster_chaos(device) -> dict:
+    """18c (see the module docstring)."""
+    from dat_replication_protocol_tpu_torch.cluster import ClusterSim
+
+    out = {}
+    for seed in range(CLUSTER_CHAOS_SEEDS):
+        kw, arm = cluster_scenario(seed)
+        n = kw.pop("n")
+        before = read_counters()
+        t0 = time.perf_counter()
+        sim = ClusterSim(n, device=device, **kw)
+        res = sim.run()
+        seconds = time.perf_counter() - t0
+        check_chaos_seed(seed, sim, res, arm)
+        now = read_counters()
+        out[seed] = {"n": n, "rounds": res["rounds"], "bound": res["bound"],
+                     "bootstraps": len(res["bootstraps"]) + sum(
+                         len(ev["joined"]) for ev in sim.events),
+                     "quarantines": len(res["quarantines"]),
+                     "arm": arm, "seconds": seconds,
+                     "b1": now["blake2b"] - before["blake2b"],
+                     "b6": now["gear_window_first_checked"]
+                     - before["gear_window_first_checked"]}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6264,13 +6679,69 @@ def main() -> int:
     log(f"phase 17: launches 17a {p17a}; 17b {p17b}; 17c {p17c}; 17e {p17e}")
     log(f"phase 17: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    reset_counters()
+    conv = run_cluster_converge(device)
+    p18a = read_counters()
+    for n, r in conv.items():
+        log(f"phase 18a: bench.py config 14, uncut: ClusterSim({n}, "
+            f"seed={CLUSTER_SEED}, chaos=False, records_per="
+            f"{CLUSTER_RECORDS}, divergence={CLUSTER_DIVERGENCE}, "
+            f"device='cuda'), gate on: converged in {r['rounds']} rounds "
+            f"(bound {r['bound']}) in {r['seconds']} s (the replicas built "
+            f"in {r['build_s']} s); every replica's content digest == the "
+            f"hashlib oracle of the union ({r['records']} records); wire "
+            f"{r['wire_bytes']} B over a divergence of "
+            f"{r['divergence_bytes']} B, wire_x {r['wire_x']}; "
+            f"exchange_p99_s {r['exchange_p99_s']}; goodput {r['goodput']}, "
+            f"overhead {r['overhead']} (wire cost ledger); B1 launches "
+            f"{r['b1']}; on {card}")
+    if p18a["blake2b"] == 0:
+        raise AssertionError("phase 18a never launched B1")
+    log(f"phase 18a: {time.perf_counter() - t0:.2f} s")
+    t1 = time.perf_counter()
+    mesh = run_live_mesh(device)
+    log(f"phase 18b: {MESH_REPLICAS} --tcp --replica sidecars on the card "
+        f"(r0 with --edge), --gossip-interval {MESH_INTERVAL_S}, each "
+        f"dialling the other three; {MESH_SHARED} shared records + "
+        f"{MESH_OWN} own each (configs[4]'s 1M a replica cut for time), "
+        f"{mesh['union']} in the union (logs made in {mesh['make_s']:.2f} "
+        f"s, sidecars listening after {mesh['start_s']:.2f} s): every "
+        f"--stats-fd gossip.digest == the hashlib oracle {mesh['digest'][:16]}"
+        f"... with {mesh['union']} records {mesh['converge_s']} s after the "
+        f"last listening line (stats every {MESH_STATS_S} s); a further "
+        f"round of each driver shipped nothing; on {card}")
+    log(f"phase 18b: replicas {mesh['replicas']}; tx bytes (wire cost "
+        f"ledger) {mesh['tx_bytes']}; B1 launches by sidecar (sentinels) "
+        f"{mesh['b1']}; r0's edge section "
+        f"{ {k: mesh['edge'][k] for k in ('served', 'admitted', 'rejected', 'shed')} }"
+        f", the kinds its table held in a record {mesh['edge_kinds']}; "
+        f"{time.perf_counter() - t1:.2f} s on {card}")
+    t1 = time.perf_counter()
+    reset_counters()
+    chaos = run_cluster_chaos(device)
+    p18c = read_counters()
+    for seed, r in chaos.items():
+        log(f"phase 18c: seed {seed} (n={r['n']}, arm {r['arm']}): converged "
+            f"in {r['rounds']} rounds (bound {r['bound']}), {r['bootstraps']}"
+            f" bootstraps, {r['quarantines']} quarantines, "
+            f"{r['seconds']} s; B1 {r['b1']}, B6 {r['b6']} launches; on "
+            f"{card}")
+    for name in ("blake2b", "gear_window_first_checked"):
+        if p18c[name] == 0:
+            raise AssertionError(f"phase 18c never launched {name}")
+    p18 = {k: p18a[k] + p18c[k] for k in launches}
+    log(f"phase 18c: {time.perf_counter() - t1:.2f} s")
+    log(f"phase 18: launches 18a {p18a}; 18c {p18c}")
+    log(f"phase 18: {time.perf_counter() - t0:.2f} s")
+
     for k in launches:
         launches[k] += (p10[k] + p11[k] + p12[k] + p13[k] + p14[k] + p15[k]
-                        + p16[k] + p17[k])
+                        + p16[k] + p17[k] + p18[k])
     for r in rows:
         n = r["name"]
         r["launches"] += (p10[n] + p11[n] + p12[n] + p13[n] + p14[n]
-                          + p15[n] + p16[n] + p17[n])
+                          + p15[n] + p16[n] + p17[n] + p18[n])
     buckets = b1_buckets(session["launches"], side["launches"],
                          ent["launches"], cdc, streamed)
     buckets["reconcile"] = sum(p10["b1_blocks"].values())
@@ -6281,6 +6752,7 @@ def main() -> int:
     buckets["hub"] = p15["blake2b"]
     buckets["fanout"] = p16["blake2b"]
     buckets["edge"] = p17["blake2b"]
+    buckets["cluster"] = p18["blake2b"]
     if sum(buckets.values()) != launches["blake2b"]:
         raise AssertionError(f"B1's launches by bucket {buckets} do not sum "
                              f"to its {launches['blake2b']} launches")

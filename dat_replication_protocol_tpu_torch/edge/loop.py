@@ -32,8 +32,10 @@ the sweep: the reply encoder is only ever touched by the loop.  The
 reply is finalized only once the request is finalized AND the hub
 session is drained (flush-before-finalize), so no digest is sealed out.
 
-The gossip leg (mode ``"replica"``) comes with the cluster package; a
-``mode_of`` that asks for it fails that connection's admission.
+The gossip leg (mode ``"replica"``) serves each connection as a
+responder against the live :class:`~..cluster.ReplicaNode` given as
+``replica_node``; its received records are absorbed into the node when
+the session completes.
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ import itertools
 import os
 import selectors
 import socket
-import sys
 import time
 from typing import Callable, Optional
 
@@ -61,8 +62,13 @@ from ..session.pump import (
     recv_step,
     send_step,
 )
-from ..sidecar import DEFAULT_DRAIN_TIMEOUT, _send_refusal
-from .machines import hub_machine, reconcile_machine, snapshot_machine
+from ..sidecar import DEFAULT_DRAIN_TIMEOUT, _send_refusal, log_line
+from .machines import (
+    hub_machine,
+    reconcile_machine,
+    replica_machine,
+    snapshot_machine,
+)
 
 __all__ = ["EdgeLoop", "EdgeSession", "serve_edge", "QOS_PRESETS",
            "EDGE_TICK", "ACCEPT_BURST"]
@@ -113,7 +119,7 @@ class EdgeSession:
         self.fd = conn.fileno()
         self.conn = conn
         self.peer = peer
-        self.kind = kind          # hub | subscriber | reconcile | snapshot
+        self.kind = kind  # hub | subscriber | reconcile | replica | snapshot
         self.key = key
         self.qos = qos
         self.pump: Optional[EdgePump] = None
@@ -141,15 +147,15 @@ class EdgeLoop:
     (blocking; tests run it on a thread), :meth:`close` from any thread.
 
     ``mode_of(n, peer)`` picks each accepted connection's leg
-    (``"hub" | "fanout" | "reconcile" | "snapshot"``) and defaults to
-    ``serve_tcp``'s precedence over the legs configured;
+    (``"hub" | "fanout" | "reconcile" | "replica" | "snapshot"``) and
+    defaults to ``serve_tcp``'s precedence over the legs configured;
     ``qos_of(n, peer, mode)`` picks the QoS class (default
     ``"throughput"``); ``group_of(n, peer)`` picks the broadcast group
     of a ``"fanout"`` connection (default: the first group).
     """
 
     def __init__(self, hub=None, *, fanouts=None, reconcile_replica=None,
-                 snapshot_source=None,
+                 snapshot_source=None, replica_node=None,
                  mode_of: Optional[Callable] = None,
                  qos_of: Optional[Callable] = None,
                  group_of: Optional[Callable] = None,
@@ -162,6 +168,7 @@ class EdgeLoop:
         self._fanouts = dict(fanouts) if fanouts else {}
         self._reconcile_replica = reconcile_replica
         self._snapshot_source = snapshot_source
+        self._replica_node = replica_node
         self._mode_of = mode_of if mode_of is not None else self._default_mode
         self._qos_of = qos_of if qos_of is not None else (
             lambda n, peer, mode: "throughput")
@@ -197,6 +204,8 @@ class EdgeLoop:
     def _default_mode(self, n: int, peer) -> str:
         if self._snapshot_source is not None:
             return "snapshot"
+        if self._replica_node is not None:
+            return "replica"
         if self._reconcile_replica is not None:
             return "reconcile"
         if self._fanouts:
@@ -227,8 +236,7 @@ class EdgeLoop:
         served AND the table drained."""
         if self._srv is None:
             raise RuntimeError("bind() first")
-        print(f"sidecar: edge listening on :{self.port}",
-              file=sys.stderr, flush=True)
+        log_line(f"sidecar: edge listening on :{self.port}")
         if ready_cb is not None:
             ready_cb(self.port)
         self.profiler.attach()
@@ -393,8 +401,10 @@ class EdgeLoop:
         elif mode == "snapshot":
             machine = snapshot_machine(self._snapshot_source, host_port)
         elif mode == "replica":
-            raise ValueError("edge mode 'replica' (the gossip leg) is not "
-                             "carried: it comes with the cluster package")
+            if self._replica_node is None:
+                raise ValueError("edge mode 'replica' needs the loop's "
+                                 "replica_node (a cluster.ReplicaNode)")
+            machine = replica_machine(self._replica_node, host_port)
         else:
             raise ValueError(f"unknown edge mode {mode!r}")
         sess = EdgeSession(n, conn, peer, mode, host_port, qos)
@@ -418,7 +428,7 @@ class EdgeLoop:
             self._rejected += 1
             if _OBS.on:
                 _emit("sidecar.session", **out)
-            print(f"sidecar: {peer} {out}", file=sys.stderr, flush=True)
+            log_line(f"sidecar: {peer} {out}")
             try:
                 conn.shutdown(socket.SHUT_WR)
             except OSError:
@@ -723,8 +733,7 @@ class EdgeLoop:
                 if _OBS.on:
                     _M_SESSIONS.inc()
                     _emit("sidecar.session", **out)
-            print(f"sidecar: {sess.peer} {out}", file=sys.stderr,
-                  flush=True)
+            log_line(f"sidecar: {sess.peer} {out}")
         finally:
             try:
                 sess.conn.close()
@@ -843,8 +852,8 @@ class EdgeLoop:
 
 
 def serve_edge(host: str, port: int, *, hub=None, fanouts=None,
-               reconcile_replica=None, snapshot_source=None, mode_of=None,
-               qos_of=None, group_of=None,
+               reconcile_replica=None, snapshot_source=None,
+               replica_node=None, mode_of=None, qos_of=None, group_of=None,
                max_sessions: Optional[int] = None, ready_cb=None,
                drain_timeout: Optional[float] = DEFAULT_DRAIN_TIMEOUT,
                tick: float = EDGE_TICK,
@@ -854,7 +863,8 @@ def serve_edge(host: str, port: int, *, hub=None, fanouts=None,
     bounds the loop; ``ready_cb(port)`` fires once bound)."""
     loop = EdgeLoop(hub, fanouts=fanouts,
                     reconcile_replica=reconcile_replica,
-                    snapshot_source=snapshot_source, mode_of=mode_of,
+                    snapshot_source=snapshot_source,
+                    replica_node=replica_node, mode_of=mode_of,
                     qos_of=qos_of, group_of=group_of,
                     drain_timeout=drain_timeout,
                     max_sessions=max_sessions, tick=tick, name=name)

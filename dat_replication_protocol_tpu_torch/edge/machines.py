@@ -8,9 +8,6 @@ the loop steps :func:`~..session.pump.recv_step` / ``send_step`` once
 a selector turn where the threaded legs ran blocking pumps.  Nothing
 here blocks: the hooks only flip encoder/decoder state or note flags
 the loop polls.
-
-The gossip leg (``replica_machine``) is not carried: it comes with the
-cluster package.
 """
 
 from __future__ import annotations
@@ -21,7 +18,7 @@ from ..obs.watermarks import WATERMARKS as _WATERMARKS
 from ..sidecar import DIGEST_SUBSET_BLOB, DIGEST_SUBSET_CHANGE
 
 __all__ = ["HubMachine", "ResponderMachine", "hub_machine",
-           "reconcile_machine", "snapshot_machine"]
+           "reconcile_machine", "replica_machine", "snapshot_machine"]
 
 
 class HubMachine:
@@ -155,6 +152,29 @@ def reconcile_machine(replica, peer: str) -> ResponderMachine:
                 "symbols": stats["symbols"], "rounds": stats["rounds"],
                 "records_sent": stats["records_sent"],
                 "records_received": len(stats["received"])}
+
+    return ResponderMachine(enc, dec, finish, shape, peer)
+
+
+def replica_machine(node, peer: str) -> ResponderMachine:
+    """The ``--replica`` gossip leg (``run_replica_session``'s record):
+    a responder against the node's current replica, whose received
+    records are absorbed into the LIVE node when the session
+    completes."""
+    from ..cluster.live import absorb_responder_stats
+    from ..runtime.reconcile_driver import responder_machine
+
+    enc, dec, finish = responder_machine(node.replica)
+
+    def shape(stats, error=None) -> dict:
+        if stats is None:
+            return {"replica": node.key, "ok": False, "peer": peer,
+                    "error": f"{type(error).__name__}: {error}"}
+        stats = absorb_responder_stats(node, stats)
+        return {"replica": node.key, "ok": stats["ok"],
+                "symbols": stats["symbols"], "rounds": stats["rounds"],
+                "records_sent": stats["records_sent"],
+                "applied": stats["applied"]}
 
     return ResponderMachine(enc, dec, finish, shape, peer)
 

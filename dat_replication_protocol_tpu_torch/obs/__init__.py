@@ -18,11 +18,14 @@ The counterpart of ``dat_replication_protocol_tpu/obs/`` (its core):
   gauges and the backend-init watchdog.
 * :mod:`.loopprof` — the edge loop's per-turn phase accounting, loop
   lag and sampling turn profiler (:class:`LoopProfiler`).
+* :mod:`.propagation` — the gossip mesh's convergence plane: one
+  ``gossip.exchange`` span an exchange and direction, per-link
+  divergence watermarks and the frontier gauges (:data:`PROPAGATION`).
 
 Names of counters, events and spans are the reference's
 (``OBSERVABILITY.md``), so the JAX package's offline tools read the
-port's logs.  ``metrics``, ``events``, ``tracing``, ``flight`` and
-``loopprof`` use the standard library only; ``device`` reads ``torch``
+port's logs.  ``metrics``, ``events``, ``tracing``, ``flight``, ``loopprof`` and
+``propagation`` use the standard library only; ``device`` reads ``torch``
 only if the process already loaded it.
 """
 
@@ -56,6 +59,7 @@ from .metrics import (
     snapshot,
     to_prom_text,
 )
+from .propagation import PROPAGATION, PropagationBoard
 from .tracing import (
     SPANS,
     SpanLog,
@@ -72,6 +76,8 @@ __all__ = [
     "EVENTS",
     "SPANS",
     "FLIGHT",
+    "PROPAGATION",
+    "PropagationBoard",
     "EventLog",
     "DeferredEmitQueue",
     "SpanLog",

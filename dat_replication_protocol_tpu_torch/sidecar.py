@@ -3,8 +3,9 @@
 The port of ``dat_replication_protocol_tpu/sidecar.py``'s digest reply
 (:121-393), its TCP accept loop (:741-926), its anti-entropy modes
 (:517-643), its hub mode, its fan-out mode with the snapshot redirect
-(:394-515, :645-712), its stats and scrape endpoints (:927-1141) and its
-event-driven edge (:87-97, :1091-1111, :1466-1483)::
+(:394-515, :645-712), its gossip replica mode (:82-104, :549-589,
+:842-855, :1230-1250), its stats and scrape endpoints (:927-1141) and
+its event-driven edge (:87-97, :1091-1111, :1466-1483)::
 
     python -m dat_replication_protocol_tpu_torch.sidecar --stdio
     python -m dat_replication_protocol_tpu_torch.sidecar --tcp 127.0.0.1:7531
@@ -20,6 +21,9 @@ event-driven edge (:87-97, :1091-1111, :1466-1483)::
         [--fanout-stall-timeout SECONDS]
     python -m dat_replication_protocol_tpu_torch.sidecar --tcp HOST:PORT \
         --fanout --snapshot DATAFILE [--snapshot-port PORT]
+    python -m dat_replication_protocol_tpu_torch.sidecar --tcp HOST:PORT \
+        --replica LOGFILE [--replica-key K] [--gossip-peers H:P,...] \
+        [--gossip-interval S] [--edge]
     python -m dat_replication_protocol_tpu_torch.sidecar --tcp HOST:PORT \
         --edge [--hub*] [--fanout*] [--reconcile F] [--snapshot F]
 
@@ -75,8 +79,21 @@ with ``emit_seq``, the hub's aggregate and per-session breakdown, the
 ``wirecost`` ledger and ``healthz``; or with ``--stats-format prom``
 Prometheus text); SIGUSR1 forces a dump.  ``--obs-http PORT`` serves
 ``/metrics``, ``/snapshot``, ``/healthz`` and ``/events`` on
-127.0.0.1 (:mod:`.obs.http`).  The replica mode of the reference
-sidecar is not ported.
+127.0.0.1 (:mod:`.obs.http`).
+
+**Replica mode.**  ``--replica LOGFILE`` (``--tcp`` only; not with
+``--hub``, ``--fanout``, ``--reconcile`` or ``--snapshot``) loads
+LOGFILE (an absent file is a cold, empty replica) into one live
+:class:`~.cluster.ReplicaNode` named ``--replica-key``, its record
+digests hashed by B1 on ``--device``.  Every connection is served as a
+reconcile responder against the node's current log, and the records the
+initiator ships are absorbed into it.  With ``--gossip-peers
+H:P,...`` a :class:`~.cluster.GossipDriver` dials one of those peers
+every ``--gossip-interval`` seconds on average (jittered) as the
+initiator, so N such sidecars converge from any divergence.  The stats
+records gain the node's ``gossip`` section and, once an exchange or a
+frontier was recorded, the ``propagation`` section.  With ``--edge`` the
+responder sessions are served from the edge's loop.
 
 **Fan-out mode.**  ``--fanout`` (``--tcp`` only) runs one shared
 :class:`~.fanout.FanoutServer`.  The first connection to claim the
@@ -113,6 +130,11 @@ Telemetry, as the reference's flags give it (:1303-1328):
 bundle into DIR) and turns telemetry on; ``--trace-jsonl PATH`` turns
 it on and mirrors every event and span as JSONL into PATH.  The request
 is consumed inside a ``sidecar.session.recv`` span.
+
+Every record that a session, listener or gossip thread logs on stderr
+is written by :func:`log_line` as one whole line: ``print`` writes the
+text and the newline apart, and two sessions ending together would
+share a line.
 """
 
 from __future__ import annotations
@@ -135,6 +157,7 @@ from .obs import tracing as obs_tracing
 from .obs.events import emit as _emit
 from .obs.metrics import OBS as _OBS
 from .obs.metrics import counter as _counter
+from .obs.propagation import PROPAGATION as _PROPAGATION
 from .obs.watermarks import WATERMARKS as _WATERMARKS
 from .obs.wirecost import WIRECOST as _WIRECOST
 from .session import pump as session_pump
@@ -165,6 +188,24 @@ _ACTIVE_FANOUT = None
 # edge mode: the EdgeLoop whose table aggregate rides the stats records
 # and whose admission stage fronts /healthz (it composes the hub's)
 _ACTIVE_EDGE = None
+# replica mode: the gossip driver (or the bare node) whose snapshot()
+# rides the stats records as the `gossip` section
+_ACTIVE_GOSSIP = None
+
+# one writer at a time on the session log: a record and its newline go
+# out in ONE write under this lock
+_LOG_LOCK = threading.Lock()
+
+
+def log_line(text: str, stream=None) -> None:
+    """Write ``text`` as one whole line on ``stream`` (default: stderr)
+    and flush: one ``write`` of the text and its newline together, under
+    a module lock, so records that threads log at the same moment never
+    share or split a line."""
+    out = sys.stderr if stream is None else stream
+    with _LOG_LOCK:
+        out.write(text + "\n")
+        out.flush()
 
 
 def set_active_hub(hub) -> None:
@@ -179,6 +220,13 @@ def set_active_fanout(server) -> None:
     ``--stats-fd`` records carry (None detaches)."""
     global _ACTIVE_FANOUT
     _ACTIVE_FANOUT = server
+
+
+def set_active_gossip(driver) -> None:
+    """Install the gossip driver or node whose ``snapshot()`` record
+    ``--stats-fd`` records carry (None detaches)."""
+    global _ACTIVE_GOSSIP
+    _ACTIVE_GOSSIP = driver
 
 
 def set_active_edge(loop) -> None:
@@ -545,6 +593,51 @@ def load_reconcile_replica(path: str, device="cuda"):
         return RatelessReplica(f.read(), device=device)
 
 
+def run_replica_session(conn_read, conn_write, close_write,
+                        node, peer: str = "?") -> dict:
+    """Serve one gossip responder session: like ``--reconcile``, but
+    against the LIVE :class:`~.cluster.ReplicaNode`, whose log absorbs
+    the records the initiator ships, so every inbound session advances
+    convergence."""
+    from .cluster import serve_responder_session
+    from .wire.framing import ProtocolError
+
+    try:
+        stats = serve_responder_session(node, conn_read, conn_write,
+                                        close_write=close_write)
+        out = {"replica": node.key, "ok": stats["ok"],
+               "symbols": stats["symbols"], "rounds": stats["rounds"],
+               "records_sent": stats["records_sent"],
+               "applied": stats["applied"]}
+    except (ProtocolError, OSError) as e:
+        out = {"replica": node.key, "ok": False, "peer": peer,
+               "error": f"{type(e).__name__}: {e}"}
+    if _OBS.on:
+        _M_SESSIONS.inc()
+        _emit("sidecar.session", **out)
+    return out
+
+
+def load_replica_node(path: str, key: str, device="cuda"):
+    """Build the ``--replica`` gossip node from a change-log wire file
+    (``--reconcile``'s input; an absent or empty file is a cold replica
+    that converges entirely from its peers).  Its replica is built at
+    once, its digests hashed by B1 on ``device``, so a CUDA device
+    without a card raises here, as :func:`load_reconcile_replica` does.
+    The node keeps the delivered form (absent optionals as ''/b''), the
+    form every decoder delivery produces, so shipped records keep their
+    digests and the mesh reaches diff 0."""
+    from .cluster import ReplicaNode
+
+    wire = b""
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            wire = f.read()
+    node = ReplicaNode(key, wire, device=device, delivered_form=True)
+    node.replica  # the first build: B1 over every record on `device`
+    return node
+
+
 def run_snapshot_session(conn_read, conn_write, close_write,
                          source, peer: str = "?") -> dict:
     """Serve one snapshot bootstrap session: the client is a *joiner*
@@ -626,8 +719,7 @@ class SnapshotListener:
                     stats = run_snapshot_session(
                         rd, wr, lambda: conn.shutdown(socket.SHUT_WR),
                         self.source, peer=f"{peer[0]}:{peer[1]}")
-                    print(f"sidecar: snapshot {peer} {stats}",
-                          file=sys.stderr, flush=True)
+                    log_line(f"sidecar: snapshot {peer} {stats}")
                 finally:
                     conn.close()
 
@@ -667,7 +759,7 @@ def serve_stdio(device="cuda",
     else:
         stats = run_session(rd, wr, close_write=close, device=device,
                             drain_timeout=drain_timeout)
-    print(f"sidecar: stdio session {stats}", file=sys.stderr, flush=True)
+    log_line(f"sidecar: stdio session {stats}")
     return stats
 
 
@@ -675,14 +767,17 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
               ready_cb=None, device="cuda",
               drain_timeout: float | None = DEFAULT_DRAIN_TIMEOUT,
               retry_policy=None, reconcile_replica=None,
-              snapshot_source=None, hub=None, fanout=None) -> None:
+              snapshot_source=None, hub=None, fanout=None,
+              replica_node=None) -> None:
     """Accept loop: one concurrent session per connection.
 
     ``max_sessions`` bounds the loop (tests); ``ready_cb(port)`` fires
     once the socket is bound and listening.  With ``snapshot_source``
     every connection is one snapshot joiner served off the shared source;
+    with ``replica_node`` (a :class:`~.cluster.ReplicaNode`) one gossip
+    initiator against the live node, whose log absorbs what it ships;
     with ``reconcile_replica`` one reconcile initiator against the shared
-    replica (both read-only after construction, so sessions never step
+    replica (read-only after construction, so sessions never step
     on each other); otherwise a digest session on ``device``, or with
     ``hub`` on the shared hub under the key ``c<n>:<host>:<port>``.
 
@@ -746,8 +841,7 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
                     src_claim["taken"] = False
 
     bound = srv.getsockname()[1]
-    print(f"sidecar: listening on {host}:{bound}", file=sys.stderr,
-          flush=True)
+    log_line(f"sidecar: listening on {host}:{bound}")
     if ready_cb is not None:
         ready_cb(bound)
     served = 0
@@ -769,6 +863,10 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
                         rd, wr = session_pump.io_for_socket(conn)
                         stats = run_snapshot_session(
                             rd, wr, close_write, snapshot_source, peer=name)
+                    elif replica_node is not None:
+                        rd, wr = session_pump.io_for_socket(conn)
+                        stats = run_replica_session(
+                            rd, wr, close_write, replica_node, peer=name)
                     elif reconcile_replica is not None:
                         rd, wr = session_pump.io_for_socket(conn)
                         stats = run_reconcile_session(
@@ -781,8 +879,7 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
                             conn.recv, conn.sendall, close_write=close_write,
                             device=device, drain_timeout=drain_timeout,
                             hub=hub, session_key=f"c{n}:{name}")
-                    print(f"sidecar: {peer} {stats}", file=sys.stderr,
-                          flush=True)
+                    log_line(f"sidecar: {peer} {stats}")
                 finally:
                     conn.close()
 
@@ -889,9 +986,11 @@ def snapshot_stats() -> dict:
     ring's drops, the kernel sentinel's sites, the watermarks and the
     pump; in hub mode the hub's aggregate (``hub``) and per-session
     breakdown (``sessions``); in fan-out mode the server's aggregate
-    (``fanout``) and per-peer breakdown (``peers``); the wire cost ledger
-    (``wirecost``) once it holds a link; in edge mode the session table's
-    aggregate (``edge``); and the staged health (``healthz``).
+    (``fanout``) and per-peer breakdown (``peers``); in replica mode the
+    node's ``gossip`` record and, once the board holds a link or a
+    frontier, the convergence plane (``propagation``); the wire cost
+    ledger (``wirecost``) once it holds a link; in edge mode the session
+    table's aggregate (``edge``); and the staged health (``healthz``).
     JSON-able."""
     out = {
         "ts": time.time(),
@@ -908,6 +1007,13 @@ def snapshot_stats() -> dict:
     if _ACTIVE_FANOUT is not None:
         out["fanout"] = _ACTIVE_FANOUT.snapshot()
         out["peers"] = _ACTIVE_FANOUT.peers_snapshot()
+    if _ACTIVE_GOSSIP is not None:
+        out["gossip"] = _ACTIVE_GOSSIP.snapshot()
+        # an empty board (plane dark, or no exchange yet) is left out, so
+        # a reader can tell "plane off" from "no exchanges yet"
+        prop = _PROPAGATION.snapshot()
+        if prop["links"] or prop["frontier"]:
+            out["propagation"] = prop
     wc = _WIRECOST.snapshot()
     if wc["links"] or wc["amplification"]:
         out["wirecost"] = wc
@@ -990,9 +1096,8 @@ def _end_on_mesh_failure(hub) -> threading.Event:
     def watch() -> None:
         err = hub.wait_failed()
         if err is not None:
-            print(f"sidecar: the mesh hub failed ({err!r}); ending rank 0 "
-                  f"so that the followers' collectives raise",
-                  file=sys.stderr, flush=True)
+            log_line(f"sidecar: the mesh hub failed ({err!r}); ending rank "
+                     f"0 so that the followers' collectives raise")
             failed.set()
             signal.pthread_kill(threading.main_thread().ident, signal.SIGINT)
 
@@ -1004,8 +1109,8 @@ def _end_on_mesh_failure(hub) -> threading.Event:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m dat_replication_protocol_tpu_torch.sidecar",
-        description="Serve digest, reconcile, snapshot or fan-out sessions "
-                    "over stdin/stdout or TCP.")
+        description="Serve digest, reconcile, snapshot, fan-out or gossip "
+                    "replica sessions over stdin/stdout or TCP.")
     mode = parser.add_mutually_exclusive_group(required=True)
     mode.add_argument("--stdio", action="store_true",
                       help="serve one session on stdin, reply on stdout")
@@ -1027,6 +1132,24 @@ def main(argv=None) -> int:
                         help="serve every session as a rateless "
                              "reconciliation responder against the "
                              "change-log wire file LOGFILE")
+    parser.add_argument("--replica", metavar="LOGFILE", default=None,
+                        help="gossip replica mode (--tcp only): load the "
+                             "change-log wire file LOGFILE (absent: a cold "
+                             "replica) into one live replica, serve every "
+                             "session as an anti-entropy responder whose "
+                             "received records are absorbed, and with "
+                             "--gossip-peers dial out on a jittered timer")
+    parser.add_argument("--replica-key", default="replica", metavar="KEY",
+                        help="this replica's name in gossip telemetry "
+                             "(default: replica)")
+    parser.add_argument("--gossip-peers", default=None,
+                        metavar="HOST:PORT,...",
+                        help="comma list of peer --replica sidecars to "
+                             "gossip with (requires --replica)")
+    parser.add_argument("--gossip-interval", type=float, default=1.0,
+                        metavar="SECONDS",
+                        help="mean seconds between gossip dials (jittered; "
+                             "rounds that all fail back off; default: 1)")
     parser.add_argument("--snapshot", metavar="DATAFILE", default=None,
                         help="materialize DATAFILE once as content-"
                              "addressed chunks and serve every session "
@@ -1136,10 +1259,19 @@ def main(argv=None) -> int:
     if args.fanout and args.reconcile:
         parser.error("--reconcile is its own session mode; it cannot "
                      "combine with --hub/--fanout")
+    if args.replica and (args.hub or args.fanout or args.reconcile
+                         or args.snapshot):
+        parser.error("--replica is its own session mode; it cannot combine "
+                     "with --hub/--fanout/--reconcile/--snapshot")
+    if args.replica and args.stdio:
+        parser.error("--replica gossips with many peers; it needs --tcp")
+    if args.gossip_peers and not args.replica:
+        parser.error("--gossip-peers requires --replica")
     if args.edge and args.stdio:
         parser.error("--edge is the event-driven TCP front; it needs --tcp")
     if args.edge and not args.hub and (
-            args.fanout or not (args.reconcile or args.snapshot)):
+            args.fanout
+            or not (args.reconcile or args.snapshot or args.replica)):
         # --edge implies --hub for digest sessions (a broadcast source is
         # one): the table's hub sessions ride the shared engine's
         # admission/window/shed ladder
@@ -1157,6 +1289,8 @@ def main(argv=None) -> int:
     obs_srv = None
     fanout = None
     snap_listener = None
+    replica_node = None
+    gossip_driver = None
     if args.flight_dir:
         # arming enables telemetry: a dark ring has nothing to dump
         obs_flight.FLIGHT.arm(args.flight_dir)
@@ -1217,6 +1351,19 @@ def main(argv=None) -> int:
         source = (load_snapshot_source(args.snapshot, args.snapshot_offset,
                                        args.device)
                   if args.snapshot else None)
+        if args.replica:
+            replica_node = load_replica_node(args.replica, args.replica_key,
+                                             args.device)
+            if args.gossip_peers:
+                from .cluster import GossipDriver
+
+                gossip_driver = GossipDriver(
+                    replica_node,
+                    [p.strip() for p in args.gossip_peers.split(",")],
+                    interval=args.gossip_interval).start()
+                set_active_gossip(gossip_driver)
+            else:
+                set_active_gossip(replica_node)
         if args.stdio:
             out = serve_stdio(device=args.device, drain_timeout=drain,
                               reconcile_replica=replica,
@@ -1249,7 +1396,7 @@ def main(argv=None) -> int:
             edge_loop = EdgeLoop(
                 hub, fanouts={"main": fanout} if fanout else None,
                 reconcile_replica=replica, snapshot_source=source,
-                drain_timeout=drain,
+                replica_node=replica_node, drain_timeout=drain,
                 # a stable loop label a process: edge.loop.lag{loop=}
                 name=f"edge:{host}:{int(port)}")
             set_active_edge(edge_loop)
@@ -1262,13 +1409,17 @@ def main(argv=None) -> int:
         serve_tcp(host, int(port), device=args.device,
                   drain_timeout=drain, retry_policy=policy,
                   reconcile_replica=replica, snapshot_source=source,
-                  hub=hub, fanout=fanout)
+                  hub=hub, fanout=fanout, replica_node=replica_node)
         return 0
     except KeyboardInterrupt:
         if mesh_failed is not None and mesh_failed.is_set():
             return 1
         raise
     finally:
+        if gossip_driver is not None:
+            gossip_driver.close()
+        if replica_node is not None:
+            set_active_gossip(None)
         if snap_listener is not None:
             snap_listener.close()
         if obs_srv is not None:

@@ -15,7 +15,8 @@ columns), so either package's replay can be held field by field against
 the other's.  The anti-entropy drivers' state crosses without being
 recomputed: a reconcile replica as its columns and canonical digests,
 a snapshot source as its dataset, chunk cuts and chunk digests, so the
-port's responder can serve exactly the JAX side's state.
+port's responder can serve exactly the JAX side's state.  A gossip
+replica crosses as its checkpoint dict, which both packages write alike.
 """
 
 from __future__ import annotations
@@ -164,3 +165,43 @@ def snapshot_source_from_numpy(data, cuts, digests, wire_offset: int = 0,
         data, [int(c) for c in cuts], digests, avg_bits=avg_bits,
         min_size=min_size, max_size=max_size, wire_offset=int(wire_offset),
         device=device)
+
+
+_CHECKPOINT_KEYS = ("key", "round", "wire", "feeds", "log_end",
+                    "delivered_form")
+
+
+def replica_node_from_checkpoint(ckpt: dict, device="cuda", **kw):
+    """A gossip replica's checkpoint (``ReplicaNode.checkpoint()`` of
+    either package: its key, round, log wire bytes, feed cursors, the
+    broadcast log's end and ``delivered_form``) -> the port's
+    ``ReplicaNode`` on ``device``, through ``ReplicaNode.from_checkpoint``
+    (``kw`` as that takes them, e.g. ``fanout_retention``).
+
+    The dict is plain Python, so this is validation: nothing in it is
+    recomputed.  The record digests are not part of a checkpoint; the
+    node's first replica build hashes them again with B1 on ``device``.
+    The port's ``checkpoint()`` has the same keys, so it loads into the
+    JAX package's ``from_checkpoint`` unchanged."""
+    from .cluster import ReplicaNode
+
+    missing = [k for k in _CHECKPOINT_KEYS if k not in ckpt]
+    if missing:
+        raise KeyError(f"replica checkpoint lacks {missing}")
+    if not isinstance(ckpt["key"], str):
+        raise ValueError("a checkpoint's key must be a string")
+    if not isinstance(ckpt["round"], int) or ckpt["round"] < 0:
+        raise ValueError("a checkpoint's round must be an int >= 0")
+    if not isinstance(ckpt["wire"], (bytes, bytearray, memoryview)):
+        raise ValueError("a checkpoint's wire must be bytes")
+    for owner, pos in dict(ckpt["feeds"]).items():
+        if not isinstance(owner, str) or len(tuple(pos)) != 2 or not all(
+                isinstance(x, int) for x in pos):
+            raise ValueError(f"feed cursor {owner!r}: {pos!r} is not "
+                             "(log_gen, offset)")
+    if ckpt["log_end"] is not None and not isinstance(ckpt["log_end"], int):
+        raise ValueError("a checkpoint's log_end must be an int or None")
+    ckpt = dict(ckpt, wire=bytes(ckpt["wire"]),
+                feeds={k: tuple(v) for k, v in dict(ckpt["feeds"]).items()},
+                delivered_form=bool(ckpt["delivered_form"]))
+    return ReplicaNode.from_checkpoint(ckpt, device=device, **kw)
