@@ -31,7 +31,9 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    at the session's blob and change buckets and at ``entry()``'s launch,
    each variant, the blob bucket also under a cold L2, and B2 at
    ``entry()``'s first level, beside their plain versions and their
-   bounds.  B1's bound is the largest of bytes, operations (walked from
+   bounds; the blob bucket is held against ``hashlib`` whole and against
+   its plain version on its 32 items' first 1,024 blocks (the plain
+   version costs the host about 9 ms a block, whatever the items).  B1's bound is the largest of bytes, operations (walked from
    its SASS) and the chain: the longest item's blocks x the dependent
    path of one compression (from its SASS) x the dependent-issue latency
    of the integer pipes, which the probe ``csrc/chain_latency.cu``
@@ -104,8 +106,9 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    ``decode_change_batch``; three digest sessions of the rows with four
    blobs opened mid-run (a ``CudaEncoder`` negotiated to
    ``CAP_CHANGE_BATCH`` piped into ``decode(backend="cuda")`` with a
-   ``change_batch`` handler, the same with a per-row ``change`` handler,
-   and the per-record session) must give the same change digests, in
+   ``change_batch`` handler, the same with a per-row ``change`` handler
+   over the first quarter of the rows (cut for time), and the per-record
+   session) must give the same change digests, in
    order, on both ends, equal to ``hashlib``.  Then replay rows/s of each
    wire, ``encode_change_columns`` rows/s, ``canonical_change_extents``
    seconds, leaves + root ms with B1's and B2's device ms inside it,
@@ -116,14 +119,17 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    pieces, and streams of 0, 1, 127, 128, 129, 4 MiB and 4 MiB + 1 bytes,
    each against ``hashlib``; B1's chained entry (``dat_blake2b_update``)
    against its plain version on the card, both variants, byte for byte:
-   at the stream's own shape (its first segment, one item of 32,768
-   blocks, then a last segment of 1 MiB + 129 bytes bucketed to 16,384
-   blocks), on 64 items of a 4 MiB segment (then a last one of 1 B to
-   4 MiB, against ``hashlib``), and at 64 items of 256 blocks with t_hi
-   0 and 1 and counters that carry.  At 32,768 blocks the plain version
-   runs as its own calls over 64-block pieces replayed from a CUDA graph
-   (eager, its launches cost the host about 10 ms a block).  Then the
-   row's times at the stream's shape, the stream's MiB/s beside
+   at the stream's width (an eighth of its first segment, one item of
+   4,096 blocks, then a last segment of 64 KiB + 129 bytes bucketed to
+   1,024 blocks; the whole segment is held against ``hashlib`` by the
+   stream), on the first eighth of 64 items of a 4 MiB segment (the
+   whole items, with a last segment of 1 B to 4 MiB, against
+   ``hashlib``), and at 64 items of 256 blocks with t_hi 0 and 1 and
+   counters that carry.  Past 256 blocks the plain version runs as its
+   own calls over 64-block pieces replayed from a CUDA graph (eager, its
+   launches cost the host about 10 ms a block; from the graph about 0.8
+   ms a block, whatever the items).  Then the row's times at the
+   stream's shape (one item of 32,768 blocks), the stream's MiB/s beside
    ``hashlib``'s on this host, the 64-item batch's and one item's, and
    the chain bound of a segment.  12b: a one-rank ``nccl`` group (a
    ``FileStore`` in a temp dir) and ``make_mesh(1)``:
@@ -185,16 +191,17 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    ``root_host`` of ``hashlib`` digests) served by ``serve_tcp`` in a
    thread; a cold joiner, a joiner with 2% of its chunks rewritten
    (its chunk and wire bytes equal to ``snapshot_local``'s), a flash
-   crowd of 4 cold joiners at once (bench.py's 8, cut for time; B1 and
-   B6 not launched over it, the cold log served 4 times) and a joiner torn inside a CHUNKS frame (one
+   crowd of 2 cold joiners at once (bench.py's 8, cut for time; B1 and
+   B6 not launched over it, the cold log served twice) and a joiner torn inside a CHUNKS frame (one
    ``ProtocolError`` within 30 s), each assembled dataset byte-exact.
 15. the replication hub.  15a (bench.py config 9, uncut): 16 sessions of
    16,384 change rows and one 2 MiB blob each on one
    ``ReplicationHub(device="cuda")`` with config 9's settings, all
    started together, every digest held against ``hashlib`` in its
    session's order; aggregate GiB/s and fairness (the slowest session's
-   GiB/s over the median's) with the gate off, then once more with it on
-   for the ``hub.*`` counters and the dispatcher's turn latency.  15b
+   GiB/s over the median's) with the gate off, then once more with it on,
+   over 4 of the 16 sessions (cut for time), for the ``hub.*`` counters
+   and the dispatcher's turn latency.  15b
    (config 13's hub arm, uncut): ``python -m
    dat_replication_protocol_tpu_torch.sidecar --tcp 127.0.0.1:0 --hub
    --stats-fd FD`` in a subprocess serves 1, 4 and 16 concurrent clients
@@ -331,7 +338,41 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    bootstraps (seed 6's flash crowd always bootstraps over
    ``snapshot_local``: B6 and B1), quarantines and seconds.  B1's
    launches of 18a and 18c form the ``cluster`` bucket (18c's B6
-   launches join B6's row); 18b's are the subprocesses'.
+   launches join B6's row); 18b's are the subprocesses'.  18a's N = 16
+   run also writes its events and spans to ``build/phase19/mesh16.jsonl``;
+   18b's sidecars also run ``--obs-http 0 --trace-jsonl
+   build/phase19/rI.jsonl``, and the whole run's tx bytes are each
+   sidecar's last stats record's (written after its driver stopped).
+19. the offline obs tools (``obs/fleet.py``, ``obs/__main__.py``) over
+   phase 18's replicas; no assertion hinges on a live latency reading.
+   19a: once 18b has settled (every driver two exchanges past
+   convergence, nothing applied or sent), one sample a sidecar is
+   recorded under ``build/phase19/``: its ``/snapshot`` with its
+   ``/healthz`` record under ``healthz`` (``rI.sample.jsonl``), and r1's
+   ``--stats-fd`` records so far (``r1.stats.jsonl``); the dashboard
+   polls the live endpoints once (every target reachable, every
+   ``gossip.digest`` the oracle's).  The SLO gate (``gossip``:
+   ``require_converged``, ``max_quarantined`` 0,
+   ``max_convergence_rounds`` ``mesh_rounds_floor(4)``;
+   ``require_healthz``) runs over those five files twice, with
+   ``run_fleet_check`` and with ``python -m
+   dat_replication_protocol_tpu_torch.obs fleet --check``: the same rows
+   and exit code, every gossip row OK, each ``require_healthz`` row as
+   the target's saved record says (a degraded r0, its edge loop behind
+   while it rebuilds a replica, is printed as a finding, its row FAIL and
+   the exit 1 as expected); the breach arm (``max_exchange_p99_s`` 1e-9)
+   on the same files exits 1 with that one FAIL row.  19b: the CLI in
+   this process over the run's logs: ``meshdoctor`` over 18a's sink (its
+   convergence round == the run's rounds, its bound ==
+   ``rounds_bound()``), ``costdoctor`` over the four sidecar logs (each
+   replica's tx wire bytes == its ledger's), ``loopdoctor`` over r0's
+   ``edge.turn`` spans (no tiling flag; stall flags are printed, and the
+   exit code agrees with them), ``export-trace`` of r0's log (one trace
+   event a span and event record) and ``timeline`` of r0's and r1's
+   logs (its exit code agrees with its flags).
+
+A failure prints ``chip_smoke: phase N failed: TYPE: MESSAGE`` to stdout
+and to stderr (the traceback on stderr) and exits 1.
 
 Every launch counter (B1's per variant and per block count, and its
 chained entry's per variant, too) is set to 0 just before each main-path
@@ -340,9 +381,12 @@ runs; in 14a the replicas and both clean arms, in 14b materialize and
 the cold and stale joiners, then the crowd; 15a, 15c, 15d; 16a, 16c,
 16d; 17a, 17b, 17c, 17e; 18a, 18c) and read just after; a
 kernel or B1 variant that the phases did not launch fails the run.
-The lines before the last carry the card, the per-kernel JSON and the
-times; the last line is ``{"ok": true, "device": {...}}``.  Without a
-card it exits 2 and prints no result.
+Phase 19 launches nothing in this process: its tools read files and
+HTTP.
+The lines before the last carry the card, the per-kernel JSON (each row
+also names the ``shape`` its ``ms`` was timed at and the ``plain_shape``
+of its ``plain_ms``) and the times; the last line is ``{"ok": true,
+"device": {...}}``.  Without a card it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -379,10 +423,21 @@ N_BLOBS = 2048
 BLOB_BYTES = MIB
 CHANGES_PER_BLOB = 32
 ENTRY_LEAVES = 1 << 20
+# the plain B1 at the blob bucket: its 32 items' first 1,024 blocks (the
+# bucket's 8,192 blocks took 73 s of the host, H100 80GB HBM3, 700 W)
+PLAIN_B1_BLOCKS = 1024
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# the phase main() is in, for the failure line
+PHASE = {"now": "1"}
+
+
+def enter(phase: str) -> None:
+    PHASE["now"] = phase
 
 
 def card_line() -> str:
@@ -872,7 +927,7 @@ def b1_row(name: str, timed: dict, launches: int, plain_ms: float,
             "launches": launches, "max_abs_err": err, "ms": timed["ms"],
             "plain_ms": plain_ms, "bound_ms": timed["bound_ms"],
             "bound_by": timed["bound_by"], "library_ms": None,
-            "shape": timed["shape"]}
+            "shape": timed["shape"], "plain_shape": timed["plain_shape"]}
 
 
 def time_kernels(device, launches: dict, entry_step, sass: dict,
@@ -905,11 +960,26 @@ def time_kernels(device, launches: dict, entry_step, sass: dict,
     del flush
     log(f"phase 5: B1 at the blob bucket under a cold L2: {cold} ms "
         f"(warm {blob['ms']} ms)")
+    # the whole bucket against hashlib; against the plain version on its
+    # items' first PLAIN_B1_BLOCKS blocks (eager, the plain version costs
+    # the host about 9 ms a block whatever the items: 73 s at 8,192)
+    got = b2b.digests_to_bytes(*(t.cpu() for t in
+                                 blake2b_packed_kernel(*args)))[:31]
+    if got != [blake(blobs[i * BLOB_BYTES:(i + 1) * BLOB_BYTES])
+               for i in range(31)]:
+        raise AssertionError("B1 differs from hashlib at the blob bucket")
+    cut = (args[0][:, :PLAIN_B1_BLOCKS].contiguous(),
+           args[1][:, :PLAIN_B1_BLOCKS].contiguous(),
+           args[2].clamp(max=PLAIN_B1_BLOCKS * 128))
     t0 = time.perf_counter()
-    plain = b2b.blake2b_packed(*args)
+    plain = b2b.blake2b_packed(*cut)
     sync(device)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max_abs_err(blake2b_packed_kernel(*args), plain)
+    err = max_abs_err(blake2b_packed_kernel(*cut), plain)
+    blob["plain_shape"] = list(cut[0].shape[:2])
+    log(f"phase 5: B1 at the blob bucket == hashlib; == its plain version "
+        f"at {blob['plain_shape']} (the bucket's items, their first "
+        f"{PLAIN_B1_BLOCKS} blocks): plain {plain_ms} ms, max_abs_err {err}")
 
     # the session's change bucket: 1,024 payloads of 2 blocks
     _, recs = make_session(1, 0, 1024, seed=SEED + 4)
@@ -927,6 +997,7 @@ def time_kernels(device, launches: dict, entry_step, sass: dict,
     args_e = step_args[:3]
     ent = time_b1("entry()'s launch", args_e, args_e[2].cpu().numpy(), sass,
                   latency, reps=10)
+    ent["plain_shape"] = ent["shape"]
     plain_e = time_ms(lambda: b2b.blake2b_packed(*args_e), reps=1)
     err_e = max_abs_err(blake2b_packed_kernel(*args_e),
                         b2b.blake2b_packed(*args_e))
@@ -963,7 +1034,7 @@ def time_kernels(device, launches: dict, entry_step, sass: dict,
         "launches": launches["merkle_level"], "max_abs_err": err2,
         "ms": ms2, "plain_ms": plain2, "bound_ms": b2["bound_ms"],
         "bound_by": b2["bound_by"], "library_ms": None,
-        "shape": [ENTRY_LEAVES, 4]})
+        "shape": [ENTRY_LEAVES, 4], "plain_shape": [ENTRY_LEAVES, 4]})
 
     # the whole tree, all 20 levels, and entry()'s whole step warm
     tree_ms = time_ms(lambda: merkle.build_tree(hh, hl), reps=5)
@@ -1193,14 +1264,30 @@ REFERENCE = {
         "c3fbd6825a46ce84df6dbf0951ff60192acfd972fa8d9546319baf399addc021"}
 
 
+BLOB_PIECE = 64 << 20  # make_blob's pieces, one a worker at a time
+BLOB_WORKERS = 8
+
+
 def make_blob(nbytes: int, seed: int = SEED + 20) -> np.ndarray:
-    """``nbytes`` random bytes from ``seed``, made in 256 MiB pieces."""
-    rng = np.random.default_rng(seed)
+    """``nbytes`` random bytes from ``seed``: the bytes of
+    ``np.random.default_rng(seed).bytes(nbytes)``, made in pieces on
+    ``BLOB_WORKERS`` threads.  ``Generator.bytes`` draws one 64-bit word
+    of ``PCG64`` for each 8 bytes, so the piece at byte ``at`` (a
+    multiple of 8) starts from the generator advanced by ``at // 8``
+    draws; numpy fills each piece without the GIL."""
+    from concurrent.futures import ThreadPoolExecutor
+
     out = np.empty(nbytes, dtype=np.uint8)
-    piece = 256 << 20
-    for at in range(0, nbytes, piece):
-        n = min(piece, nbytes - at)
-        out[at:at + n] = np.frombuffer(rng.bytes(n), dtype=np.uint8)
+
+    def fill(at: int) -> None:
+        bits = np.random.PCG64(seed)
+        bits.advance(at // 8)
+        n = min(BLOB_PIECE, nbytes - at)
+        out[at:at + n] = np.frombuffer(np.random.Generator(bits).bytes(n),
+                                       dtype=np.uint8)
+
+    with ThreadPoolExecutor(BLOB_WORKERS) as pool:
+        list(pool.map(fill, range(0, nbytes, BLOB_PIECE)))
     return out
 
 
@@ -1753,7 +1840,8 @@ def time_gear_kernels(device, launches: dict) -> list[dict]:
                "launches": launches[name], "max_abs_err": 0,
                "ms": timed[name][0], "turns_ms": timed[name][1],
                "plain_ms": plain_ms[name], "library_ms": None,
-               "shape": list(rows.shape), "sass_per_thread": per_thread,
+               "shape": list(rows.shape), "plain_shape": list(rows.shape),
+               "sass_per_thread": per_thread,
                "bytes_ms": (nbytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
                "ops_ms": ops_ms}
         use = [v for f, v in res_usage(name).items() if f"{name}_kernel" in f]
@@ -2107,6 +2195,9 @@ REPLAY_BLOCK = 4096  # distinct records, as bench.py bench_replay builds
 REPLAY_REPS = 245  # the block repeated to 1,003,520 rows
 REPLAY_BATCH_ROWS = 65536  # rows a ChangeBatch frame (bench_wire_batch)
 SESSION_ROWS = REPLAY_BLOCK * REPLAY_REPS  # rows of each digest session
+# the per-row handler's session: a quarter of them (all took 18-23 s of the
+# host, H100 80GB HBM3, 700 W; it checks a delivery path, not a metric)
+PER_ROW_ROWS = SESSION_ROWS // 4
 SESSION_BLOBS = 4
 
 
@@ -2209,7 +2300,7 @@ def replay_session(device, records, negotiated: bool, batch_handler: bool,
         raise AssertionError("encoder and decoder change digests differ")
     if [s for kind, s, _ in got if kind == "change"] != list(range(n_rows)):
         raise AssertionError("change digests out of order")
-    return {"seconds": seconds, "rows_s": n_rows / seconds,
+    return {"seconds": seconds, "rows_s": n_rows / seconds, "rows": n_rows,
             "wire_bytes": dec.bytes, "changes": changes,
             "blobs": [d for kind, _, d in got if kind == "blob"]}
 
@@ -2274,11 +2365,12 @@ def run_replay(device, card: str) -> dict:
     out["decode_device_ms"] = (time.perf_counter() - t0) * 1e3
     out["batch_frames"] = len(dev_batches)
     sessions = {}
-    for name, negotiated, whole in (("batch, change_batch", True, True),
-                                    ("batch, per-row change", True, False),
-                                    ("per-record", False, False)):
+    for name, negotiated, whole, n_rows in (
+            ("batch, change_batch", True, True, SESSION_ROWS),
+            ("batch, per-row change", True, False, PER_ROW_ROWS),
+            ("per-record", False, False, SESSION_ROWS)):
         sessions[name] = replay_session(device, records, negotiated, whole,
-                                        SESSION_ROWS)
+                                        n_rows)
     out["launches"] = read_counters()
     if min(out["launches"]["blake2b"], out["launches"]["merkle_level"]) == 0:
         raise AssertionError(f"phase 11 launches {out['launches']}")
@@ -2309,7 +2401,7 @@ def run_replay(device, card: str) -> dict:
     if ref != list(map(bytes, want[:SESSION_ROWS])):
         raise AssertionError("per-record session digests differ from hashlib")
     for name, sess in sessions.items():
-        if sess["changes"] != ref:
+        if sess["changes"] != ref[:sess["rows"]]:
             raise AssertionError(f"the {name} session's digests differ from "
                                  "the per-record session's")
         if sess["blobs"] != [blake(bytes(64 << 10))] * SESSION_BLOBS:
@@ -2355,11 +2447,15 @@ SEGMENT_BYTES = 4 << 20
 BATCH12_ITEMS = 64
 # the extra checks' segment: 64 items of 256 blocks, t_hi 0 and 1
 EDGE12_BLOCKS = 256
-# the last segment after the stream's first: 8,194 blocks, bucketed to
-# 16,384
-TAIL12_BYTES = MIB + 129
+# the last segment after the first at the stream's shape: 514 blocks,
+# bucketed to 1,024 (8,194 to 16,384 before: its plain version took 6 s)
+TAIL12_BYTES = (64 << 10) + 129
 # blocks of each call of the plain version in its CUDA graph
 PLAIN12_CHUNK = 64
+# the plain chained entry runs on an eighth of a 4 MiB segment: 4,096
+# blocks at 0.8 ms a block from its graph, whatever the items (a whole
+# segment took 25.7 s at one item and 28.1 s at 64, H100 80GB HBM3, 700 W)
+PLAIN12_BLOCKS = SEGMENT_BYTES // 128 // 8
 
 
 def plain_update_graphed(args, chunk: int = PLAIN12_CHUNK):
@@ -2488,13 +2584,15 @@ def check_update_edges(device) -> dict:
 
 def check_update_stream_shape(device, data: np.ndarray, sass: dict,
                               latency: float) -> dict:
-    """B1's chained entry at the stream's own shape against its plain
-    version on the card (:func:`plain_update_graphed`), both variants,
-    byte for byte: the stream's first segment (one item of 32,768 blocks
-    from h0 at t = 0, not last), then a last segment of
-    ``TAIL12_BYTES`` bucketed to a power of two of blocks, chained on; the
-    digest also == hashlib.  Then the row at the first segment's shape:
-    each variant's device ms, the plain version's, and the bound."""
+    """B1's chained entry at the stream's width against its plain version
+    on the card (:func:`plain_update_graphed`), both variants, byte for
+    byte: an eighth of the stream's first segment (one item of
+    ``PLAIN12_BLOCKS`` blocks from h0 at t = 0, not last), then a last
+    segment of ``TAIL12_BYTES`` bucketed to a power of two of blocks,
+    chained on; the digest also == hashlib (the whole segment is held
+    against hashlib by the stream itself).  Then the row at the first
+    segment's shape: each variant's device ms, the plain version's at its
+    eighth, and the bound."""
     import torch
 
     from dat_replication_protocol_tpu_torch.ops import blake2b as b2b
@@ -2502,11 +2600,11 @@ def check_update_stream_shape(device, data: np.ndarray, sass: dict,
         LANES, launch_update, lanes_per_item)
 
     dev = torch.device(device)
-    head = data[:SEGMENT_BYTES].tobytes()
+    head = data[:PLAIN12_BLOCKS * 128].tobytes()
     tail = data[SEGMENT_BYTES:SEGMENT_BYTES + TAIL12_BYTES].tobytes()
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     first = (*b2b.initial_state(1, device=dev), zero, zero,
-             *b2b.stage_batch([head], SEGMENT_BYTES // 128, dev),
+             *b2b.stage_batch([head], PLAIN12_BLOCKS, dev),
              torch.zeros(1, dtype=torch.bool, device=dev))
     tail_blocks = b2b._bucket_nblocks(b2b._need_blocks(len(tail)))
     last = (*b2b.stage_batch([tail], tail_blocks, dev),
@@ -2527,8 +2625,12 @@ def check_update_stream_shape(device, data: np.ndarray, sass: dict,
     if b2b.digests_to_bytes(plain_last[0].cpu(), plain_last[1].cpu()) != \
             [blake(head + tail)]:
         raise AssertionError("the plain chain differs from hashlib")
+    # the row's shape: the stream's whole first segment
+    whole = (*first[:4], *b2b.stage_batch([data[:SEGMENT_BYTES].tobytes()],
+                                          SEGMENT_BYTES // 128, dev),
+             first[-1])
     lanes = lanes_per_item(1)
-    ms = {k: device_ms(lambda: launch_update(*first, k), 3) for k in LANES}
+    ms = {k: device_ms(lambda: launch_update(*whole, k), 3) for k in LANES}
     # per item: length and last flag read, state and counter in and out
     bound = b1_bound([SEGMENT_BYTES], sass, latency, item_bytes=149,
                      min_blocks=0)
@@ -2538,7 +2640,8 @@ def check_update_stream_shape(device, data: np.ndarray, sass: dict,
             "launches": 0, "max_abs_err": err, "ms": ms[lanes],
             "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
             "bound_by": bound["bound_by"], "library_ms": None,
-            "shape": [1, SEGMENT_BYTES // 128], "ms_by_lanes": ms,
+            "shape": [1, SEGMENT_BYTES // 128],
+            "plain_shape": [1, PLAIN12_BLOCKS], "ms_by_lanes": ms,
             "lanes": lanes, "tail_blocks": tail_blocks,
             **{k: bound[k] for k in ("bytes_ms", "ops_ms", "chain_ms")}}
 
@@ -2588,10 +2691,10 @@ def run_stream(device, data: np.ndarray) -> dict:
 def run_update_batch(device, sass: dict, latency: float) -> dict:
     """64 items of two segments each (a 4 MiB middle segment, then a last
     one of 1 B to 4 MiB) through each variant of the chained entry: the
-    middle segment against its plain version on the card
-    (:func:`plain_update_graphed`), byte for byte, and the digests against
-    hashlib.  The middle segment's device ms gives the batch's MiB/s, one
-    item's alone the stream's kernel rate."""
+    middle segment's first eighth against its plain version on the card
+    (:func:`plain_update_graphed`), byte for byte, and the digests of the
+    whole items against hashlib.  The middle segment's device ms gives
+    the batch's MiB/s, one item's alone the stream's kernel rate."""
     import torch
 
     from dat_replication_protocol_tpu_torch.ops import blake2b as b2b
@@ -2613,14 +2716,20 @@ def run_update_batch(device, sass: dict, latency: float) -> dict:
                      torch.full((n,), last, device=device)))
     hh, hl = b2b.initial_state(n, device=device)
     zero = torch.zeros(n, dtype=torch.int32, device=device)
-    plain, plain_ms = plain_update_graphed((hh, hl, zero, zero, *segs[0]))
+    # against the plain version on the middle segment's first eighth
+    mh, ml, lengths, last = segs[0]
+    cut = (mh[:, :PLAIN12_BLOCKS].contiguous(),
+           ml[:, :PLAIN12_BLOCKS].contiguous(),
+           lengths.clamp(max=PLAIN12_BLOCKS * 128), last)
+    plain, plain_ms = plain_update_graphed((hh, hl, zero, zero, *cut))
     ms = {}
     for lanes in LANES:
-        state = launch_update(hh, hl, zero, zero, *segs[0], lanes)
-        if max_abs_err(state, plain):
+        if max_abs_err(launch_update(hh, hl, zero, zero, *cut, lanes),
+                       plain):
             raise AssertionError(f"B1's chained entry ({lanes} lanes) "
                                  f"differs from its plain version on the "
-                                 f"64 x 4 MiB segment")
+                                 f"{n} x {PLAIN12_BLOCKS}-block segment")
+        state = launch_update(hh, hl, zero, zero, *segs[0], lanes)
         state = launch_update(*state, *segs[1], lanes)
         if b2b.digests_to_bytes(state[0].cpu(), state[1].cpu()) != want:
             raise AssertionError(f"B1's chained entry ({lanes} lanes) "
@@ -2636,7 +2745,7 @@ def run_update_batch(device, sass: dict, latency: float) -> dict:
     chain_ms = nb * sass["chain"] * latency / SM_HZ * 1e3
     return {"ms": ms, "mib_s": {k: n * SEGMENT_BYTES / MIB / (v / 1e3)
                                 for k, v in ms.items()},
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, "plain_shape": [n, PLAIN12_BLOCKS],
             "one_ms": one_ms, "one_mib_s": {
                 k: SEGMENT_BYTES / MIB / (v / 1e3) for k, v in one_ms.items()},
             "chain_ms": chain_ms,
@@ -3066,10 +3175,11 @@ AE_SHARED = 999_500
 AE_OWN = 500
 AE_SMALL_OWN = 5  # the k = 10 arm
 # 14b: bench.py config 12's dataset and its 2% stale joiner; its crowd
-# of 8 cut to 4, since phase 14 ran 185-189 s at 8, over its ~180 s
+# of 8 cut to 4, since phase 14 ran 185-189 s at 8, over its ~180 s, then
+# to 2, since 4 joiners took 47-75 s of the host (H100 80GB HBM3, 700 W)
 SNAP_BYTES = 1 << 30
 SNAP_STALE = 0.02
-SNAP_CROWD = 4
+SNAP_CROWD = 2
 ARM_LIMIT_S = 30.0  # the corrupt and torn arms must end within this
 SIDECAR_START_S = 300.0  # a sidecar builds its replica before listening
 
@@ -3702,6 +3812,9 @@ HUB_SOAK = {"linger_s": 0.002, "window_items": 1 << 16,
 # 15b: bench.py config 13's hub arm: 1, 4 and 16 concurrent sessions of an
 # 8 MiB wire each (max(4, 64 // 8) MiB), ~1.5% of it a change run
 HUB_COUNTS = (1, 4, 16)
+# 15a's gated run: 4 of the 16 sessions (all 16 took 59 s with the gate
+# on, H100 80GB HBM3, 700 W)
+HUB_GATED_SESSIONS = 4
 HUB_WIRE_MIB = 8
 HUB_STATS_S = 0.5
 # 15c: the shedding arm's budget and the offender's blob
@@ -3809,17 +3922,20 @@ def drive_hub(hub, wires: list, want: list, what: str,
 
 def run_hub_soak(device, wires: list, want: list) -> dict:
     """15a: config 9 on one card's hub, the gate off (the measurement),
-    then again with it on for the hub.* counters."""
+    then again with it on, over ``HUB_GATED_SESSIONS`` of the sessions,
+    for the hub.* counters and the dispatcher's turns."""
     from dat_replication_protocol_tpu_torch import obs
     from dat_replication_protocol_tpu_torch.hub import ReplicationHub
 
-    n = len(wires)
-    total = sum(len(w) for w in wires)
     runs = []
     for gated in (False, True):
         if gated:
+            wires = wires[:HUB_GATED_SESSIONS]
+            want = want[:HUB_GATED_SESSIONS]
             obs_reset()
             obs.enable()
+        n = len(wires)
+        total = sum(len(w) for w in wires)
         hub = ReplicationHub(device=device, max_sessions=n + 1, **HUB_SOAK)
         try:
             r = drive_hub(hub, wires, want, "phase 15a")
@@ -3832,6 +3948,7 @@ def run_hub_soak(device, wires: list, want: list) -> dict:
                 lat = snap["histograms"]["hub.dispatch.latency"]
                 obs.disable()
         per = sorted(len(wires[i]) / r["session_s"][i] for i in range(n))
+        r["sessions"] = n
         r["gib_s"] = total / r["seconds"] / (1 << 30)
         r["fairness"] = per[0] / per[n // 2]
         r["session_gib_s"] = (per[0] / (1 << 30), per[n // 2] / (1 << 30))
@@ -3850,8 +3967,7 @@ def run_hub_soak(device, wires: list, want: list) -> dict:
     # share of the run the dispatcher spent in turns
     turns = {"count": lat["count"], "sum_s": lat["sum"], "p50_s": lat["p50"],
              "p99_s": lat["p99"], "share": lat["sum"] / runs[1]["seconds"]}
-    return {"runs": runs, "bytes": total, "counters": hub_counters,
-            "turns": turns}
+    return {"runs": runs, "counters": hub_counters, "turns": turns}
 
 
 def hub_client_wire(seed: int, mib: int = HUB_WIRE_MIB) -> bytes:
@@ -3871,8 +3987,11 @@ def hub_client_wire(seed: int, mib: int = HUB_WIRE_MIB) -> bytes:
 
 
 class StatsReader:
-    """The ``--stats-fd`` pipe of a sidecar, read on a thread: every line
-    must parse as one JSON object."""
+    """The ``--stats-fd`` pipe of a sidecar, read on a thread from the
+    moment it is made: every line must parse as one JSON object.  The
+    sidecar's stats fd is non-blocking and a record it cannot finish
+    within 2 s latches its emitter dead, so the pipe is drained while the
+    sidecar starts, not only once it listens."""
 
     def __init__(self):
         import threading
@@ -3882,10 +4001,14 @@ class StatsReader:
         self.errors: list = []
         self.cond = threading.Condition()
         self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
 
     def start(self) -> "StatsReader":
-        os.close(self.w)  # the sidecar holds the write end
-        self.thread.start()
+        """Close this process's write end, once the sidecar holds its own:
+        the reader then sees EOF when the sidecar exits."""
+        if self.w is not None:
+            os.close(self.w)
+            self.w = None
         return self
 
     def _read(self) -> None:
@@ -3921,6 +4044,7 @@ class StatsReader:
                 self.cond.wait(min(left, 1.0))
 
     def close(self) -> None:
+        self.start()
         self.thread.join(30)
         os.close(self.r)
 
@@ -5698,6 +5822,11 @@ MESH_OWN = 1_024
 MESH_INTERVAL_S = 0.2
 MESH_STATS_S = 0.5
 MESH_LIMIT_S = 240.0
+# 19: 18a's N = 16 run is logged to a JSONL sink for meshdoctor; 18b's
+# sidecars log to build/phase19/ and the fleet gate reads its samples there
+MESH_SINK_N = 16
+P19_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "phase19")
 # 18c: test_cluster_faults.py's scenarios, seeds 0-7
 CLUSTER_CHAOS_SEEDS = 8
 CLUSTER_BYZ_ARMS = ("wrong-symbol", "wrong-chunk", "feed-corrupt")
@@ -5736,10 +5865,12 @@ def cost_totals(board_snapshot: dict) -> dict:
             "overhead": framing / total if total else None}
 
 
-def run_cluster_converge(device) -> dict:
-    """18a (see the module docstring)."""
+def run_cluster_converge(device, sink_path=None) -> dict:
+    """18a (see the module docstring); the N = ``MESH_SINK_N`` run's
+    events and spans also go to the JSONL file ``sink_path``."""
     from dat_replication_protocol_tpu_torch.cluster import ClusterSim
     from dat_replication_protocol_tpu_torch.obs import metrics as obs_metrics
+    from dat_replication_protocol_tpu_torch.obs import tracing
     from dat_replication_protocol_tpu_torch.obs.propagation import (
         PROPAGATION)
     from dat_replication_protocol_tpu_torch.obs.wirecost import WIRECOST
@@ -5751,6 +5882,8 @@ def run_cluster_converge(device) -> dict:
         for n in CLUSTER_NS:
             PROPAGATION.reset_for_tests()
             WIRECOST.reset_for_tests()
+            sink = (tracing.attach_jsonl_sink(sink_path)
+                    if sink_path and n == MESH_SINK_N else None)
             b1 = read_counters()["blake2b"]
             t0 = time.perf_counter()
             sim = ClusterSim(n, seed=CLUSTER_SEED, chaos=False,
@@ -5763,7 +5896,13 @@ def run_cluster_converge(device) -> dict:
                 raise AssertionError(f"18a n={n}: the expected digest is not "
                                      "the hashlib oracle's")
             t0 = time.perf_counter()
-            res = sim.run()
+            try:
+                res = sim.run()
+            finally:
+                if sink is not None:
+                    tracing.EVENTS.detach_sink()
+                    tracing.SPANS.detach_sink()
+                    sink.close()
             seconds = time.perf_counter() - t0
             if not res["converged"] or res["rounds"] > sim.rounds_bound():
                 raise AssertionError(f"18a n={n}: {res['rounds']} rounds of "
@@ -5826,8 +5965,11 @@ def mesh_logs(seed: int = SEED + 180) -> tuple:
     return logs, content_oracle(canonical_digests(as_delivered)), len(union)
 
 
-def run_live_mesh(device) -> dict:
-    """18b (see the module docstring)."""
+def run_live_mesh(device, fleet_dir: str) -> dict:
+    """18b (see the module docstring); each sidecar also serves
+    ``--obs-http`` and logs its events and spans to
+    ``fleet_dir/rI.jsonl``, and once the mesh has settled
+    :func:`fleet_samples` records one sample of each for phase 19."""
     import signal
     import tempfile
     import threading
@@ -5852,7 +5994,8 @@ def run_live_mesh(device) -> dict:
                     "--replica-key", f"r{i}", "--gossip-peers", peers,
                     "--gossip-interval", str(MESH_INTERVAL_S),
                     "--device", str(device), "--stats-fd", str(stats[i].w),
-                    "--stats-interval", str(MESH_STATS_S)]
+                    "--stats-interval", str(MESH_STATS_S), "--obs-http", "0",
+                    "--trace-jsonl", os.path.join(fleet_dir, f"r{i}.jsonl")]
             if i == 0:
                 args.append("--edge")  # replica_machine serves its inbound
             try:
@@ -5913,6 +6056,10 @@ def run_live_mesh(device) -> dict:
                         or a["digest"] != want:
                     raise AssertionError(f"18b: {a['replica']} moved after "
                                          f"convergence: {b} -> {a}")
+            # settled: phase 19's samples, taken while the sidecars live
+            urls = [side.wait_for("obs endpoint on", 30).split(" on ", 1)[1]
+                    for side in sides]
+            out["fleet"] = fleet_samples(urls, stats[1], want, fleet_dir)
             out["replicas"] = {
                 a["replica"]: {k: a[k] for k in (
                     "rounds", "exchanges_ok", "repairs_applied",
@@ -5929,11 +6076,6 @@ def run_live_mesh(device) -> dict:
                     set(out["edge_kinds"]) - {"replica"}:
                 raise AssertionError(f"18b: r0's edge section {out['edge']},"
                                      f" kinds {out['edge_kinds']}")
-            out["tx_bytes"] = {
-                f"r{i}": sum(rec["ledger_bytes"] for name, rec in
-                             s.records[-1].get("wirecost", {}).get(
-                                 "links", {}).items() if name.endswith("|tx"))
-                for i, s in enumerate(stats)}
             out["propagation"] = all("propagation" in s.records[-1]
                                      for s in stats)
         finally:
@@ -5945,6 +6087,13 @@ def run_live_mesh(device) -> dict:
     for s in stats:
         if s.errors:
             raise AssertionError(f"18b: stats lines {s.errors[:3]}")
+    # the whole run's: each sidecar's last record is written after its
+    # driver and server have stopped
+    out["tx_bytes"] = {
+        f"r{i}": sum(rec["ledger_bytes"] for name, rec in
+                     s.records[-1].get("wirecost", {}).get(
+                         "links", {}).items() if name.endswith("|tx"))
+        for i, s in enumerate(stats)}
     out["b1"] = {f"r{i}": sentinel_launches(s.records[-1])["blake2b"]
                  for i, s in enumerate(stats)}
     if not out["propagation"] or min(out["b1"].values()) == 0:
@@ -6057,6 +6206,208 @@ def run_cluster_chaos(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the offline obs tools over phase 18's replicas
+# ---------------------------------------------------------------------------
+
+
+def fleet_samples(urls: list, tee: "StatsReader", want: str,
+                  fleet_dir: str) -> dict:
+    """19a's recording, taken once 18b has settled: one sample a sidecar,
+    one JSONL line in ``rI.sample.jsonl`` (its ``/snapshot`` with its
+    ``/healthz`` record under ``healthz``), and r1's ``--stats-fd``
+    records so far in ``r1.stats.jsonl``.  Then the dashboard, the one
+    live arm: every endpoint reachable and every ``gossip.digest`` the
+    oracle's."""
+    from dat_replication_protocol_tpu_torch.obs.fleet import (
+        FleetTarget, FleetView, render_dashboard)
+
+    t0 = time.perf_counter()
+    files = []
+    for i, url in enumerate(urls):
+        target = FleetTarget(url, name=f"r{i}")
+        snap = target.poll()
+        if snap is None:
+            raise AssertionError(f"19a: r{i} at {url}: {target.last_error}")
+        snap["healthz"] = target.poll_healthz()
+        files.append(os.path.join(fleet_dir, f"r{i}.sample.jsonl"))
+        with open(files[-1], "w", encoding="utf-8") as f:
+            f.write(json.dumps(snap) + "\n")
+    with tee.cond:
+        records = list(tee.records)
+    files.append(os.path.join(fleet_dir, "r1.stats.jsonl"))
+    with open(files[-1], "w", encoding="utf-8") as f:
+        f.writelines(json.dumps(r) + "\n" for r in records)
+    sample_s = time.perf_counter() - t0
+    view = FleetView(urls)
+    live = view.poll(healthz=True)
+    digests = {name: r["digest"] for name, r in live["gossip"].items()}
+    if live["errors"] or digests != dict.fromkeys(urls, want):
+        raise AssertionError(f"19a: the dashboard's poll: errors "
+                             f"{live['errors']}, digests {digests}")
+    return {"files": files, "sample_s": sample_s,
+            "dashboard": render_dashboard(view, live).splitlines()}
+
+
+def check_rows(text: str) -> list:
+    """``fleet --check`` output: (mark, subject, detail) a row, and the
+    summary line last."""
+    lines = text.splitlines()
+    return [tuple(ln.split(None, 2)) for ln in lines[:-1]], lines[-1]
+
+
+def run_fleet_gate(files: list, want: str) -> dict:
+    """19a's gate over the recorded samples, in this process and through
+    ``python -m dat_replication_protocol_tpu_torch.obs fleet --check``:
+    the same rows and exit code; every gossip row OK (one content digest,
+    the oracle's, in every sample; none quarantined; converged within
+    ``mesh_rounds_floor``); each ``require_healthz`` row as the target's
+    saved record says.  Then the breach arm on the same files."""
+    from dat_replication_protocol_tpu_torch.obs.fleet import (
+        mesh_rounds_floor, run_fleet_check)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    slo = {"gossip": {"require_converged": True, "max_quarantined": 0,
+                      "max_convergence_rounds":
+                          mesh_rounds_floor(MESH_REPLICAS)},
+           "require_healthz": True}
+    slo_path = os.path.join(P19_OUT, "slo.json")
+    with open(slo_path, "w", encoding="utf-8") as f:
+        json.dump(slo, f)
+    buf = io.StringIO()
+    rc = run_fleet_check(files, slo_path, polls=1, out=buf)
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "dat_replication_protocol_tpu_torch.obs",
+         "fleet", *files, "--check", slo_path, "--polls", "1"],
+        cwd=root, env={**os.environ, "PYTHONPATH": root},
+        capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    if (cli.stdout, cli.returncode) != (buf.getvalue(), rc):
+        raise AssertionError(f"19a: fleet --check (rc {cli.returncode}) "
+                             f"{cli.stdout!r} {cli.stderr[-2000:]!r} differs "
+                             f"from run_fleet_check (rc {rc}) "
+                             f"{buf.getvalue()!r}")
+    saved = {}
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            saved[os.path.basename(path)] = json.loads(f.readlines()[-1])
+    for name, rec in saved.items():
+        if rec["gossip"]["digest"] != want or rec["gossip"]["quarantined"]:
+            raise AssertionError(f"19a: {name}'s sample {rec['gossip']}")
+    rows, summary = check_rows(buf.getvalue())
+    marks = {subject: mark for mark, subject, _ in rows}
+    gossip = {"gossip.require_converged[fleet]",
+              "gossip.max_convergence_rounds[fleet]",
+              *(f"gossip.max_quarantined[{n}]" for n in saved)}
+    healthz = {f"require_healthz[{n}]": "OK" if rec["healthz"]["ok"]
+               else "FAIL" for n, rec in saved.items()}
+    if marks != {**dict.fromkeys(gossip, "OK"), **healthz}:
+        raise AssertionError(f"19a: the gate's rows {rows}, want gossip "
+                             f"OK and require_healthz {healthz}")
+    if rc != ("FAIL" in healthz.values()):
+        raise AssertionError(f"19a: the gate exited {rc}: {summary}")
+    breach_path = os.path.join(P19_OUT, "breach.json")
+    with open(breach_path, "w", encoding="utf-8") as f:
+        json.dump({"gossip": {"max_exchange_p99_s": 1e-9}}, f)
+    buf2 = io.StringIO()
+    rc2 = run_fleet_check(files, breach_path, polls=1, out=buf2)
+    b_rows, b_summary = check_rows(buf2.getvalue())
+    if rc2 != 1 or [r[:2] for r in b_rows] != [
+            ("FAIL", "gossip.max_exchange_p99_s[fleet]")]:
+        raise AssertionError(f"19a: the breach arm (rc {rc2}) "
+                             f"{buf2.getvalue()!r}")
+    r0 = saved["r0.sample.jsonl"]["healthz"]
+    return {"rc": rc, "rows": rows, "summary": summary, "cli_s": cli_s,
+            "breach": b_rows[0][2], "r0_healthz_ok": r0["ok"],
+            "r0_loop_lag": r0["stages"].get("loop_lag")}
+
+
+def obs_cli(argv: list) -> tuple:
+    """The port's offline CLI in this process: exit code and stdout."""
+    import contextlib
+
+    from dat_replication_protocol_tpu_torch.obs.__main__ import (
+        main as obs_main)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_main(argv)
+    return rc, buf.getvalue()
+
+
+def run_doctors(sink: str, conv16: dict, mesh: dict) -> dict:
+    """19b: the offline CLI over the run's own logs, each against an
+    independent count: meshdoctor over 18a's N = 16 sink (its convergence
+    round == the run's rounds), costdoctor over 18b's four logs (each
+    replica's tx ``wire_bytes`` == 18b's ``tx_bytes`` of the wire cost
+    ledger), loopdoctor over r0's ``edge.turn`` spans (the turns tile the
+    loop's time; its exit code agrees with the flags it prints),
+    export-trace of r0's log (one trace event a span and event record)
+    and timeline over r0's and r1's logs."""
+    logs = [os.path.join(P19_OUT, f"r{i}.jsonl")
+            for i in range(MESH_REPLICAS)]
+    out = {}
+    rc, text = obs_cli(["meshdoctor", "--json", sink])
+    rep = json.loads(text)
+    if not rep["converged"] or rep["convergence_round"] != conv16["rounds"] \
+            or rep["bound"] != conv16["bound"] \
+            or rc != bool(rep["flags"]):
+        raise AssertionError(f"19b: meshdoctor (rc {rc}) converged "
+                             f"{rep['converged']} at round "
+                             f"{rep['convergence_round']}, bound "
+                             f"{rep['bound']}; 18a's {conv16['rounds']} "
+                             f"rounds, bound {conv16['bound']}")
+    out["mesh"] = {"rc": rc, "flags": rep["flags"],
+                   **{k: rep[k] for k in ("convergence_round", "bound",
+                                          "exchanges", "tree_digests",
+                                          "distinct_frontiers")}}
+    rc, text = obs_cli(["costdoctor", "--json", *logs])
+    rep = json.loads(text)
+    tx = {f"r{i}": sum(led["wire_bytes"] for name, led in
+                       rep["ledgers"].items()
+                       if name.endswith("|tx") and name.startswith(f"r{i}"))
+          for i in range(MESH_REPLICAS)}
+    if tx != mesh["tx_bytes"] or rc != bool(rep["flags"]):
+        raise AssertionError(f"19b: costdoctor (rc {rc}) tx {tx}, the wire "
+                             f"cost ledger's {mesh['tx_bytes']}; flags "
+                             f"{rep['flags'][:4]}")
+    out["cost"] = {"rc": rc, "tx": tx, "ledgers": len(rep["ledgers"]),
+                   "flags": rep["flags"]}
+    rc, text = obs_cli(["loopdoctor", "--json", logs[0]])
+    rep = json.loads(text)
+    tiling = [f for f in rep["flags"] if f["flag"].startswith("tile-")]
+    if not rep["loops"] or tiling or rc != bool(rep["flags"]):
+        raise AssertionError(f"19b: loopdoctor (rc {rc}) over r0: loops "
+                             f"{list(rep['loops'])}, flags {rep['flags'][:4]}")
+    out["loop"] = {"rc": rc, "flags": rep["flags"], "loops": {
+        name: {k: r[k] for k in ("spans", "turns", "wall_s", "lag_max_s",
+                                 "final_lag_s", "stall_s", "stall_turns",
+                                 "threshold_s")}
+        for name, r in rep["loops"].items()}}
+    with open(logs[0], encoding="utf-8") as f:
+        records = [json.loads(ln) for ln in f if ln.strip()]
+    n_log = sum("span" in r or "event" in r for r in records)
+    trace = os.path.join(P19_OUT, "r0.trace.json")
+    rc, text = obs_cli(["export-trace", logs[0], "-o", trace])
+    with open(trace, encoding="utf-8") as f:
+        n_trace = len(json.load(f)["traceEvents"])
+    if rc or n_trace != n_log or f": {n_trace} trace event(s)" not in text:
+        raise AssertionError(f"19b: export-trace (rc {rc}) wrote {n_trace} "
+                             f"events for {n_log} records: {text!r}")
+    out["trace"] = {"events": n_trace, "spans": sum("span" in r
+                                                    for r in records)}
+    rc, text = obs_cli(["timeline", "--json", logs[0], logs[1]])
+    rep = json.loads(text)
+    if rc != bool(rep["flags"]) or not rep["timeline"]:
+        raise AssertionError(f"19b: timeline (rc {rc}) flags "
+                             f"{rep['flags'][:4]}")
+    out["timeline"] = {"rc": rc, "rows": len(rep["timeline"]),
+                       "flags": len(rep["flags"]),
+                       "sender": rep["sender"], "receiver": rep["receiver"]}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6093,9 +6444,11 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
+    enter("2")
     check_kernels(device)
     log(f"phase 2: {time.perf_counter() - t0:.2f} s")
 
+    enter("3")
     session = run_session(device)
     log(f"phase 3: session of {session['blobs']} x 1 MiB blobs (cut from "
         f"BASELINE configs[2]'s 10k to fit the time limit) and "
@@ -6112,11 +6465,13 @@ def main() -> int:
     log(f"phase 3: sidecar.run_session replied {side['digests']} digests, "
         f"launches {side['launches']}")
 
+    enter("4")
     ent = run_entry(device)
     log(f"phase 4: entry() over {ent['leaves']} leaves in {ent['seconds']} s,"
         f" root {ent['root']}, launches {ent['launches']}")
 
     t0 = time.perf_counter()
+    enter("6")
     check_gear_kernels(device)
     edges = check_staged_edges(device)
     log(f"phase 6: B4, B5 and B6 byte-exact vs plain at the edges "
@@ -6129,6 +6484,7 @@ def main() -> int:
     log(f"phase 6: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
+    enter("7")
     blob = make_blob(STREAM_BYTES)
     log(f"phase 7: made a {STREAM_BYTES} B blob from the seed in "
         f"{time.perf_counter() - t0:.2f} s; phase 7 takes its first "
@@ -6152,6 +6508,7 @@ def main() -> int:
             raise AssertionError(f"phase 7 never launched {name}")
 
     reset_counters()
+    enter("8")
     stream = run_chunk_stream(device, blob, s.cuts)
     streamed = read_counters()
     log(f"phase 8: chunk_stream over {STREAM_BYTES} B (BASELINE configs[3], "
@@ -6166,6 +6523,7 @@ def main() -> int:
     launches = {k: session["launches"][k] + side["launches"][k]
                 + ent["launches"][k] + cdc[k] + streamed[k]
                 for k in session["launches"] if k not in NOT_COUNTS}
+    enter("5")
     sass = b1_sass()
     latency = chain_latency(device)
     log(f"phase 5: dependent-issue latency {latency['cycles']} cycles a "
@@ -6177,6 +6535,7 @@ def main() -> int:
         f"per lane")
     rows = time_kernels(device, launches, ent["step"], sass,
                         latency["cycles"])
+    enter("9")
     chunk = time_chunk_bucket(device, blob[:CONTENT_BYTES], s.cuts, sass,
                               latency["cycles"])
     content_blob = blob[:CONTENT_BYTES].copy()  # phase 12's gear scan
@@ -6186,6 +6545,7 @@ def main() -> int:
     rows += time_gear_kernels(device, launches)
 
     t0 = time.perf_counter()
+    enter("10")
     recon = run_reconcile(device)
     p10 = recon["launches"]
     log(f"phase 10: two snapshots of {recon['leaves']} change records "
@@ -6227,6 +6587,7 @@ def main() -> int:
     del recon, times
 
     t0 = time.perf_counter()
+    enter("11")
     rep = run_replay(device, card)
     p11 = rep["launches"]
     n = rep["rows"]
@@ -6250,7 +6611,7 @@ def main() -> int:
         f"events over a graph of the same launches); decode_batch_device of "
         f"{n} rows {rep['decode_device_ms']} ms; on {card}")
     for name, sess in rep["sessions"].items():
-        log(f"phase 11: digest session ({name}) of {SESSION_ROWS} rows and "
+        log(f"phase 11: digest session ({name}) of {sess['rows']} rows and "
             f"{SESSION_BLOBS} blobs: {sess['rows_s']} rows/s ({sess['seconds']}"
             f" s, {sess['wire_bytes']} wire bytes); every change digest == "
             f"the per-record session's == hashlib; on {card}")
@@ -6259,6 +6620,7 @@ def main() -> int:
     del rep
 
     t0 = time.perf_counter()
+    enter("12a")
     sass_u = b1_sass("blake2b_update_thread_kernel",
                      "blake2b_update_quad_kernel")
     data = make_blob(STREAM12_BYTES, seed=SEED + 63)
@@ -6276,13 +6638,14 @@ def main() -> int:
     del data
     upd["launches"] = p12a["blake2b_update"]
     log(f"phase 12: B1's chained entry byte-exact vs plain with "
-        f"{list(upd['ms_by_lanes'])} lanes per item at the stream's shape: "
-        f"its first segment {upd['shape']} (items x blocks), not last, then "
-        f"a last segment of {TAIL12_BYTES} B bucketed to "
-        f"{upd['tail_blocks']} blocks; the plain chain == hashlib; "
-        f"{time.perf_counter() - t1:.2f} s; device ms by lanes "
-        f"{upd['ms_by_lanes']}, the rule picks {upd['lanes']}; plain "
-        f"{upd['plain_ms']} ms (its launches from a CUDA graph, "
+        f"{list(upd['ms_by_lanes'])} lanes per item at the stream's width: "
+        f"an eighth of its first segment {upd['plain_shape']} (items x "
+        f"blocks), not last, then a last segment of {TAIL12_BYTES} B "
+        f"bucketed to {upd['tail_blocks']} blocks; the plain chain == "
+        f"hashlib; {time.perf_counter() - t1:.2f} s; device ms at "
+        f"{upd['shape']} by lanes {upd['ms_by_lanes']}, the rule picks "
+        f"{upd['lanes']}; plain {upd['plain_ms']} ms at "
+        f"{upd['plain_shape']} (its launches from a CUDA graph, "
         f"{PLAIN12_CHUNK} blocks a call); bound {upd['bound_ms']} ms "
         f"({upd['bound_by']}): bytes {upd['bytes_ms']}, operations "
         f"{upd['ops_ms']}, chain {upd['chain_ms']} ms; its SASS, one thread: "
@@ -6291,8 +6654,9 @@ def main() -> int:
         f"{sass_u['quad_per_block']} a block per lane; on {card}")
     t1 = time.perf_counter()
     batch = run_update_batch(device, sass_u, latency["cycles"])
-    log(f"phase 12: {BATCH12_ITEMS} items of a 4 MiB segment == the plain "
-        f"version ({batch['plain_ms']} ms from its graph) and with a last "
+    log(f"phase 12: {BATCH12_ITEMS} items of a 4 MiB segment, its first "
+        f"eighth {batch['plain_shape']} == the plain version "
+        f"({batch['plain_ms']} ms from its graph), the whole and a last "
         f"one of 1 B-4 MiB == hashlib, each variant; "
         f"{time.perf_counter() - t1:.2f} s; one 4 MiB segment "
         f"of the {BATCH12_ITEMS} items: device ms by lanes {batch['ms']} = "
@@ -6309,6 +6673,7 @@ def main() -> int:
     log(f"phase 12a: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
+    enter("12b")
     mesh_in = mesh_inputs(device, session, ent, mesh_recon, content_blob)
     del mesh_recon
     mesh = run_mesh(device, mesh_in)
@@ -6335,6 +6700,7 @@ def main() -> int:
     log(f"phase 12b: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
+    enter("13")
     tel = run_telemetry(device, content_blob, s)
     del content_blob
     p13 = tel["launches"]
@@ -6372,6 +6738,7 @@ def main() -> int:
     log(f"phase 13: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
+    enter("14a")
     ae = run_anti_entropy_reconcile(device)
     a, b = ae["k1000"], ae["k10"]
     n_ae = sum(ae["records"])
@@ -6398,6 +6765,7 @@ def main() -> int:
             f"flipped in flight): {c['outcome']}; the socket closed, the "
             f"sidecar logged {c['sidecar']}; {c['tx_bytes']} B sent, in "
             f"{c['seconds']} s")
+    enter("14b")
     snap = run_anti_entropy_snapshot(device)
     ms, m = snap["materialize_ms"], snap["materialize_launches"]
     log(f"phase 14b: SnapshotSource over {snap['bytes']} B: "
@@ -6442,6 +6810,7 @@ def main() -> int:
     del ae, snap
 
     t0 = time.perf_counter()
+    enter("15a")
     wires = hub_soak_wires()
     want = [wire_digests(w) for w in wires]
     log(f"phase 15a: {HUB_SESSIONS} session wires of {HUB_ROWS} change rows "
@@ -6453,7 +6822,7 @@ def main() -> int:
     p15a = read_counters()
     for i, r in enumerate(soak["runs"]):
         log(f"phase 15a: hub soak, gate {('off', 'on')[i]}: "
-            f"{HUB_SESSIONS} sessions on one ReplicationHub(device='cuda', "
+            f"{r['sessions']} sessions on one ReplicationHub(device='cuda', "
             f"{HUB_SOAK}), every digest == hashlib in its session's order: "
             f"{r['digests']} digests, {r['gib_s']} GiB/s aggregate "
             f"({r['seconds']} s), fairness min/median {r['fairness']} "
@@ -6463,6 +6832,7 @@ def main() -> int:
         f"{p15a['b1_blocks']}); counters of the gated run {soak['counters']}; "
         f"its dispatch turns (hub.dispatch.latency) {soak['turns']}")
     del soak
+    enter("15b")
     out = run_hub_sidecar(device)
     for count, arm in out["arms"].items():
         log(f"phase 15b: --tcp --hub --stats-fd sidecar (telemetry on), "
@@ -6487,6 +6857,7 @@ def main() -> int:
         f"{rej['eof_s']} s and the sidecar logged {rej['record']}; the held "
         f"clients' replies == hashlib")
     reset_counters()
+    enter("15c")
     shed = run_hub_shed(device)
     p15c = read_counters()
     log(f"phase 15c: a never-polling nowait session flooding 1 MiB blobs "
@@ -6497,6 +6868,7 @@ def main() -> int:
         f"{shed['neighbour_digests']} digests == hashlib in "
         f"{shed['neighbours_s']} s; B1 launches {p15c['blake2b']}")
     reset_counters()
+    enter("15d")
     mesh15 = run_hub_mesh(device, wires[:HUB_MESH_SESSIONS],
                           want[:HUB_MESH_SESSIONS])
     p15d = read_counters()
@@ -6514,6 +6886,7 @@ def main() -> int:
     log(f"phase 15: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
+    enter("16a")
     fwire = fanout_wire()
     fwant = wire_digests(fwire)
     reset_counters()
@@ -6537,6 +6910,7 @@ def main() -> int:
         f"{fan['stalled']['p99_ms']} ms ({fan['stalled']['seconds']} s); "
         f"without the staller {fan['unstalled']['p99_ms']} ms "
         f"({fan['unstalled']['seconds']} s); no peer shed; on {card}")
+    enter("16b")
     fs = run_fanout_sidecar(device, fwire, fwant)
     log(f"phase 16b: --tcp --fanout --hub sidecar: a probe connection gave "
         f"the source claim back; the source's reply == hashlib; "
@@ -6550,6 +6924,7 @@ def main() -> int:
         f"bootstrap from the hinted port byte-exact in {fs['bootstrap_s']} "
         f"s; its sentinel: {fs['snap']}; on {card}")
     reset_counters()
+    enter("16c")
     rs = run_resume(device)
     p16c = read_counters()
     r_ms = rs["resume_ms"]
@@ -6565,6 +6940,7 @@ def main() -> int:
         f"{rs['flip']}; the armed recorder kept bundles {rs['bundles']} "
         f"(routine, half of 4), checkpoint {rs['checkpoint']}")
     reset_counters()
+    enter("16d")
     ch = run_snapshot_chaos(device)
     p16d = read_counters()
     log(f"phase 16d: config 12's chaos arm: SnapshotSource over "
@@ -6585,6 +6961,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reset_counters()
+    enter("17a")
     sc = run_edge_scaling(device)
     p17a = read_counters()
     log(f"phase 17a: RLIMIT_NOFILE soft {sc['fd_soft']} hard {sc['fd_hard']}"
@@ -6605,6 +6982,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     t1 = time.perf_counter()
     reset_counters()
+    enter("17b")
     mx = run_edge_mixed(device, edge_in)
     p17b = mx["launches"]
     del edge_in
@@ -6624,6 +7002,7 @@ def main() -> int:
     log(f"phase 17b: {time.perf_counter() - t1:.2f} s")
     t1 = time.perf_counter()
     reset_counters()
+    enter("17c")
     ch17 = run_edge_chaos(device)
     p17c = read_counters()
     base = ch17["arms"][None]["p99_ms"]
@@ -6636,6 +7015,7 @@ def main() -> int:
     log(f"phase 17c: B1 launches {p17c['blake2b']}; "
         f"{time.perf_counter() - t1:.2f} s")
     t1 = time.perf_counter()
+    enter("17d")
     sd = run_edge_sidecar(device)
     log(f"phase 17d: --tcp --edge --stats-fd --obs-http sidecar, "
         f"{EDGE_HUB_SESSIONS} concurrent clients of a {HUB_WIRE_MIB} MiB "
@@ -6657,6 +7037,7 @@ def main() -> int:
         f"{time.perf_counter() - t1:.2f} s on {card}")
     t1 = time.perf_counter()
     reset_counters()
+    enter("17e")
     aio = run_aio(device, tel["gate"]["median_off_s"])
     p17e = read_counters()
     log(f"phase 17e: session_over_asyncio over phase 13a's {P13_BLOBS}-blob "
@@ -6679,9 +7060,13 @@ def main() -> int:
     log(f"phase 17: launches 17a {p17a}; 17b {p17b}; 17c {p17c}; 17e {p17e}")
     log(f"phase 17: {time.perf_counter() - t0:.2f} s")
 
+    enter("18a")
     t0 = time.perf_counter()
+    shutil.rmtree(P19_OUT, ignore_errors=True)
+    os.makedirs(P19_OUT)
+    sink = os.path.join(P19_OUT, f"mesh{MESH_SINK_N}.jsonl")
     reset_counters()
-    conv = run_cluster_converge(device)
+    conv = run_cluster_converge(device, sink)
     p18a = read_counters()
     for n, r in conv.items():
         log(f"phase 18a: bench.py config 14, uncut: ClusterSim({n}, "
@@ -6699,8 +7084,9 @@ def main() -> int:
     if p18a["blake2b"] == 0:
         raise AssertionError("phase 18a never launched B1")
     log(f"phase 18a: {time.perf_counter() - t0:.2f} s")
+    enter("18b")
     t1 = time.perf_counter()
-    mesh = run_live_mesh(device)
+    mesh = run_live_mesh(device, P19_OUT)
     log(f"phase 18b: {MESH_REPLICAS} --tcp --replica sidecars on the card "
         f"(r0 with --edge), --gossip-interval {MESH_INTERVAL_S}, each "
         f"dialling the other three; {MESH_SHARED} shared records + "
@@ -6717,6 +7103,7 @@ def main() -> int:
         f"{ {k: mesh['edge'][k] for k in ('served', 'admitted', 'rejected', 'shed')} }"
         f", the kinds its table held in a record {mesh['edge_kinds']}; "
         f"{time.perf_counter() - t1:.2f} s on {card}")
+    enter("18c")
     t1 = time.perf_counter()
     reset_counters()
     chaos = run_cluster_chaos(device)
@@ -6734,6 +7121,69 @@ def main() -> int:
     log(f"phase 18c: {time.perf_counter() - t1:.2f} s")
     log(f"phase 18: launches 18a {p18a}; 18c {p18c}")
     log(f"phase 18: {time.perf_counter() - t0:.2f} s")
+
+    enter("19a")
+    t0 = time.perf_counter()
+    fl = mesh["fleet"]
+    gate = run_fleet_gate(fl["files"], mesh["digest"])
+    names = [os.path.basename(f) for f in fl["files"]]
+    log(f"phase 19a: one sample a target recorded once 18b had settled, in "
+        f"{fl['sample_s']:.3f} s, under {P19_OUT}: {names} (four /snapshot "
+        f"records with their /healthz, r1's --stats-fd tee); "
+        f"run_fleet_check and `python -m dat_replication_protocol_tpu_torch"
+        f".obs fleet --check` (in {gate['cli_s']:.2f} s) over those files: "
+        f"the same {len(gate['rows'])} rows, exit {gate['rc']}; every "
+        f"sample's gossip.digest == the hashlib oracle {mesh['digest'][:16]}"
+        f"..., 0 quarantined; on {card}")
+    for mark, subject, detail in gate["rows"]:
+        log(f"phase 19a: gate: {mark:<4} {subject} {detail}")
+    log(f"phase 19a: gate: {gate['summary']}")
+    if not gate["r0_healthz_ok"]:
+        log(f"phase 19a: finding: r0's saved /healthz is degraded, its "
+            f"require_healthz row FAIL as the record says; its loop_lag "
+            f"stage {gate['r0_loop_lag']} (the edge loop rebuilds the "
+            f"263k-record replica on its own thread); on {card}")
+    else:
+        log(f"phase 19a: r0's saved /healthz ok, loop_lag stage "
+            f"{gate['r0_loop_lag']}; on {card}")
+    log(f"phase 19a: the breach arm (gossip.max_exchange_p99_s 1e-9) on the "
+        f"same files: exit 1, one row FAIL gossip.max_exchange_p99_s[fleet] "
+        f"{gate['breach']}; on {card}")
+    for line in fl["dashboard"]:
+        log(f"phase 19a: dashboard: {line}")
+    log(f"phase 19a: {time.perf_counter() - t0:.2f} s on {card}")
+    enter("19b")
+    t1 = time.perf_counter()
+    doc = run_doctors(sink, conv[MESH_SINK_N], mesh)
+    m = doc["mesh"]
+    log(f"phase 19b: meshdoctor over 18a's N = {MESH_SINK_N} sink: exit "
+        f"{m['rc']}, converged at round {m['convergence_round']} == the "
+        f"run's {conv[MESH_SINK_N]['rounds']} rounds, bound {m['bound']}; "
+        f"{m['exchanges']} exchanges, {m['tree_digests']} digests tracked, "
+        f"flags {m['flags']}; on {card}")
+    c = doc["cost"]
+    kinds: dict = {}
+    for f in c["flags"]:
+        kinds[f["flag"]] = kinds.get(f["flag"], 0) + 1
+    log(f"phase 19b: costdoctor over 18b's four logs: exit {c['rc']}, "
+        f"{c['ledgers']} ledgers; tx wire bytes by replica {c['tx']} == the "
+        f"wire cost ledger's tx_bytes; flags by kind {kinds} (a log holds "
+        f"many sessions, each from wire offset 0); on {card}")
+    lp = doc["loop"]
+    log(f"phase 19b: loopdoctor over r0's edge.turn spans: exit {lp['rc']}, "
+        f"the turns tile the loop's time; {lp['loops']}; on {card}")
+    for f in lp["flags"]:
+        log(f"phase 19b: loopdoctor finding {f}")
+    log(f"phase 19b: export-trace of r0's log: {doc['trace']['events']} trace"
+        f" events == its span and event records ({doc['trace']['spans']} "
+        f"spans); on {card}")
+    tl = doc["timeline"]
+    log(f"phase 19b: timeline of r0's and r1's logs: exit {tl['rc']}, "
+        f"{tl['rows']} rows, {tl['flags']} flags; sender {tl['sender']}, "
+        f"receiver {tl['receiver']}; on {card}")
+    log(f"phase 19b: {time.perf_counter() - t1:.2f} s on {card}")
+    log(f"phase 19: {time.perf_counter() - t0:.2f} s on {card}")
+    enter("report")
 
     for k in launches:
         launches[k] += (p10[k] + p11[k] + p12[k] + p13[k] + p14[k] + p15[k]
@@ -6764,7 +7214,8 @@ def main() -> int:
             raise AssertionError(f"{r['name']} was not launched on the "
                                  "main path")
         log(f"phase 9: {r['name']} at {r['shape']}: {r['ms']} ms, plain "
-            f"{r['plain_ms']} ms, bound {r['bound_ms']} ms ({r['bound_by']}),"
+            f"{r['plain_ms']} ms at {r['plain_shape']}, bound {r['bound_ms']} "
+            f"ms ({r['bound_by']}),"
             f" {r['launches']} launches on the main path, library none")
         if "sass_per_thread" in r:
             per = " per span" if "geometry" in r else ""
@@ -6786,7 +7237,8 @@ def main() -> int:
             log(f"  {r['ms'] / r['bound_ms']} x its bound")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "plain_shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6798,4 +7250,14 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--edge-client"]:
         sys.exit(edge_client_main(int(sys.argv[2]), int(sys.argv[3]),
                                   sys.argv[4]))
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception as e:
+        import traceback
+
+        line = (f"chip_smoke: phase {PHASE['now']} failed: "
+                f"{type(e).__name__}: {e}")
+        print(line, flush=True)
+        traceback.print_exc()
+        print(line, file=sys.stderr, flush=True)
+        sys.exit(1)

@@ -403,3 +403,38 @@ def test_hub_sessions_load_no_jax_package_module():
                          env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_obs_cli_modules_are_in_the_scan():
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"obs/perf.py", "obs/fleet.py", "obs/__main__.py"} <= names
+
+
+def test_python_m_obs_loads_no_jax_package_module(tmp_path):
+    # every subcommand's module imports at the CLI's start, so one run
+    # covers them all: the CLI, fleet (imported by fleet) and perf
+    slo = tmp_path / "slo.json"
+    slo.write_text('{"max_shed": 0}')
+    code = (
+        "import runpy, sys\n"
+        "from dat_replication_protocol_tpu_torch.obs import fleet, perf\n"
+        "sys.argv = ['obs', 'fleet', sys.argv[1], '--check', sys.argv[2],\n"
+        "            '--polls', '1']\n"
+        "try:\n"
+        "    runpy.run_module('dat_replication_protocol_tpu_torch.obs',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] == 'dat_replication_protocol_tpu')\n"
+        "print(loaded, file=sys.stderr)\n"
+    )
+    target = tmp_path / "stats.jsonl"
+    target.write_text('{"watermarks": {"links": {}}}\n')
+    out = subprocess.run([sys.executable, "-c", code, str(target), str(slo)],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert "fleet-check: 1 check(s), 0 failed" in out.stdout
+    assert out.stderr.strip().splitlines()[-1] == "[]"
