@@ -139,6 +139,10 @@ def _hash_buckets(lens: np.ndarray, dev: torch.device, pipeline_bytes: int,
             sub = idx[c0:c0 + chunk_b]
             with _trace_span("device.dispatch", site=site, items=len(sub),
                              nblocks=nb):
+                # pack is one of this module's two packers (host extents
+                # or device chunks), passed in by its callers: it stages
+                # the chunk's padded messages and returns, no user code
+                # datlint: allow-callback-escape
                 hh, hl = blake2b_packed_kernel(*pack(sub, nb))
             at = torch.as_tensor(sub, device=dev)
             out_hh[at] = hh[:, :4]

@@ -164,6 +164,7 @@ class GossipDriver:
             # keep the socket blocking and bound every recv and send, so
             # a wedged peer surfaces as EAGAIN (an OSError, transport
             # class) and the round is abandoned
+            # datlint: disable=unbounded-join -- SO_RCVTIMEO+SO_SNDTIMEO set below bound every op at the kernel
             conn.settimeout(None)
             tv = struct.pack(
                 "ll", int(self._dial_timeout),

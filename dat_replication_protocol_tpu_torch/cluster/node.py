@@ -228,7 +228,7 @@ class ReplicaNode:
         # the log is WIRE BYTES: repairs arrive as framed batch or record
         # bytes and are absorbed verbatim, so absent and present-empty
         # optionals (and so the canonical digests) survive byte-exactly.
-        # Guarded by self._lock: _wire, _replica, _wire_ver.
+        # datlint: guarded-by(self._lock): self._wire, self._replica, self._wire_ver
         self._wire = bytearray(self._as_wire(records))
         self._replica: Optional[RatelessReplica] = None
         self._wire_ver = 0

@@ -18,8 +18,10 @@
 
 namespace dat {
 
-constexpr uint32_t kGearC1 = 0x9E3779B1u;
-constexpr uint32_t kGearC2 = 0x85EBCA77u;
+// The multipliers are plain hex literals (unsigned by their size) under
+// the Python names, so the wire-constant check holds them to ops/rabin.py.
+constexpr uint32_t GEAR_C1 = 0x9E3779B1;
+constexpr uint32_t GEAR_C2 = 0x85EBCA77;
 constexpr int kGearWindow = 64;  // bytes the state remembers
 constexpr int kGroup = 256;      // bytes per scan group
 constexpr int kPack = 32;        // candidate bits per packed word
@@ -28,7 +30,7 @@ constexpr uint32_t kEmptyWindow = 1u << 30; // B5/B6: window without a hit
 
 __device__ __forceinline__ uint64_t gear_step(uint64_t h, uint32_t byte) {
   const uint32_t v = byte + 1u;
-  const uint64_t g = (static_cast<uint64_t>(v * kGearC2) << 32) | (v * kGearC1);
+  const uint64_t g = (static_cast<uint64_t>(v * GEAR_C2) << 32) | (v * GEAR_C1);
   return (h << 1) + g;
 }
 

@@ -71,7 +71,11 @@ def hub_machine(encode: Callable, decode: Callable, hub, session_key: str,
     :class:`~..hub.HubBusy` through: admission is the HUB's decision,
     and the loop answers it with the threaded leg's rejection record."""
     hub_session = hub.register(session_key, weight, nowait=True)
+    # the package factories themselves: constructors, not user hooks;
+    # they allocate an Encoder/Decoder and return (no I/O, no waits)
+    # datlint: allow-callback-escape
     enc = encode()  # the reply: a plain host encoder (digest payloads)
+    # datlint: allow-callback-escape
     dec = decode(backend="cuda", pipeline=hub_session)
     m = HubMachine(enc, dec, hub_session, session_key)
     dec.watermark(session_key)
@@ -93,7 +97,8 @@ def hub_machine(encode: Callable, decode: Callable, hub, session_key: str,
         })
 
     # runs on the LOOP thread (inside HubSession.poll): enc.change only
-    # appends to the reply queue
+    # appends to the reply queue, never blocks
+    # datlint: allow-callback-escape
     dec.on_digest(on_digest)
 
     def _note_finalized(done) -> None:
@@ -104,7 +109,11 @@ def hub_machine(encode: Callable, decode: Callable, hub, session_key: str,
         done()
 
     dec.finalize(_note_finalized)
+    # error hooks, not user code: destroy() flips state and wakes
+    # watchers, never blocks the loop
+    # datlint: allow-callback-escape
     dec.on_error(lambda _e: enc.destroy())
+    # datlint: allow-callback-escape
     enc.on_error(lambda _e: None if dec.destroyed else dec.destroy())
     return m
 

@@ -99,6 +99,9 @@ class BroadcastLog:
             raise ValueError("retention_budget must be > 0")
         self.retention_budget = int(retention_budget)
         self._lock = threading.Lock()
+        # datlint: guarded-by(self._lock): self._segs, self._seg_offs, self._cursors
+        # datlint: guarded-by(self._lock): self._start, self._end, self._sealed
+        # datlint: guarded-by(self._lock): self._tail, self._tail_off
         # immutable segments as parallel arrays: _seg_offs[i] is the
         # absolute wire offset of _segs[i][0]; bisect finds the segment
         # containing any retained offset in O(log n)

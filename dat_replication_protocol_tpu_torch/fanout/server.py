@@ -227,6 +227,7 @@ class FanoutServer:
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._peers: dict[str, _PeerState] = {}
+        # datlint: guarded-by(self._lock): self._peers
         # shed events queued under the lock, emitted by
         # _drain_shed_events once the holder releases (the event sink
         # can block; blocking under the server lock stalls everyone)
@@ -631,6 +632,7 @@ class FanoutServer:
                     # wire-peer fds are O_NONBLOCK (attach dups the fd
                     # and set_blocking(False)s it): EAGAIN comes
                     # straight back as a short turn, never a stall
+                    # datlint: allow-blocking-reachable(os-io)
                     accepted = os.writev(fd, views[:st.max_iov])
                 except (BlockingIOError, InterruptedError):
                     accepted = 0
@@ -640,6 +642,7 @@ class FanoutServer:
                 # promptness on the attacher — it runs ON the broadcast
                 # turn, and a stalling sink stalls only its own server's
                 # fairness window, which the tests exercise.
+                # datlint: allow-callback-escape
                 accepted = int(st.sink(views))
         except OSError:
             # EPIPE/ECONNRESET/EBADF: the peer's transport died — shed

@@ -385,6 +385,7 @@ class ReplicationHub:
         self._sessions: dict[str, _SessionState] = {}
         # shed events queued under the lock, emitted once it is released
         self._shed_events = _DeferredEmitQueue("hub.shed", self._lock)
+        # datlint: guarded-by(self._lock): self._sessions
         self._next_id = 0
         self._rr = 0
         self._q_items = 0            # queued, not yet in the pipeline

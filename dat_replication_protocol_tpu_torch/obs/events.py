@@ -50,6 +50,9 @@ class EventLog:
         # the sink's I/O serializes on its own lock, so two records never
         # interleave and the ring lock stays cheap
         self._sink_lock = threading.Lock()
+        # datlint: guarded-by(self._lock): self._ring, self._seq, self.dropped
+        # datlint: guarded-by(self._lock): self._sink, self._sink_dead
+        # datlint: guarded-by(self._sink_lock): self.sink_dropped
         self._ring: collections.deque = collections.deque(maxlen=capacity)
         self._seq = 0
         self.dropped = 0  # records overwritten by ring wraparound
@@ -83,6 +86,12 @@ class EventLog:
                 if dead or self._sink_dead:
                     self.sink_dropped += 1
                 else:
+                    # _sink_lock exists to serialize this I/O: one record
+                    # is one uninterleaved JSONL line.  The lock is a leaf
+                    # (nothing is taken inside but _latch_dead's hop), and
+                    # only emitters that attached a sink pay for it; a
+                    # caller holding another lock is not excused.
+                    # datlint: allow-blocking-under-lock
                     self._write_sink(sink, rec)
 
     def _latch_dead(self, sink) -> None:
@@ -98,6 +107,10 @@ class EventLog:
         line = json.dumps(rec, default=repr) + "\n"
         if not isinstance(sink, int):
             try:
+                # a file-object sink runs on the emitting thread: its
+                # promptness is the attacher's (an fd rides the deadline
+                # loop below)
+                # datlint: allow-blocking-reachable(file-io)
                 sink.write(line)
                 flush = getattr(sink, "flush", None)
                 if flush is not None:
@@ -112,6 +125,10 @@ class EventLog:
         try:
             while view:
                 try:
+                    # the EAGAIN/deadline loop below bounds this write on
+                    # a non-blocking fd; a blocking fd parks only the
+                    # emitting thread (the attach_sink contract)
+                    # datlint: allow-blocking-reachable(os-io)
                     n = os.write(sink, view)
                 except InterruptedError:
                     continue

@@ -244,6 +244,11 @@ class Registry:
         with self._lock:
             m = self._metrics.get(name)
             if m is None:
+                # ``cls`` is always one of this module's metric classes
+                # (the three public wrappers are the only callers): a
+                # cheap pure constructor, not user code, so building it
+                # under the registry lock cannot block or re-enter
+                # datlint: allow-blocking-under-lock(callback)
                 m = cls(name, *args, **kwargs)
                 self._metrics[name] = m
             elif type(m) is not cls:

@@ -95,7 +95,7 @@ class PropagationBoard:
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
-        # guarded by self._lock: _links, _frontier, _seconds.
+        # datlint: guarded-by(self._lock): self._links, self._frontier, self._seconds
         # (replica, peer) -> the last exchange of that directed pair
         self._links: dict[tuple, dict] = {}
         # replica -> its last frontier (content digest and count)

@@ -154,9 +154,11 @@ class WatermarkBoard:
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
+        # datlint: guarded-by(self._lock): self._links
         self._links: dict[str, _Link] = {}
         # event-loop lag exporters: loop name -> zero-arg
         # callable returning the loopprof export record
+        # datlint: guarded-by(self._lock): self._loops
         self._loops: dict[str, Callable[[], dict]] = {}
         self._collector_fn = self._collect
 

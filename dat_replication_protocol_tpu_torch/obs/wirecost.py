@@ -78,6 +78,7 @@ class WireCostBoard:
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
+        # datlint: guarded-by(self._lock): self._links, self._amp
         # (link, dir) -> ledger record, stamped on the monotonic clock
         self._links: dict[tuple, dict] = {}
         # link -> {"source": int, "delivered": {peer: int}}

@@ -9,7 +9,10 @@ rebuilt and a stale one is never loaded.
 
 Every pointer and the stream cross as ``ctypes.c_void_p``; every C entry
 returns ``cudaGetLastError()``, which the wrappers check.  A failed build
-raises: nothing here falls back to the plain versions.
+raises: nothing here falls back to the plain versions.  Each ``nvcc`` is
+bounded by :data:`BUILD_TIMEOUT_S`: one that runs past it is killed and
+the build raises, so a first launch never waits without end (it may sit
+on a dispatch loop's path, as the edge's snapshot admission does).
 
 ``SIGNATURES`` maps each source's name to the C entry points it holds and
 their argument types; loading a source binds all of them (B1's
@@ -24,6 +27,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -33,6 +37,9 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
+# seconds one nvcc may take before it is killed; all seven sources build
+# together in about 7 s on an H100 host
+BUILD_TIMEOUT_S = 120.0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,32 +84,49 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _compile(nvcc: str, name: str):
+    """One ``nvcc`` for source ``name``, bounded by
+    :data:`BUILD_TIMEOUT_S`.  Returns ``(error or None, report)``."""
+    out = library_path(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              timeout=BUILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        tmp.unlink(missing_ok=True)
+        return (f"{name}: nvcc ran past {BUILD_TIMEOUT_S} s and was "
+                f"killed"), None
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return f"{name}: nvcc exited {proc.returncode}\n{proc.stdout}", None
+    os.replace(tmp, out)
+    return None, {"seconds": time.perf_counter() - t0, "log": proc.stdout}
+
+
 def build(names=tuple(SIGNATURES)) -> dict[str, dict]:
     """Compile every named source that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns ``{source:
-    {"seconds": s, "log": ptxas report}}`` for the libraries compiled by
-    this call; raises ``RuntimeError`` with the compiler's output on any
-    failure."""
+    source, all started together (the first in the calling thread).
+    Returns ``{source: {"seconds": s, "log": ptxas report}}`` for the
+    libraries compiled by this call; raises ``RuntimeError`` with the
+    compiler's output on any failure, or naming the source whose
+    ``nvcc`` ran past :data:`BUILD_TIMEOUT_S`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [name for name in names if not library_path(name).exists()]
+    if not todo:
+        return {}
     nvcc = _nvcc()
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+    with ThreadPoolExecutor(max_workers=max(1, len(todo) - 1)) as pool:
+        rest = [pool.submit(_compile, nvcc, name) for name in todo[1:]]
+        results = [_compile(nvcc, todo[0])] + [f.result() for f in rest]
     report, failed = {}, []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, out)
-        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    for name, (error, rep) in zip(todo, results):
+        if error is not None:
+            failed.append(error)
+        else:
+            report[name] = rep
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report

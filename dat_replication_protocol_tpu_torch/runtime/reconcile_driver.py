@@ -601,6 +601,7 @@ def responder_machine(replica: RatelessReplica, *,
     dec.change(lambda c, done_cb: (state.note_remote_record(c), done_cb()))
     # error hook, not user code: destroy() only flips state and wakes
     # watchers — it never blocks the registering loop
+    # datlint: allow-callback-escape
     dec.on_error(lambda _e: None if enc.destroyed else enc.destroy())
 
     def finish() -> dict:

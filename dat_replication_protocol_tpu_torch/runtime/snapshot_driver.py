@@ -889,6 +889,7 @@ def snapshot_responder_machine(source, *, device="cuda",
     dec.snapshot(on_snapshot)
     # error hook, not user code: destroy() only flips state and wakes
     # watchers — it never blocks the registering loop
+    # datlint: allow-callback-escape
     dec.on_error(lambda _e: None if enc.destroyed else enc.destroy())
     if link is not None:
         _WATERMARKS.track("snapshot.chunks.sent", link,

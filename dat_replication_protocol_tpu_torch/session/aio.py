@@ -119,6 +119,7 @@ async def send_over_async(
                 if stall_timeout is None:
                     # congestion backpressure, unbounded by the caller's
                     # choice (see stall_timeout)
+                    # datlint: allow-unbounded-wait (opt-in via stall_timeout)
                     await writer.drain()
                 elif not await _drain_with_stall_detect(
                         encoder, writer, stall_timeout):

@@ -18,6 +18,9 @@ The counterpart of ``dat_replication_protocol_tpu/utils/trace.py``:
 ``torch`` is imported at the first :func:`span` or :func:`trace_to`
 call, not at module import.
 """
+# datlint: disable-file=obs-discipline  — this module IS span plumbing:
+# it forwards caller-supplied span names into torch.profiler and the obs
+# span ring by design; its callers are the greppable sites.
 
 from __future__ import annotations
 
@@ -41,17 +44,19 @@ class _NullSpan:
 
 _NULL = _NullSpan()
 
-# (profiler_enabled, record_function), bound at the first span() call
-_bound = None
+# the torch module, bound at the first span() call.  The profiler calls
+# stay attribute calls on it (``torch.profiler.record_function``), so a
+# reader, and the concurrency analysis, sees library calls, not stored
+# callables.
+_torch = None
 
 
 def _bind():
-    global _bound
+    global _torch
     import torch
 
-    _bound = (torch.autograd._profiler_enabled,
-              torch.profiler.record_function)
-    return _bound
+    _torch = torch
+    return torch
 
 
 class _JoinedSpan:
@@ -85,8 +90,9 @@ class _JoinedSpan:
 def span(name: str):
     """Named profiler range, and an obs span while the gate is on; the
     null span when neither a profiler nor the gate is on."""
-    profiling, record_function = _bound or _bind()
-    inner = record_function(name) if profiling() else _NULL
+    torch = _torch or _bind()
+    inner = (torch.profiler.record_function(name)
+             if torch.autograd._profiler_enabled() else _NULL)
     if _OBS.on:
         return _JoinedSpan(name, inner)
     return inner
