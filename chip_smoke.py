@@ -11,7 +11,11 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    from ``csrc/`` with ``nvcc`` (one process per source, all started
    together) and print the card's name and power limit; the bring-up
    and the build run inside ``obs.BackendInitWatchdog`` (telemetry off),
-   whose stage timeline is printed;
+   whose stage timeline is printed.  Beside it, in a thread, ``g++``
+   builds the two host libraries of the native codec route from
+   ``native/`` (``dat_native``, ``dat_fastpath`` against this
+   interpreter's ``Python.h``); their build seconds, the host's ``g++``
+   version and whether ``triton`` imports are printed;
 2. kernels against their plain PyTorch versions on the card, byte-exact:
    both variants of B1 (batched BLAKE2b: one thread or four lanes per
    item) at edge lengths across four buckets and on buckets of 1, 31, 32
@@ -19,11 +23,20 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    item of 8,192 blocks; B2 (Merkle level) on 2^16 random leaves;
 3. the digest session at BASELINE.json configs[2]'s item width (1 MiB
    blobs): the port's Encoder writes 2,048 blobs of 1 MiB and 65,536
-   changes with 40-200-byte values (the blob count is cut from 10k to fit
-   the run's time limit), ``decode(backend="cuda")`` consumes it through
-   ``pipe`` and every digest is held against ``hashlib``; a 256-blob
-   repeat under ``torch.profiler`` gives the device time by kernel and
-   the busy share; then a short session through ``sidecar.run_session``
+   changes with 40-200-byte values, one ``change`` call each (the blob
+   count is cut from 10k to fit the run's time limit),
+   ``decode(backend="cuda")`` consumes it through ``pipe`` on the native
+   route and every digest is held against ``hashlib``; then the same
+   records with each blob's 32 changes as one ``change_many`` run (the
+   same wire, which reaches the decoder's bulk index and C change loop:
+   the C runs and the frames they covered are printed), whose digests
+   must be the first session's; that wire, in the writes the pipe made,
+   into a decoder on each route (``native=True``, ``native=False``),
+   whose digests must be the same again, in order; both sessions at 256
+   blobs in five alternating turns (medians and their ratio); a 256-blob
+   repeat of each session under ``torch.profiler`` gives the device time by
+   kernel and the busy share (the spans' device ranges printed apart,
+   not counted); then a short session through ``sidecar.run_session``
    over an in-memory byte pair;
 4. ``entry()`` at BASELINE.json configs[4]'s width: 2^20 payloads hashed
    and folded to a Merkle root, held against ``root_host``;
@@ -57,7 +70,10 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    [min, max], identical cuts on all routes and no ``fused1p``
    refusal; then ``delta``/``reassemble`` of an edited copy; the chunk
    counts, both roots and the delta must equal the JAX package's
-   (``REFERENCE``, from ``cdc_reference_witness.py``);
+   (``REFERENCE``, from ``cdc_reference_witness.py``); the greedy cut
+   pass (``cdc.greedy``) over the bitmask route's candidates is timed
+   on the native route (``dat_greedy_select``) and the Python route,
+   whose cuts must be equal;
 8. ``chunk_stream`` over BASELINE.json configs[3]'s 10 GiB blob (phase
    7's blob is its first 1.5 GiB) in 1 GiB slabs: the same cut checks,
    and its cuts below 1.5 GiB - 32 KiB equal phase 7's;
@@ -109,10 +125,18 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    ``change_batch`` handler, the same with a per-row ``change`` handler
    over the first quarter of the rows (cut for time), and the per-record
    session) must give the same change digests, in
-   order, on both ends, equal to ``hashlib``.  Then replay rows/s of each
-   wire, ``encode_change_columns`` rows/s, ``canonical_change_extents``
-   seconds, leaves + root ms with B1's and B2's device ms inside it,
-   ``decode_batch_device`` ms, the sessions' rows/s and the wire bytes.
+   order, on both ends, equal to ``hashlib``.  All of that runs on the
+   native codec route; the three wires also replay on the Python route
+   (``native=False``): frame index, columns field by field and every
+   encoder's bytes must equal the native route's, and the
+   ``change_batch`` session runs on the Python route too, over the first
+   quarter of the rows (cut for time; the per-row sessions, the phase's
+   dearest part, run on the native route only).
+   Then rows/s of split, decode and encode on each route, replay rows/s
+   of each wire, ``encode_change_columns`` rows/s,
+   ``canonical_change_extents`` seconds, leaves + root ms with B1's and
+   B2's device ms inside it, ``decode_batch_device`` ms, the sessions'
+   rows/s and the wire bytes.
 
 12. the streaming hasher and the mesh.  12a: ``Blake2bStream`` over a
    256 MiB stream made from the seed, in 4 MiB segments fed in 1 MiB
@@ -155,7 +179,9 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    site's calls its wrapper's launches, and both ends' frame tags must
    tile the wire; then the host split of the session (seconds inside
    ``device.dispatch``, inside ``device.deliver``, the rest) and the
-   device gauges.  One more gated run under ``torch.profiler``
+   device gauges; then phase 3's ``change_many`` session at 256 blobs,
+   gated, under the same checks, with one ``decoder.frame.run`` tag for
+   each C change run.  One more gated run under ``torch.profiler``
    (``utils.trace.trace_to``): the same counters, and every
    ``utils.trace.span`` name among the profiler's events.  13c: a gated
    ``content_address`` of phase 7's blob on ``fused1p``, twice (summary
@@ -420,6 +446,7 @@ NOT_COUNTS = ("b1_blocks", "b1u_lanes")
 
 # phase 3 shape: 32 changes, then one blob, 2,048 times
 N_BLOBS = 2048
+P3_TURNS = 5  # turns of phase 3's two sessions at 256 blobs
 BLOB_BYTES = MIB
 CHANGES_PER_BLOB = 32
 ENTRY_LEAVES = 1 << 20
@@ -432,12 +459,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-# the phase main() is in, for the failure line
-PHASE = {"now": "1"}
+# the phase main() is in, for the failure line, and the run's start
+PHASE = {"now": "1", "t0": time.perf_counter()}
 
 
 def enter(phase: str) -> None:
     PHASE["now"] = phase
+    log(f"[{time.perf_counter() - PHASE['t0']:.1f} s] phase {phase}")
 
 
 def card_line() -> str:
@@ -507,6 +535,19 @@ def b1_buckets(session, side, ent, cdc, streamed) -> dict:
             "chunk_stream": sum(streamed["b1_blocks"].values())}
 
 
+def merged_launches(a: dict, b: dict) -> dict:
+    """Two runs' launch counts, summed key by key (and bucket by bucket
+    in the ``NOT_COUNTS`` breakdowns)."""
+    out = {}
+    for k, n in a.items():
+        if isinstance(n, dict):
+            out[k] = {x: n.get(x, 0) + b[k].get(x, 0)
+                      for x in n.keys() | b[k].keys()}
+        else:
+            out[k] = n + b[k]
+    return out
+
+
 def sync(device) -> None:
     import torch
 
@@ -528,6 +569,35 @@ def max_abs_err(got, want) -> int:
         d = (a.to(torch.int64) - b.to(torch.int64)).abs().max()
         diff = max(diff, int(d))
     return diff
+
+
+# ---------------------------------------------------------------------------
+# phase 1: the host libraries of the native codec route
+# ---------------------------------------------------------------------------
+
+
+def build_host_libraries() -> dict:
+    """Build ``native/dat_native.cpp`` and ``native/dat_fastpath.cpp``
+    with ``g++`` from the checkout and load both; the host's ``g++``
+    version, whether ``Python.h`` and ``triton`` are there."""
+    import importlib.util
+    import sysconfig
+
+    from dat_replication_protocol_tpu_torch.runtime import fastpath, native
+
+    gxx = subprocess.run(["g++", "--version"], stdout=subprocess.PIPE,
+                         text=True, timeout=60).stdout.splitlines()[0]
+    out = {"gxx": gxx}
+    for name, mod in (("dat_native", native), ("dat_fastpath", fastpath)):
+        rep = mod.build()
+        out[name] = (f"built in {rep['seconds']} s" if rep
+                     else "found built")
+    native.get_lib()
+    fastpath.get()
+    include = sysconfig.get_paths()["include"]
+    out["python_h"] = os.path.isfile(os.path.join(include, "Python.h"))
+    out["triton"] = importlib.util.find_spec("triton") is not None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -626,16 +696,44 @@ def make_session(n_blobs, blob_bytes, changes_per_blob, seed=SEED):
 
 
 def run_session(device, n_blobs=N_BLOBS, blob_bytes=BLOB_BYTES,
-                changes_per_blob=CHANGES_PER_BLOB) -> dict:
+                changes_per_blob=CHANGES_PER_BLOB, bulk=False,
+                keep_wire=False, inputs=None) -> dict:
+    """Phase 3's session on the decoder's native codec route; the C
+    change runs are counted with the frames they covered.  Each change
+    is one ``change()`` call (the session of every PR before the native
+    route), or with ``bulk`` each blob's changes are one ``change_many``
+    run, which reaches the decoder as one write and so its C dispatch
+    loop.  With ``keep_wire`` the decoder's writes are kept
+    (``"wire"``); ``inputs`` reuses an earlier session's blobs and
+    changes."""
     import dat_replication_protocol_tpu_torch as protocol
     from dat_replication_protocol_tpu_torch.backend.cuda_backend import (
         DEFAULT_STREAM_THRESHOLD)
 
     if blob_bytes >= DEFAULT_STREAM_THRESHOLD:
         raise ValueError("phase 3 blobs must take the batch path")
-    blobs, changes = make_session(n_blobs, blob_bytes, changes_per_blob)
+    blobs, changes = inputs or make_session(n_blobs, blob_bytes,
+                                            changes_per_blob)
     enc = protocol.encode()
     dec = protocol.decode(backend="cuda", device=device)
+    wire = []
+    if keep_wire:
+        write = dec.write
+
+        def kept(data, *args):
+            wire.append(data)
+            return write(data, *args)
+
+        dec.write = kept
+    runs = {"runs": 0, "frames": 0}
+    note_run = dec._note_change_run
+
+    def counted(st, f0, k):
+        runs["runs"] += 1
+        runs["frames"] += k
+        note_run(st, f0, k)
+
+    dec._note_change_run = counted
     got = {"change": [], "blob": []}
     at_finalize = []
     dec.on_digest(lambda kind, seq, d: got[kind].append((seq, d)))
@@ -647,8 +745,13 @@ def run_session(device, n_blobs=N_BLOBS, blob_bytes=BLOB_BYTES,
     t0 = time.perf_counter()
     protocol.pipe(enc, dec)
     for b in range(n_blobs):
-        for c in changes[b * changes_per_blob:(b + 1) * changes_per_blob]:
-            enc.change(c)
+        run = changes[b * changes_per_blob:(b + 1) * changes_per_blob]
+        if bulk:
+            # the same wire bytes as one change() a record
+            enc.change_many(run)
+        else:
+            for c in run:
+                enc.change(c)
         enc.blob(blob_bytes).end(blobs[b * blob_bytes:(b + 1) * blob_bytes])
     enc.finalize()
     sync(device)
@@ -677,34 +780,76 @@ def run_session(device, n_blobs=N_BLOBS, blob_bytes=BLOB_BYTES,
             raise AssertionError(f"blob {b} digest differs from hashlib")
     if launches["blake2b"] == 0:
         raise AssertionError("phase 3 never launched B1")
+    if bulk and runs["runs"] == 0:
+        raise AssertionError("phase 3's change_many session ran no C "
+                             "change run")
     return {"seconds": seconds, "wire_bytes": dec.bytes,
             "enc_bytes": enc.bytes,
             "gib_per_s": dec.bytes / seconds / (1 << 30),
             "changes": len(changes), "blobs": n_blobs,
             "dispatches": pipeline.dispatches, "launches": launches,
+            "c_runs": runs, "digests": got, "wire": wire,
             "inputs": (blobs, changes)}
 
 
-def profile_session(device, n_blobs=256) -> dict:
+def replay_session_wire(device, session: dict, native: bool) -> dict:
+    """Phase 3's recorded wire, in its recorded writes, into a digest
+    decoder on the native or the Python codec route (``native=False``):
+    its digests must be the recording session's, in order."""
+    import dat_replication_protocol_tpu_torch as protocol
+
+    route = "native" if native else "Python"
+    dec = protocol.decode(backend="cuda", device=device, native=native)
+    got = {"change": [], "blob": []}
+    dec.on_digest(lambda kind, seq, d: got[kind].append((seq, d)))
+    dec.change(lambda c, done: done())
+    sync(device)
+    t0 = time.perf_counter()
+    for data in session["wire"]:
+        dec.write(data)
+    dec.end()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    if not dec.finished or dec.bytes != session["wire_bytes"]:
+        raise AssertionError(f"phase 3's wire did not finish on the {route} "
+                             f"route")
+    if got != session["digests"]:
+        raise AssertionError(f"phase 3's digests differ on the {route} "
+                             f"route's decode of the recorded wire")
+    return {"seconds": seconds,
+            "gib_per_s": dec.bytes / seconds / (1 << 30),
+            "writes": len(session["wire"])}
+
+
+def profile_session(device, n_blobs=256, bulk=False) -> dict:
     """Device time by kernel and copy over a shorter session, from
     ``torch.profiler``; the busy share is their sum over the session's
-    host-clock seconds (one stream, so nothing overlaps)."""
+    host-clock seconds (one stream, so nothing overlaps).  The ranges
+    that ``record_function`` spans leave on the device's timeline
+    (``digest.dispatch``) enclose kernels counted already: they are
+    kept apart (``"annotations"``), as ``torch.profiler``'s own totals
+    keep them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        session = run_session(device, n_blobs=n_blobs)
+        session = run_session(device, n_blobs=n_blobs, bulk=bulk)
     # only events that ran on the card: host ops (aten::copy_) and
     # runtime calls (cudaLaunchKernel) also carry their kernels' time
-    rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+    rows, notes = [], []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            row = (e.self_device_time_total / 1e3, e.key, e.count)
+            (notes if getattr(e, "is_user_annotation", False)
+             else rows).append(row)
     if not rows:
         raise AssertionError("the profiled session shows no device time")
     busy_s = sum(ms for ms, _, _ in rows) / 1e3
     return {"seconds": session["seconds"], "busy_share":
-            busy_s / session["seconds"], "rows": rows}
+            busy_s / session["seconds"], "rows": sorted(rows, reverse=True),
+            "annotations": sorted(notes, reverse=True),
+            "c_runs": session["c_runs"]}
 
 
 def run_sidecar(device, n_changes=16, n_blobs=4, blob_bytes=64 << 10) -> dict:
@@ -1303,8 +1448,9 @@ def edit_blob(blob: np.ndarray, seed: int = SEED + 21) -> np.ndarray:
 
 
 class GreedyTimer:
-    """Adds up the seconds spent in the Python greedy pass while active
-    (``_greedy_select`` is looked up by name at each call)."""
+    """Adds up the seconds spent in the greedy pass while active
+    (``_greedy_select`` is looked up by name at each call) and keeps the
+    first call's arguments."""
 
     def __enter__(self):
         from dat_replication_protocol_tpu_torch.ops import (fused_cdc_hash,
@@ -1312,9 +1458,12 @@ class GreedyTimer:
 
         self.modules = (rabin, fused_cdc_hash)
         self.seconds = 0.0
+        self.first = None
         fn = self.saved = rabin._greedy_select
 
         def timed(*args, **kwargs):
+            if self.first is None:
+                self.first = args
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
@@ -1395,6 +1544,7 @@ def run_content(device, blob: np.ndarray) -> dict:
     if s.root != merkle.root_host(s.digests):
         raise AssertionError("content_address root differs from root_host")
     checked = check_cuts(blob, s.cuts, "phase 7")
+    greedy_routes = time_greedy_routes(greedy.first, s.cuts)
 
     # the JAX package's figures for this blob and edit
     # (cdc_reference_witness.py)
@@ -1419,7 +1569,26 @@ def run_content(device, blob: np.ndarray) -> dict:
         raise AssertionError("reassemble did not rebuild the edited bytes")
     return {"summary": s, "seconds": {r: t for r, (_, t) in results.items()},
             "greedy_s": greedy.seconds / len(results), "checked": checked,
-            "delta": len(need), "nchunks_new": new.nchunks}
+            "delta": len(need), "nchunks_new": new.nchunks,
+            "greedy_routes": greedy_routes}
+
+
+def time_greedy_routes(args, cuts) -> dict:
+    """The greedy cut pass (``cdc.greedy``) over the first route's
+    candidates on each codec route: seconds, candidates and cuts; the
+    cuts must be equal on both and to ``content_address``'s."""
+    from dat_replication_protocol_tpu_torch.ops import rabin
+
+    out = {"candidates": len(args[0])}
+    for name, native in (("native", True), ("python", False)):
+        t0 = time.perf_counter()
+        got = rabin._greedy_select(*args, native=native)
+        out[name] = time.perf_counter() - t0
+        if got != list(cuts):
+            raise AssertionError(f"the greedy pass on the {name} route "
+                                 f"differs from content_address's cuts")
+    out["cuts"] = len(cuts)
+    return out
 
 
 def run_chunk_stream(device, blob: np.ndarray, content_cuts) -> dict:
@@ -2198,6 +2367,10 @@ SESSION_ROWS = REPLAY_BLOCK * REPLAY_REPS  # rows of each digest session
 # the per-row handler's session: a quarter of them (all took 18-23 s of the
 # host, H100 80GB HBM3, 700 W; it checks a delivery path, not a metric)
 PER_ROW_ROWS = SESSION_ROWS // 4
+# the change_batch session on the Python codec route: a quarter too (the
+# full session took 23.4 s, H100 80GB HBM3, 700 W, within 6% of the
+# native route's; it checks the route's deliveries and digests)
+PY_BATCH_ROWS = SESSION_ROWS // 4
 SESSION_BLOBS = 4
 
 
@@ -2240,18 +2413,18 @@ def mixed_wire(wire: bytes, cols, frames) -> bytes:
 
 
 def replay_session(device, records, negotiated: bool, batch_handler: bool,
-                   n_rows: int) -> dict:
+                   n_rows: int, native: bool = True) -> dict:
     """A digest session of ``n_rows`` rows (``records`` repeated) with
     SESSION_BLOBS blobs opened mid-run, through ``pipe`` into
-    ``decode(backend="cuda")``: the encoder negotiated to
-    CAP_CHANGE_BATCH with the default BatchPolicy, or not; the decoder
+    ``decode(backend="cuda")`` on one codec route: the encoder negotiated
+    to CAP_CHANGE_BATCH with the default BatchPolicy, or not; the decoder
     with a ``change_batch`` handler or a per-row ``change`` one."""
     import dat_replication_protocol_tpu_torch as protocol
 
     enc = protocol.encode(backend="cuda", device=device)
     if negotiated:
         enc.negotiate(protocol.CAP_CHANGE_BATCH)
-    dec = protocol.decode(backend="cuda", device=device)
+    dec = protocol.decode(backend="cuda", device=device, native=native)
     sent, got = [], []
     rows = 0
 
@@ -2305,6 +2478,63 @@ def replay_session(device, records, negotiated: bool, batch_handler: bool,
             "blobs": [d for kind, _, d in got if kind == "blob"]}
 
 
+def replay_routes(wires: dict, cols, frames, replayed: dict) -> dict:
+    """The three wires on the Python codec route against the native
+    route's results (``cols``/``frames`` of the per-record wire,
+    ``replayed`` of the others): frame index, columns field by field and
+    every encoder's bytes equal.  Seconds of split, decode and encode of
+    the per-record wire on each route, and of the Python route's replays
+    and batch encode."""
+    from dat_replication_protocol_tpu_torch import weights
+    from dat_replication_protocol_tpu_torch.runtime import replay
+
+    wire = wires["per-record"]
+    want_of = dict(replayed, **{"per-record": (cols, frames)})
+    out = {}
+    for route, native in (("native", True), ("python", False)):
+        t = {}
+        t0 = time.perf_counter()
+        idx = replay.split_frames(np.frombuffer(wire, np.uint8),
+                                  native=native)
+        t["split"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dcols = replay.decode_change_columns(idx.buf, idx.starts, idx.lens,
+                                             native)
+        t["decode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        enc = replay.encode_change_columns(dcols, native)
+        t["encode"] = time.perf_counter() - t0
+        if enc != wire:
+            raise AssertionError(f"encode_change_columns on the {route} "
+                                 "route differs from the wire")
+        out[route] = t
+    t = out["python"]
+    for what, w in wires.items():
+        t0 = time.perf_counter()
+        got_cols, got_idx = replay.replay_log(np.frombuffer(w, np.uint8),
+                                              native=False)
+        t[f"replay {what}"] = time.perf_counter() - t0
+        want_cols, want_idx = want_of[what]
+        for f in ("starts", "lens", "ids"):
+            if not np.array_equal(getattr(got_idx, f), getattr(want_idx, f)):
+                raise AssertionError(f"the {what} wire's frame {f} differ "
+                                     "by route")
+        got_np = weights.columns_to_numpy(got_cols)
+        for f, a in weights.columns_to_numpy(want_cols).items():
+            if not np.array_equal(np.asarray(got_np[f]), np.asarray(a)):
+                raise AssertionError(f"the {what} wire's column {f} differs "
+                                     "by route")
+    t0 = time.perf_counter()
+    if replay.encode_batch_frames(cols, REPLAY_BATCH_ROWS,
+                                  native=False) != wires["batch"]:
+        raise AssertionError("encode_batch_frames differs by route")
+    t["encode_batch"] = time.perf_counter() - t0
+    ext = replay.canonical_change_extents(replayed["batch"][0], native=False)
+    if ext[0].tobytes() != wire:
+        raise AssertionError("canonical_change_extents differs by route")
+    return out
+
+
 def run_replay(device, card: str) -> dict:
     """Phase 11's main path, once: BASELINE configs[1] at full size."""
     import torch
@@ -2348,6 +2578,9 @@ def run_replay(device, card: str) -> dict:
     out["canonical_s"] = time.perf_counter() - t0
     if ext[0].tobytes() != wire:
         raise AssertionError("canonical extents differ from the wire")
+    out["routes"] = replay_routes(
+        {"per-record": wire, "batch": bwire, "mixed": mwire}, cols, frames,
+        replayed)
 
     reset_counters()
     t0 = time.perf_counter()
@@ -2365,12 +2598,14 @@ def run_replay(device, card: str) -> dict:
     out["decode_device_ms"] = (time.perf_counter() - t0) * 1e3
     out["batch_frames"] = len(dev_batches)
     sessions = {}
-    for name, negotiated, whole, n_rows in (
-            ("batch, change_batch", True, True, SESSION_ROWS),
-            ("batch, per-row change", True, False, PER_ROW_ROWS),
-            ("per-record", False, False, SESSION_ROWS)):
+    for name, negotiated, whole, n_rows, native in (
+            ("batch, change_batch", True, True, SESSION_ROWS, True),
+            ("batch, change_batch, Python route", True, True, PY_BATCH_ROWS,
+             False),
+            ("batch, per-row change", True, False, PER_ROW_ROWS, True),
+            ("per-record", False, False, SESSION_ROWS, True)):
         sessions[name] = replay_session(device, records, negotiated, whole,
-                                        n_rows)
+                                        n_rows, native)
     out["launches"] = read_counters()
     if min(out["launches"]["blake2b"], out["launches"]["merkle_level"]) == 0:
         raise AssertionError(f"phase 11 launches {out['launches']}")
@@ -3011,9 +3246,12 @@ def check_session_counters(s: dict, what: str) -> dict:
 
 
 def check_tiles(records: list, name: str, total: int) -> int:
-    """``name``'s frame tags, sorted by offset, must tile [0, total)."""
+    """``name``'s frame tags, sorted by offset, must tile [0, total); a
+    decoder's ``decoder.frame.run`` (one tag for a C change run) tiles
+    with its ``decoder.frame`` tags."""
+    names = (name, name + ".run")
     frames = sorted((r["fields"]["offset"], r["fields"]["wire_len"])
-                    for r in records if r.get("span") == name)
+                    for r in records if r.get("span") in names)
     end = 0
     for off, wire_len in frames:
         if off != end:
@@ -3093,6 +3331,31 @@ def run_telemetry(device, content_blob, content_summary,
     ring = obs.export_chrome_trace(os.path.join(out_dir, "obs_trace.json"))
     with open(ring, encoding="utf-8") as f:
         out["ring_trace"] = (ring, len(json.load(f)["traceEvents"]))
+    # 13b, continued: the change_many session, whose change runs go
+    # through the decoder's C loop, under the same checks
+    obs_reset()
+    obs.enable()
+    try:
+        s = run_session(device, n_blobs, blob_bytes, bulk=True)
+    finally:
+        obs.disable()
+    add(s["launches"])
+    check_session_counters(s, "phase 13b (change_many)")
+    check_sites(s["launches"], "phase 13b (change_many)")
+    recs = obs.SPANS.spans()
+    if obs.SPANS.dropped:
+        raise AssertionError(f"phase 13b (change_many): {obs.SPANS.dropped} "
+                             f"span records dropped")
+    out["tags_bulk"] = {
+        name: check_tiles(recs, name, s["wire_bytes"])
+        for name in ("encoder.frame", "decoder.frame")}
+    out["tags_bulk"]["decoder.frame.run"] = sum(
+        r.get("span") == "decoder.frame.run" for r in recs)
+    if out["tags_bulk"]["decoder.frame.run"] != s["c_runs"]["runs"]:
+        raise AssertionError(f"phase 13b (change_many): "
+                             f"{out['tags_bulk']['decoder.frame.run']} "
+                             f"decoder.frame.run tags for "
+                             f"{s['c_runs']['runs']} C change runs")
     obs.SPANS.resize(tracing_capacity)
 
     # 13b, continued: the same session under torch.profiler
@@ -4125,9 +4388,16 @@ def check_replies(out: dict, want: list, what: str) -> None:
 def check_stats_lines(records: list, live: set, what: str) -> int:
     """Every record of an arm: the hub's session count is its breakdown's
     size, and each session it names is one of the arm's connections
-    (``c<n>:127.0.0.1:<client port>``)."""
+    (``c<n>:127.0.0.1:<client port>``).  The sidecar starts its emitter
+    before it builds the hub, so records before the first with a
+    ``hub`` section have none to check; a later record without one
+    fails."""
     named = 0
+    seen_hub = False
     for rec in records:
+        if "hub" not in rec and not seen_hub:
+            continue  # emitted before the hub was installed
+        seen_hub = True
         sessions = rec.get("sessions", {})
         if rec["hub"]["sessions"] != len(sessions):
             raise AssertionError(f"{what}: hub {rec['hub']} vs sessions "
@@ -4139,6 +4409,8 @@ def check_stats_lines(records: list, live: set, what: str) -> int:
                 raise AssertionError(f"{what}: stats name {key!r}, not one "
                                      f"of the arm's connections")
         named += len(sessions)
+    if not seen_hub:
+        raise AssertionError(f"{what}: no stats record carried the hub")
     return named
 
 
@@ -6425,16 +6697,25 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    with BackendInitWatchdog(deadline_s=INIT_DEADLINE_S) as wd:
-        wd.stage("platform_probe")
-        name = torch.cuda.get_device_name(0)
-        wd.stage("first_device_call")
-        torch.ones(1, device=device).sum().item()
-        wd.stage("first_compile")
-        t0 = time.perf_counter()
-        report = _build.build()
-    log(f"phase 1: built {sorted(report)} in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host_build = pool.submit(build_host_libraries)
+        with BackendInitWatchdog(deadline_s=INIT_DEADLINE_S) as wd:
+            wd.stage("platform_probe")
+            name = torch.cuda.get_device_name(0)
+            wd.stage("first_device_call")
+            torch.ones(1, device=device).sum().item()
+            wd.stage("first_compile")
+            t0 = time.perf_counter()
+            report = _build.build()
+        log(f"phase 1: built {sorted(report)} in "
+            f"{time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+        host = host_build.result()
+    log(f"phase 1: host libraries of the native codec route: dat_native "
+        f"{host['dat_native']}, dat_fastpath {host['dat_fastpath']} "
+        f"({host['gxx']}; Python.h {host['python_h']}, triton importable "
+        f"{host['triton']})")
     log(f"phase 1: init watchdog on {name}: stages {wd.stages} (name, s "
         f"since start), done at {wd.elapsed_s:.3f} s of a "
         f"{INIT_DEADLINE_S} s deadline, stuck {wd.fired}")
@@ -6452,15 +6733,58 @@ def main() -> int:
     session = run_session(device)
     log(f"phase 3: session of {session['blobs']} x 1 MiB blobs (cut from "
         f"BASELINE configs[2]'s 10k to fit the time limit) and "
-        f"{session['changes']} changes: {session['wire_bytes']} wire bytes "
-        f"in {session['seconds']} s = {session['gib_per_s']} GiB/s end to "
+        f"{session['changes']} changes, one change() call each (the "
+        f"session of PRs 1-17): {session['wire_bytes']} wire bytes in "
+        f"{session['seconds']} s = {session['gib_per_s']} GiB/s end to "
         f"end, {session['dispatches']} dispatches, launches "
-        f"{session['launches']}")
-    prof = profile_session(device)
-    log(f"phase 3: profiled session of 256 blobs: {prof['seconds']} s, "
-        f"device busy share {prof['busy_share']}")
-    for ms, key, count in prof["rows"][:6]:
-        log(f"  {ms} ms device in {count} x {key[:90]}")
+        f"{session['launches']}; {session['c_runs']['runs']} C change runs "
+        f"covered {session['c_runs']['frames']} frames; on {card}")
+    bulk = run_session(device, bulk=True, keep_wire=True,
+                       inputs=session["inputs"])
+    log(f"phase 3: the same records, each blob's 32 changes as one "
+        f"change_many run: {bulk['wire_bytes']} wire bytes in "
+        f"{bulk['seconds']} s = {bulk['gib_per_s']} GiB/s end to end, "
+        f"{bulk['dispatches']} dispatches; native codec route: "
+        f"{bulk['c_runs']['runs']} C change runs covered "
+        f"{bulk['c_runs']['frames']} frames; on {card}")
+    if bulk["digests"] != session["digests"]:
+        raise AssertionError("phase 3's digests differ between the change() "
+                             "and the change_many session")
+    del session["digests"]
+    for native in (True, False):
+        again = replay_session_wire(device, bulk, native)
+        log(f"phase 3: the change_many session's wire ({again['writes']} "
+            f"writes as the pipe made them) into decode(backend='cuda', "
+            f"native={native}): {again['seconds']} s = "
+            f"{again['gib_per_s']} GiB/s, digests == the session's, in "
+            f"order; on {card}")
+    session["launches"] = merged_launches(session["launches"],
+                                          bulk["launches"])
+    del bulk
+    # the two sessions in turns at 256 blobs, neither keeping its writes,
+    # so host drift and a session's leftovers fall on both alike
+    turns = {False: [], True: []}
+    for i in range(P3_TURNS):
+        for arm in ((False, True) if i % 2 == 0 else (True, False)):
+            run = run_session(device, n_blobs=P13_BLOBS, bulk=arm)
+            turns[arm].append(run["seconds"])
+            session["launches"] = merged_launches(session["launches"],
+                                                  run["launches"])
+    one, many = (float(np.median(turns[a])) for a in (False, True))
+    log(f"phase 3: {P3_TURNS} turns at {P13_BLOBS} blobs, change() / "
+        f"change_many: {turns[False]} / {turns[True]} s; medians {one} / "
+        f"{many} s, change_many at {many / one} x; on {card}")
+    for arm in (False, True):
+        prof = profile_session(device, bulk=arm)
+        log(f"phase 3: profiled {'change_many' if arm else 'change()'} "
+            f"session of 256 blobs: {prof['seconds']} s, device busy share "
+            f"{prof['busy_share']} (kernels and copies), "
+            f"{prof['c_runs']['runs']} C change runs; on {card}")
+        for ms, key, count in prof["rows"][:6]:
+            log(f"  {ms} ms device in {count} x {key[:90]}")
+        for ms, key, count in prof["annotations"]:
+            log(f"  not counted: {ms} ms device in {count} x {key[:90]} "
+                f"(a span's range around kernels above)")
     side = run_sidecar(device)
     log(f"phase 3: sidecar.run_session replied {side['digests']} digests, "
         f"launches {side['launches']}")
@@ -6503,6 +6827,10 @@ def main() -> int:
         f"{content['delta']} of {content['nchunks_new']} chunks, reassembled "
         f"exactly; chunk counts, delta and roots == the JAX package's; "
         f"launches {cdc}")
+    g = content["greedy_routes"]
+    log(f"phase 7: cdc.greedy over {g['candidates']} candidates -> "
+        f"{g['cuts']} cuts: native route {g['native']} s, Python route "
+        f"{g['python']} s, equal cuts; on {card}")
     for name, n in cdc.items():
         if n == 0 and name not in B1_VARIANTS and name != "blake2b_update":
             raise AssertionError(f"phase 7 never launched {name}")
@@ -6605,6 +6933,12 @@ def main() -> int:
         f"{rep['replay_s']}); encode_change_columns {n / rep['encode_columns_s']}"
         f" rows/s; encode_batch_frames {rep['encode_batch_s']} s; "
         f"canonical_change_extents {rep['canonical_s']} s; on {card}")
+    for route, t in rep["routes"].items():
+        log(f"phase 11: {route} codec route, per-record wire: split "
+            f"{n / t['split']} rows/s, decode {n / t['decode']} rows/s, "
+            f"encode {n / t['encode']} rows/s (s {t}); on {card}")
+    log("phase 11: the Python route's frame index, columns and encoders' "
+        "bytes == the native route's on all three wires")
     rt = time_replay(device, rep)
     log(f"phase 11: leaves + root {rep['leaves_root_ms']} ms host clock, of "
         f"it B1 {rt['b1_ms']} ms and B2 {rt['b2_ms']} ms on the device (CUDA "
@@ -6716,6 +7050,9 @@ def main() -> int:
         f"({sp['dispatches']} dispatches), device.deliver {sp['deliver_s']} "
         f"s, rest (wire parse, framing, Python) {sp['rest_s']} s; gauges "
         f"after it {tel['gauges']}; on {card}")
+    log(f"phase 13: the gated change_many session: counters == its truth, "
+        f"sites == launches, frame tags {tel['tags_bulk']} (a C change run "
+        f"is one decoder.frame.run tag) tile the wire at both ends")
     log(f"phase 13: the same session under torch.profiler in "
         f"{tel['profiled']['seconds']} s: counters == its truth, sites == "
         f"launches, utils.trace spans {tel['profiled']['spans']} all among "

@@ -36,12 +36,6 @@ because a refactor renamed its anchors (the cursor-coherence lesson).
 Escapes: the standard ``# datlint: disable=wire-dispatch-parity`` on
 the constant's definition line, next to a written justification (e.g.
 a type that is deliberately scanner-only during a migration window).
-
-One difference from the JAX package's rule: the bulk-index surface is
-checked only where the project defines ``_run_indexed``.  The port's
-decoder has no native frame-index route yet, so there is no second
-dispatch to hold to the scanner; a missing scanner or accounting
-anchor stays a loud finding.
 """
 
 from __future__ import annotations
@@ -146,7 +140,7 @@ class WireDispatchParity:
             if a is not None and accounting is None:
                 accounting = (other, a)
 
-        for surface, fn_name in ((scanner, _SCANNER),
+        for surface, fn_name in ((scanner, _SCANNER), (bulk, _BULK),
                                  (accounting, _ACCOUNTING)):
             if surface is None:
                 yield Finding(
@@ -158,7 +152,7 @@ class WireDispatchParity:
                         f"re-point the rule at the renamed surface"
                     ),
                 )
-        if scanner is None or accounting is None:
+        if scanner is None or bulk is None or accounting is None:
             return
 
         for tname, line in sorted(types.items(), key=lambda kv: kv[1]):
@@ -179,7 +173,7 @@ class WireDispatchParity:
             missing = []
             if tname not in scanner[1]:
                 missing.append(f"streaming scanner ({_SCANNER})")
-            if bulk is not None and tname not in bulk[1]:
+            if tname not in bulk[1]:
                 missing.append(f"bulk-index dispatch ({_BULK})")
             if not any(kind in n or token in n for n in accounting[1]):
                 missing.append(

@@ -257,8 +257,8 @@ class CudaDecoder(_DigestTaps, Decoder):
 
     def __init__(self, pipeline: DigestPipeline | None = None,
                  stream_threshold: int = DEFAULT_STREAM_THRESHOLD,
-                 device="cuda"):
-        super().__init__()
+                 device="cuda", native: bool = True):
+        super().__init__(native=native)
         self._init_digests(pipeline, stream_threshold, device)
         self._blob_parts: dict[int, list[bytes]] = {}
         self._blob_streams: dict[int, _HostStream] = {}
@@ -277,6 +277,25 @@ class CudaDecoder(_DigestTaps, Decoder):
         self._change_seq += 1
         super()._deliver_change(change, payload)
 
+    # ride the decoder's C change loop: the only per-change addition here
+    # is the payload digest, which the loop hands over through
+    # _note_change_payloads after each run
+    _bulk_payload_sink = True
+
+    def _payload_sink_active(self) -> bool:
+        # collect payloads only when someone listens for digests;
+        # sequence numbers advance either way
+        return bool(self._digest_cbs)
+
+    def _note_change_payloads(self, payloads, count: int) -> None:
+        # one C run's payloads in delivery order: submitted in seq order,
+        # so digests keep the order the per-frame route gives them
+        if payloads:
+            submit, emit = self._pipeline.submit, self._emit_change_digest
+            for seq, payload in enumerate(payloads, self._change_seq):
+                submit(payload, emit, seq)
+        self._change_seq += count
+
     def _note_change_batch(self, cols, n: int) -> None:
         # every row's digest is owed at acceptance, before any row reaches
         # a handler: the canonical per-record encodings, in row order
@@ -286,8 +305,9 @@ class CudaDecoder(_DigestTaps, Decoder):
         from ..runtime.replay import canonical_change_payloads
 
         submit, emit = self._pipeline.submit, self._emit_change_digest
-        for seq, payload in enumerate(canonical_change_payloads(cols),
-                                      self._change_seq):
+        for seq, payload in enumerate(
+                canonical_change_payloads(cols, self._native),
+                self._change_seq):
             submit(payload, emit, seq)
         self._change_seq += n
 

@@ -483,14 +483,28 @@ def candidates_words(words, nbytes: int, avg_bits: int = 13,
 
 
 def _greedy_select(candidates, length: int, min_size: int,
-                   max_size: int) -> list[int]:
+                   max_size: int, native: bool = True) -> list[int]:
     """Sequential min/max pass over sorted candidate offsets.
 
     Returns chunk end-offsets (exclusive), ending with ``length``: a cut
     at the first candidate at least ``min_size`` past the previous cut,
     or a forced cut ``max_size`` past it when none lands by then.  The
-    reference runs this loop in C; the port runs the Python loop.
+    pass is sequential (each cut moves the horizon), so the native route
+    runs it as one C loop (``dat_greedy_select``, ``runtime/native.py``);
+    ``native=False`` runs :func:`_greedy_select_py`, its plain version.
     """
+    if not native:
+        return _greedy_select_py(candidates, length, min_size, max_size)
+    from ..runtime import native as _native
+
+    with span("cdc.greedy"):
+        cuts = _native.greedy_select(candidates, length, min_size, max_size)
+    return cuts.tolist()
+
+
+def _greedy_select_py(candidates, length: int, min_size: int,
+                      max_size: int) -> list[int]:
+    """The Python loop of :func:`_greedy_select`."""
     with span("cdc.greedy"):
         cands = np.asarray(candidates, dtype=np.int64).tolist()
         out: list[int] = []

@@ -1,19 +1,24 @@
 """Change-log replay: framed wire bytes -> columnar change records.
 
-The port's copy of ``dat_replication_protocol_tpu/runtime/replay.py``
-without its native C engine.  A whole log buffer is replayed at once:
+The port's copy of ``dat_replication_protocol_tpu/runtime/replay.py``.
+A whole log buffer is replayed at once, on one of two routes that give
+the same frames, columns, bytes and errors:
 
-* :func:`split_frames` indexes every frame (the reference's Python
-  splitter);
-* per-record ``Change`` frames decode to columns by a numpy walk over
-  the fields of all records at once, one field a step; records the walk
-  leaves (corrupt ones, or a tail of records with many fields) take the
-  reference's per-record decode, which raises at the first corrupt
-  record with the reference's message;
-* ``ChangeBatch`` frames decode with ``wire.batch_codec``;
-* the encoders run the other way, per-record frames built by numpy
-  scatters byte for byte as the reference's per-record codec writes
-  them.
+* the native route (the default, the JAX package's): the C frame
+  splitter and the threaded columnar decoder and encoder of
+  ``native/dat_native.cpp`` (:mod:`.native`), and the per-record C
+  codec for :func:`encode_change_log`;
+* ``native=False``, its plain version: :func:`split_frames` runs the
+  reference's Python splitter; per-record ``Change`` frames decode to
+  columns by a numpy walk over the fields of all records at once, one
+  field a step, and records the walk leaves (corrupt ones, or a tail of
+  records with many fields) take the per-record decode; the encoders
+  build per-record frames by numpy scatters.
+
+On both routes a corrupt record raises the per-record codec's error at
+the first corrupt record, and a key or subset that is not UTF-8 is
+corrupt (the JAX package's C decoder accepts one; the port does not).
+``ChangeBatch`` frames decode with ``wire.batch_codec`` on both.
 
 Columns are zero-copy: uint32 ``change/from/to`` and (offset, length)
 views into the one log buffer for ``key/subset/value``, the ragged
@@ -26,13 +31,16 @@ import dataclasses
 
 import numpy as np
 
+from .._fastpath_gate import fastpath_mod as _fastpath_mod
 from ..obs.device import note_engine as _note_engine
 from ..obs.metrics import OBS as _OBS
 from ..wire.batch_codec import ragged_copy, ragged_gather, uvarint_sizes
-from ..wire.change_codec import Change, decode_change, encode_change
+from ..wire.change_codec import (Change, _encode_change_with,
+                                 decode_change, encode_change)
 from ..wire.framing import (TYPE_BLOB, TYPE_CHANGE, TYPE_CHANGE_BATCH,
                             ProtocolError, frame)
 from ..wire.varint import NeedMoreData, decode_uvarint
+from . import native as _native
 
 # the field walk hands its last records to the per-record decode once
 # fewer than this many are still being walked
@@ -104,25 +112,50 @@ def _as_u8(data) -> np.ndarray:
     return np.frombuffer(data, dtype=np.uint8)
 
 
-def split_frames(data, allow_partial_tail: bool = False) -> FrameIndex:
+def split_frames(data, allow_partial_tail: bool = False,
+                 native: bool = True) -> FrameIndex:
     """Index every complete frame of a multibuffer stream.
 
     Raises ProtocolError on malformed varints or empty framed lengths;
     with ``allow_partial_tail=False`` a trailing incomplete frame is also
     an error (a *replay* log should be whole; streaming callers pass
-    True and re-feed the tail).
+    True and re-feed the tail).  ``native=False`` runs the Python
+    splitter.
     """
     buf = _as_u8(data)
     if _OBS.on:
-        # the reference's name for its Python splitter, the port's only
-        _note_engine("replay.split", "python")
-    starts, lens, ids, consumed = _split_python(buf)
+        _note_engine("replay.split", "native" if native else "python")
+    if native:
+        starts, lens, ids, consumed = _split_native(buf)
+    else:
+        starts, lens, ids, consumed = _split_python(buf)
+        starts = np.asarray(starts, dtype=np.int64)
+        lens = np.asarray(lens, dtype=np.int64)
+        ids = np.asarray(ids, dtype=np.uint8)
     if not allow_partial_tail and consumed != len(buf):
         raise ProtocolError(
             f"truncated frame at byte {consumed} of {len(buf)}")
-    return FrameIndex(buf, np.asarray(starts, dtype=np.int64),
-                      np.asarray(lens, dtype=np.int64),
-                      np.asarray(ids, dtype=np.uint8), consumed)
+    return FrameIndex(buf, starts, lens, ids, consumed)
+
+
+def _split_native(buf: np.ndarray):
+    """``dat_split_frames`` over ``buf``.  A malformed header stops the C
+    scan at its frame; the error raised there is the Python splitter's,
+    message and cause, read from the same header."""
+    n, starts, lens, ids, consumed, err = _native.split_frames(buf)
+    if err == _native.ERR_BAD_RECORD:
+        raise ProtocolError("framed length 0 (must include the id byte)")
+    if err:
+        head = buf[consumed: consumed + 16].tobytes()
+        try:
+            decode_uvarint(head)
+        except ValueError as e:
+            raise ProtocolError(str(e)) from e
+        raise RuntimeError(f"dat_split_frames reported error {err} at "
+                           f"byte {consumed}, which the Python splitter "
+                           f"reads as a valid header")
+    # copies: the index arrays are allocated for the worst case
+    return starts[:n].copy(), lens[:n].copy(), ids[:n].copy(), consumed
 
 
 def _split_python(buf: np.ndarray):
@@ -170,20 +203,34 @@ def _empty_columns(buf: np.ndarray, n: int) -> ChangeColumns:
 
 
 def decode_change_columns(buf: np.ndarray, starts: np.ndarray,
-                          lens: np.ndarray) -> ChangeColumns:
+                          lens: np.ndarray, native: bool = True
+                          ) -> ChangeColumns:
     """Decode the given record extents as Change rows, columnar.
 
     Raises ProtocolError ``corrupt Change record at index r`` for the
-    first record the per-record codec rejects."""
+    first record the per-record codec rejects, with the codec's error as
+    its cause.  The native route decodes in ``dat_decode_changes_mt`` on
+    the hardware's count of threads; ``native=False`` runs the numpy
+    field walk."""
     n = len(starts)
     starts = np.ascontiguousarray(starts, dtype=np.int64)
     lens = np.ascontiguousarray(lens, dtype=np.int64)
     cols = _empty_columns(buf, n)
     if n == 0:
         return cols
+    if native:
+        bad = _native.decode_changes(
+            np.ascontiguousarray(buf, dtype=np.uint8), starts, lens,
+            _native.columns(cols))
+        if bad >= 0:
+            # the per-record codec raises the record's own error
+            _decode_records(cols, buf, starts, lens, np.array([bad]))
+            raise RuntimeError(f"dat_decode_changes rejected record {bad}, "
+                               f"which the per-record codec accepts")
+        return cols
     rest = np.nonzero(~_walk_fields(cols, buf, starts, lens))[0]
     if len(rest):
-        _decode_records(cols, buf, starts, lens, rest)
+        _decode_records(cols, buf, starts, lens, rest, native=False)
     return cols
 
 
@@ -295,14 +342,14 @@ def _all_utf8(buf: np.ndarray, offs: np.ndarray, sizes: np.ndarray) -> bool:
 
 
 def _decode_records(cols: ChangeColumns, buf: np.ndarray, starts, lens,
-                    rows) -> None:
+                    rows, native: bool = True) -> None:
     """The reference's per-record decode of ``rows`` (in order): the
     scalar codec per record, then its extents by a second tag scan."""
     view = memoryview(np.ascontiguousarray(buf, dtype=np.uint8))
     for r in rows.tolist():
         i, ln = int(starts[r]), int(lens[r])
         try:
-            ch = decode_change(view[i: i + ln])
+            ch = decode_change(view[i: i + ln], native=native)
         except ValueError as e:
             raise ProtocolError(f"corrupt Change record at index {r}") from e
         cols.change[r] = ch.change
@@ -401,37 +448,55 @@ def _encode_per_record(buf: np.ndarray, change, from_, to, key_off, key_len,
     return out, payload_at, plen
 
 
-def _encode_columns_per_record(cols: ChangeColumns, present_empty=False):
-    """:func:`_encode_per_record` of ``cols``; with ``present_empty``
-    absent optionals are written present-empty, as ``cols.row(i)``
-    materializes them."""
+def _encode_columns_per_record(cols: ChangeColumns, present_empty=False,
+                               native: bool = True):
+    """Per-record ``Change`` frames of ``cols``: ``(wire uint8, payload
+    starts, payload lengths)``; with ``present_empty`` absent optionals
+    are written present-empty, as ``cols.row(i)`` materializes them.
+    The native route frames in ``dat_encode_changes_mt`` and indexes the
+    result with ``dat_split_frames``; ``native=False`` runs
+    :func:`_encode_per_record`."""
     sl, vl = np.asarray(cols.sub_len), np.asarray(cols.val_len)
     if present_empty:
         sl, vl = np.maximum(sl, 0), np.maximum(vl, 0)
+    src = np.ascontiguousarray(cols.buf, dtype=np.uint8)
+    if native:
+        wire = _native.encode_changes(src, len(cols.change),
+                                      _native.columns(cols, sl, vl))
+        starts, lens, _, _ = _split_native(wire)
+        return wire, starts, lens
     return _encode_per_record(
-        np.ascontiguousarray(cols.buf, dtype=np.uint8), cols.change,
-        cols.from_, cols.to, cols.key_off, cols.key_len, cols.sub_off, sl,
-        cols.val_off, vl)
+        src, cols.change, cols.from_, cols.to, cols.key_off, cols.key_len,
+        cols.sub_off, sl, cols.val_off, vl)
 
 
-def encode_change_columns(cols: ChangeColumns) -> bytes:
+def encode_change_columns(cols: ChangeColumns, native: bool = True) -> bytes:
     """Frame decoded columns straight back to per-record wire bytes: the
     true inverse of :func:`replay_log` for change frames, byte for byte
     the per-record codec (absent optionals stay absent).  Blob frames
     are not part of the columns; a mixed log re-encodes as its change
-    frames only."""
+    frames only.  One C call on the native route (no Change objects, no
+    per-row Python); numpy scatters with ``native=False``."""
     if len(cols) == 0:
         return b""
-    return _encode_columns_per_record(cols)[0].tobytes()
+    return _encode_columns_per_record(cols, native=native)[0].tobytes()
 
 
-def encode_change_log(records: list[Change | dict]) -> bytes:
+def encode_change_log(records: list[Change | dict],
+                      native: bool = True) -> bytes:
     """Encode Change records as a framed wire log (replay_log's
-    inverse)."""
-    return b"".join(frame(TYPE_CHANGE, encode_change(r)) for r in records)
+    inverse).  The native route binds the C record codec once for the
+    whole log; ``native=False`` runs the Python codec per record."""
+    if native:
+        fp = _fastpath_mod()
+        return b"".join(frame(TYPE_CHANGE, _encode_change_with(fp, r))
+                        for r in records)
+    return b"".join(frame(TYPE_CHANGE, encode_change(r, native=False))
+                    for r in records)
 
 
-def replay_log(data) -> tuple[ChangeColumns, FrameIndex]:
+def replay_log(data, native: bool = True) -> tuple[ChangeColumns,
+                                                   FrameIndex]:
     """Replay a whole change-log buffer: BASELINE configs[1]'s engine.
 
     Returns the decoded change columns plus the full frame index (blob
@@ -444,7 +509,7 @@ def replay_log(data) -> tuple[ChangeColumns, FrameIndex]:
     ProtocolError, mirroring the decoder's fail-fast
     (reference: decode.js:159-161).
     """
-    frames = split_frames(data)
+    frames = split_frames(data, native=native)
     known = ((frames.ids == TYPE_CHANGE) | (frames.ids == TYPE_BLOB)
              | (frames.ids == TYPE_CHANGE_BATCH))
     if not bool(known.all()):
@@ -454,20 +519,20 @@ def replay_log(data) -> tuple[ChangeColumns, FrameIndex]:
     bsel = frames.ids == TYPE_CHANGE_BATCH
     if not bool(bsel.any()):
         cols = decode_change_columns(
-            frames.buf, frames.starts[sel], frames.lens[sel])
+            frames.buf, frames.starts[sel], frames.lens[sel], native)
         return cols, frames
-    return _replay_with_batches(frames, sel, bsel), frames
+    return _replay_with_batches(frames, sel, bsel, native), frames
 
 
 def _replay_with_batches(frames: FrameIndex, sel: np.ndarray,
-                         bsel: np.ndarray) -> ChangeColumns:
+                         bsel: np.ndarray, native: bool) -> ChangeColumns:
     """Stitch per-record and batch-frame rows back into wire order: the
     per-record rows decode in one pass and slice into the output as the
     runs between batch frames."""
     from ..wire.batch_codec import decode_change_batch
 
     cols_pr = decode_change_columns(
-        frames.buf, frames.starts[sel], frames.lens[sel])
+        frames.buf, frames.starts[sel], frames.lens[sel], native)
     # frames contributing rows, in wire order; change-frame runs between
     # batch frames map to consecutive cols_pr row ranges
     row_frames = np.nonzero(sel | bsel)[0]
@@ -528,8 +593,8 @@ def _slice_columns(cols: ChangeColumns, lo: int, hi: int) -> ChangeColumns:
     )
 
 
-def encode_batch_frames(cols: ChangeColumns,
-                        rows_per_batch: int = 65536) -> bytes:
+def encode_batch_frames(cols: ChangeColumns, rows_per_batch: int = 65536,
+                        native: bool = True) -> bytes:
     """Frame decoded columns as ``TYPE_CHANGE_BATCH`` wire bytes — the
     columnar counterpart of :func:`encode_change_columns`.  One frame
     per ``rows_per_batch`` rows: bigger batches amortize the dictionary
@@ -539,13 +604,13 @@ def encode_batch_frames(cols: ChangeColumns,
     n = len(cols)
     out = []
     for lo in range(0, n, rows_per_batch):
-        payload = encode_columns(_slice_columns(cols, lo,
-                                                min(n, lo + rows_per_batch)))
+        payload = encode_columns(
+            _slice_columns(cols, lo, min(n, lo + rows_per_batch)), native)
         out.append(frame(TYPE_CHANGE_BATCH, payload))
     return b"".join(out)
 
 
-def canonical_change_extents(cols: ChangeColumns):
+def canonical_change_extents(cols: ChangeColumns, native: bool = True):
     """Canonical per-record payload extents for decoded columns:
     ``(buf, offs, lens)`` where ``buf[offs[i]:offs[i]+lens[i]]`` is row
     i's per-record protobuf encoding.  The digest/merkle contract is
@@ -553,12 +618,13 @@ def canonical_change_extents(cols: ChangeColumns):
     per-record peer put on the wire — so consumers re-encode and index
     the result (the encoder's own layout, the extents
     ``split_frames`` would find)."""
-    return _encode_columns_per_record(cols)
+    return _encode_columns_per_record(cols, native=native)
 
 
-def canonical_change_payloads(cols: ChangeColumns) -> list[bytes]:
+def canonical_change_payloads(cols: ChangeColumns,
+                              native: bool = True) -> list[bytes]:
     """Row-order list of canonical per-record payload bytes (the digest
     pipeline's submit unit) for decoded columns."""
-    buf, offs, lens = canonical_change_extents(cols)
+    buf, offs, lens = canonical_change_extents(cols, native)
     data = buf.tobytes()
     return [data[o:o + ln] for o, ln in zip(offs.tolist(), lens.tolist())]

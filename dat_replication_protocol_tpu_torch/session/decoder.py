@@ -33,9 +33,19 @@ wire_len, kind; ``rows`` on a batch frame), ``decoder.requeue`` and
 the recorder is armed.
 
 :meth:`checkpoint` exports the resume point (``session/resume.py``) and
-:meth:`watermark` the wire cursors on the fleet plane.  Only the
-streaming scanner is carried: the JAX package's native bulk index is
-not.
+:meth:`watermark` the wire cursors on the fleet plane.
+
+Two parse routes give the same deliveries, errors and checkpoints.  The
+native route (the default, the JAX package's) indexes a queued buffer of
+complete frames in one ``dat_split_frames`` call once at least
+:attr:`Decoder._NATIVE_MIN` bytes wait at a frame boundary, pre-decodes
+the buffer's change payloads in one ``dat_decode_changes`` call, and
+dispatches runs of change frames from the ``dat_fastpath`` C loop (one
+``decoder.frame.run`` instant a run, where the streaming scanner tags
+each frame); the byte-at-a-time scanner takes split headers, partial
+frames and small writes.  ``Decoder(native=False)`` is the plain
+version: the streaming scanner alone.  A failed build of either host
+library raises.
 Subclasses tap payloads through :meth:`_deliver_change`,
 :meth:`_note_change_batch` and the blob hooks
 (:meth:`_open_blob_if_ready`, :meth:`_note_blob_bytes`,
@@ -49,6 +59,7 @@ from collections import deque
 from time import perf_counter as _perf
 from typing import Callable, Optional
 
+from .._fastpath_gate import fastpath_mod as _fastpath_mod
 from ..obs import wirecost as _wirecost
 from ..obs.events import emit as _emit
 from ..obs.flight import FLIGHT as _FLIGHT
@@ -61,6 +72,7 @@ from ..wire.change_codec import Change, decode_change
 from ..wire.framing import (LOCAL_CAPS, MAX_HEADER_LEN, TYPE_BLOB,
                             TYPE_CHANGE, TYPE_CHANGE_BATCH, TYPE_HEADER,
                             TYPE_RECONCILE, TYPE_SNAPSHOT, ProtocolError)
+from ..wire.framing import header_len as _header_len
 from ..wire.varint import decode_uvarint
 
 OnDone = Optional[Callable[[], None]]
@@ -79,6 +91,11 @@ _M_DEC_SN_FRAMES = _counter("decoder.snapshot.frames")
 # bytes a batch frame saved against the same rows per record
 _M_BATCH_SAVED_RX = _counter("wire.batch.bytes_saved_rx")
 _H_DEC_DISPATCH = _histogram("decoder.dispatch.seconds")
+
+# The bulk route's cursor: frame index and columnar row MUST advance
+# together — a frame paired with the wrong row's columns is silent wire
+# corruption.  Machine-checked:
+# datlint: coupled-state st["f"], st["row"]
 
 
 class DecoderDestroyedError(Exception):
@@ -218,7 +235,8 @@ class Decoder:
     # the wire cost ledger's link name for this session's rx bytes
     cost_link = "session"
 
-    def __init__(self):
+    def __init__(self, native: bool = True):
+        self._native = native  # the bulk-index route (module docstring)
         self.bytes = 0
         self.changes = 0
         self.blobs = 0
@@ -265,6 +283,8 @@ class Decoder:
         self._pending = 0
         self._paused_readers = 0
         self._overflow: deque[memoryview] = deque()  # unparsed input, in order
+        self._overflow_bytes = 0  # running total of the deque's bytes
+        self._bulk: dict | None = None  # parked native frame-index cursor
         self._write_cbs: list[Callable[[], None]] = []
         self._end_queued = False
         self._end_cb: OnDone = None
@@ -273,6 +293,9 @@ class Decoder:
         self._drain_watchers: list[Callable[[], None]] = []
         # serializes the pending counter against acks from other threads
         self._ack_lock = threading.Lock()
+        # the C loop's outstanding-ack counter (dat_fastpath.AckBoard),
+        # made the first time the C loop runs
+        self._ack_board = None
 
     # -- handler registration -------------------------------------------------
 
@@ -348,6 +371,7 @@ class Decoder:
         self.bytes += len(data)
         if len(data):
             self._overflow.append(data)
+            self._overflow_bytes += len(data)
         # park the completion callback BEFORE consuming: _consume's
         # drained epilogue is the one place parked callbacks fire
         entry = None
@@ -365,7 +389,8 @@ class Decoder:
             self._consume()
         if entry is not None:
             return entry not in self._write_cbs  # fired <=> consumed
-        return not (self._overflow or self._stalled())
+        return not (self._overflow or self._bulk is not None
+                    or self._stalled())
 
     def end(self, on_finished: OnDone = None) -> None:
         """Graceful end: after all prior frames are consumed, the finalize
@@ -387,6 +412,8 @@ class Decoder:
         if blob is not None:
             blob.destroyed = True
         self._overflow.clear()
+        self._overflow_bytes = 0
+        self._bulk = None
         for cb in self._error_cbs:
             cb(err)
         # release parked write callbacks and watchers so a blocked
@@ -397,7 +424,8 @@ class Decoder:
         self._notify_drain_watchers()
 
     def writable(self) -> bool:
-        return not (self._stalled() or self._overflow or self.destroyed
+        return not (self._stalled() or self._overflow
+                    or self._bulk is not None or self.destroyed
                     or self.finished)
 
     # -- drain watchers -------------------------------------------------------
@@ -491,7 +519,10 @@ class Decoder:
     # -- flow control -----------------------------------------------------------
 
     def _stalled(self) -> bool:
-        return self._pending > 0 or self._paused_readers > 0
+        if self._pending > 0 or self._paused_readers > 0:
+            return True
+        board = self._ack_board
+        return board is not None and board.outstanding > 0
 
     def _resume(self) -> None:
         # a nested resume while _consume is live is a no-op: the outer
@@ -505,8 +536,9 @@ class Decoder:
 
     def _maybe_finalize(self) -> None:
         if (not self._end_queued or self.finished or self.destroyed
-                or self._overflow or self._pbatch is not None
-                or self._stalled() or self._consuming):
+                or self._overflow or self._bulk is not None
+                or self._pbatch is not None or self._stalled()
+                or self._consuming):
             return
         if self._state != TYPE_HEADER or self._header:
             self.destroy(self._protocol_error("stream ended mid-frame"))
@@ -529,8 +561,20 @@ class Decoder:
 
     # -- parser -------------------------------------------------------------------
 
+    # the native route indexes a queued buffer once this many bytes wait
+    # at a frame boundary: below it the index's array set-up costs more
+    # than the per-byte scan saves (the JAX package measured 2048 against
+    # a transport writing 4 KiB chunks)
+    _NATIVE_MIN = 2048
+
     def _consume(self) -> None:
-        """Drain queued input while the app keeps up (decode.js:144-169)."""
+        """Drain queued input while the app keeps up (decode.js:144-169).
+
+        On the native route, once at least :attr:`_NATIVE_MIN` bytes are
+        queued and the parser sits at a frame boundary, the whole queue
+        is indexed in one call and frames dispatch from the index
+        (:meth:`_start_indexed`, :meth:`_run_indexed`); the streaming
+        scanner takes split headers, partial frames and small writes."""
         if self._consuming:
             return
         self._consuming = True
@@ -542,20 +586,40 @@ class Decoder:
                     if self._pbatch is not None:
                         return  # still stalled mid-batch
                     continue
+                if self._bulk is not None:
+                    # resume a parked index from its cursor: an async ack
+                    # must not re-index (and re-decode) the remainder,
+                    # which would make bulk decode O(frames^2)
+                    self._run_indexed()
+                    continue
                 if not self._overflow:
                     break
+                if (self._native and self._state == TYPE_HEADER
+                        and not self._header
+                        # O(1) size gate before the merge: the merge
+                        # copies the whole queue
+                        and self._overflow_bytes >= self._NATIVE_MIN):
+                    merged = self._merged_overflow()
+                    if self._start_indexed(merged):
+                        continue
+                    # no complete frame in the queue (a large frame still
+                    # arriving): the scanner enters it and consumes its
+                    # payload as it comes
+                    self._ov_appendleft(merged)
                 chunk = self._overflow.popleft()
+                self._overflow_bytes -= len(chunk)
                 rest = self._consume_chunk(chunk)
                 if self.destroyed:
                     return
                 if rest is not None and len(rest):
-                    self._overflow.appendleft(rest)
+                    self._ov_appendleft(rest)
         finally:
             self._consuming = False
         # fully drained and nothing outstanding: release parked writers
         # and run a queued finalization
         if (not self.destroyed and not self._overflow
-                and self._pbatch is None and not self._stalled()):
+                and self._bulk is None and self._pbatch is None
+                and not self._stalled()):
             cbs, self._write_cbs = self._write_cbs, []
             for cb in cbs:
                 cb()
@@ -571,7 +635,308 @@ class Decoder:
                 _M_DEC_REQUEUES.inc()
                 _emit("decoder.requeue", bytes=len(rest),
                       offset=self.bytes)
-            self._overflow.appendleft(rest)
+            self._ov_appendleft(rest)
+
+    def _ov_appendleft(self, mv: memoryview) -> None:
+        self._overflow.appendleft(mv)
+        self._overflow_bytes += len(mv)
+
+    def _merged_overflow(self) -> memoryview:
+        """Pop ALL queued input as one contiguous memoryview."""
+        if len(self._overflow) == 1:
+            merged = self._overflow.popleft()
+        else:
+            merged = memoryview(b"".join(self._overflow))
+            self._overflow.clear()
+        self._overflow_bytes = 0
+        return merged
+
+    # -- the native bulk-index route -------------------------------------------
+
+    # Subclass opt-in to the C change loop: when True IN THE CLASS'S OWN
+    # __dict__ (the opt-in does not inherit), runs of change frames
+    # dispatch from the C loop even though _deliver_change is overridden,
+    # and the raw payloads of every run are handed to
+    # _note_change_payloads afterwards (the digest decoder's tap).  The
+    # declaring class's only per-change addition must be payload work
+    # that no handler sees.
+    _bulk_payload_sink = False
+
+    def _note_change_payloads(self, payloads, count: int) -> None:
+        """Bulk tap: ``payloads`` is the in-order list of raw payloads of
+        the run just dispatched (None when :meth:`_payload_sink_active`
+        is False), ``count`` the changes it dispatched.  Called after
+        every C run on an opted-in class.  Base: no-op."""
+
+    def _payload_sink_active(self) -> bool:
+        """Whether the tap collects payloads (slicing costs per frame);
+        sequence accounting happens either way."""
+        return True
+
+    def _start_indexed(self, buf: memoryview) -> bool:
+        """Index ``buf``'s complete frames in one ``dat_split_frames``
+        call and park the cursor.  False when there is no complete frame.
+
+        A malformed header only stops the scan: the valid prefix
+        dispatches from the index and the streaming scanner meets the
+        bad header in the tail, raising there what it raises on any
+        chunking."""
+        import numpy as np
+
+        from ..runtime import native
+
+        arr = np.frombuffer(buf, dtype=np.uint8)
+        n, starts, lens, ids, consumed, _ = native.split_frames(arr)
+        if n <= 0:
+            return False
+        self._install_index(buf, arr, starts, lens, ids, n, consumed)
+        return True
+
+    def _install_index(self, buf, arr, starts, lens, ids, n: int,
+                       consumed: int) -> None:
+        """Park a frame index over ``buf`` as the bulk cursor, with the
+        change payloads pre-decoded to columns in one serial
+        ``dat_decode_changes`` call when the index holds at least 16.  A
+        corrupt payload leaves no columns: the per-frame decode then
+        delivers the records before it and raises its own error."""
+        import numpy as np
+
+        from ..runtime import native
+
+        cols_np = None
+        cidx = np.nonzero(ids[:n] == TYPE_CHANGE)[0]
+        m = len(cidx)
+        if m >= 16:
+            cols = (np.empty(m, np.uint32), np.empty(m, np.uint32),
+                    np.empty(m, np.uint32), *(np.empty(m, np.int64)
+                                              for _ in range(6)))
+            if native.decode_changes_serial(
+                    arr, np.ascontiguousarray(starts[cidx]),
+                    np.ascontiguousarray(lens[cidx]), cols) < 0:
+                # the C loop reads these buffers directly; the Python
+                # loop gets row tuples lazily (_cols_lists)
+                cols_np = cols
+        self._bulk = {
+            "buf": buf,
+            # wire offset of buf[0]: the indexed buffer is exactly the
+            # unparsed queue, so it starts where parsing stood
+            "base": self._frame_end,
+            "starts": starts[:n].tolist(),
+            "lens": lens[:n].tolist(),
+            "ids": ids[:n].tolist(),
+            "ids_np": np.ascontiguousarray(ids[:n]),
+            "starts_np": np.ascontiguousarray(starts[:n]),
+            "lens_np": np.ascontiguousarray(lens[:n]),
+            "n": n,
+            "consumed": consumed,
+            "f": 0,
+            "row": 0,
+            "cols_np": cols_np,
+            "blob_open": False,
+        }
+
+    @staticmethod
+    def _cols_lists(st: dict):
+        """Python-loop view of the columnar decode: one tuple per row
+        (made lazily; the C loop never needs it)."""
+        rows = st.get("zrows")
+        if rows is None and st["cols_np"] is not None:
+            rows = st["zrows"] = list(
+                zip(*(a.tolist() for a in st["cols_np"])))
+        return rows
+
+    def _run_indexed(self) -> None:
+        """Dispatch frames from the parked index until done or stalled.
+
+        Each frame goes through the streaming route's change, batch,
+        control and blob machinery (counters, ordering, blob latches,
+        zero-length blobs), with the frame's wire extent set first for
+        the tracing tags and wire cost.  Runs of change frames take the C
+        loop (:meth:`_dispatch_changes_fast`) when the columns exist and
+        ``_deliver_change`` is not overridden (or the class opted in with
+        ``_bulk_payload_sink``).  Delivery consumes a frame: both cursor
+        halves advance before a handler can raise, and every exit writes
+        them back together, so a caught raise resumes at the next frame.
+        """
+        st = self._bulk
+        buf = st["buf"]
+        starts, lens, ids = st["starts"], st["lens"], st["ids"]
+        base = st["base"]
+        have_cols = st["cols_np"] is not None
+        rows_l = self._cols_lists(st) if have_cols else None
+        f = st["f"]
+        row = st["row"]
+        n = st["n"]
+        cls = type(self)
+        # the opt-in is read from the class's own __dict__: a subclass
+        # overriding _deliver_change would otherwise lose its override on
+        # bulk writes and keep it on chunked ones
+        fast = have_cols and (
+            cls._deliver_change is Decoder._deliver_change
+            or cls.__dict__.get("_bulk_payload_sink", False))
+        try:
+            while f < n:
+                if self._stalled() or self.destroyed:
+                    return
+                type_id = ids[f]
+                if fast and type_id == TYPE_CHANGE:
+                    try:
+                        # the C loop writes both cursors into st, on its
+                        # raise path too: st is the one hand-off channel
+                        self._dispatch_changes_fast(st, f)
+                    finally:
+                        f, row = st["f"], st["row"]
+                    if self.destroyed:
+                        self._bulk = None
+                        return
+                    continue
+                start = starts[f]
+                flen = lens[f]
+                self._missing = flen
+                # this frame's wire extent (starts[] points past the id
+                # byte): the tracing tags and wire cost read it
+                self._frame_start = base + start - _header_len(flen)
+                self._frame_end = base + start + flen
+                if type_id == TYPE_CHANGE:
+                    row += 1
+                    f += 1
+                    if have_cols:
+                        (cg, fr, to, ko, kl, so, sl, vo, vl) = rows_l[row - 1]
+                        # the C decode checked every key and subset
+                        change = Change(
+                            key=str(buf[ko: ko + kl], "utf-8"),
+                            change=cg, from_=fr, to=to,
+                            value=bytes(buf[vo: vo + vl]) if vl >= 0 else b"",
+                            subset=(str(buf[so: so + sl], "utf-8")
+                                    if sl >= 0 else ""))
+                        self._parsed = self._frame_end
+                        self._missing = 0
+                        self._deliver_change(change, buf[start: start + flen])
+                    else:
+                        self._parsed = base + start
+                        self._state = TYPE_CHANGE
+                        self._payload_parts = None
+                        self._change_data(buf[start: start + flen])
+                elif type_id == TYPE_CHANGE_BATCH:
+                    f += 1
+                    self._parsed = self._frame_end
+                    self._missing = 0
+                    self._finish_change_batch(buf[start: start + flen])
+                    if self.destroyed:
+                        self._bulk = None
+                        return
+                    if self._pbatch is not None or self._stalled():
+                        return
+                elif type_id == TYPE_RECONCILE or type_id == TYPE_SNAPSHOT:
+                    f += 1
+                    self._parsed = self._frame_end
+                    self._missing = 0
+                    if type_id == TYPE_RECONCILE:
+                        self._finish_reconcile(buf[start: start + flen])
+                    else:
+                        self._finish_snapshot(buf[start: start + flen])
+                    if self.destroyed:
+                        self._bulk = None
+                        return
+                    if self._stalled():
+                        return
+                elif type_id == TYPE_BLOB:
+                    if not st["blob_open"]:
+                        self._state = TYPE_BLOB
+                        # the opened state advances WITH the side effect:
+                        # a blob handler that raises must not re-open
+                        # (and re-count) the blob on resume
+                        st["blob_open"] = True
+                        self._parsed = base + start
+                        self._open_blob_if_ready()
+                        if self.destroyed:
+                            self._bulk = None
+                            return
+                        # a handler that paused must not get the payload
+                        # until it resumes, as on the streaming route
+                        if flen and self._stalled():
+                            return
+                    st["blob_open"] = False
+                    f += 1
+                    if flen:
+                        self._parsed = base + start
+                        self._blob_data(buf[start: start + flen])
+                else:
+                    self._bulk = None
+                    self._parsed = base + start
+                    self.destroy(self._protocol_error(
+                        f"Protocol error, unknown type: {type_id}"))
+                    return
+                if self.destroyed:
+                    self._bulk = None
+                    return
+        finally:
+            # one write-back for every exit (returns, handler raises,
+            # stalls): the cursor halves leave together
+            st["f"] = f
+            st["row"] = row
+        self._bulk = None
+        # the run retired: the parser stands at the end of the index
+        self._parsed = self._frame_end = base + st["consumed"]
+        tail = buf[st["consumed"]:]
+        if len(tail):
+            self._ov_appendleft(tail)
+
+    def _dispatch_changes_fast(self, st: dict, f: int) -> None:
+        """Deliver the run of change frames starting at ``f`` from the C
+        loop (``dat_fastpath.dispatch_changes``): one slot-built
+        :class:`Change` from the columns, one C ``done`` and one handler
+        call a frame, ``self.changes`` counted before each call.  The
+        loop stops at a non-change frame, a stall or the index's end and
+        writes both cursors into ``st``.  Handler exceptions propagate as
+        themselves; a payload that fails UTF-8 comes back as status 2 and
+        destroys the session with its error as the cause.  The run gets
+        one ``decoder.frame.run`` instant and one wire-cost entry."""
+        use_tap = type(self).__dict__.get("_bulk_payload_sink", False)
+        collect = use_tap and self._payload_sink_active()
+        f0 = f
+        fp = _fastpath_mod()
+        if self._ack_board is None:
+            self._ack_board = fp.AckBoard()
+        sink = [] if collect else None
+        status = 0
+        try:
+            _, _, status = fp.dispatch_changes(
+                self, self._ack_board, self._on_change, Change, st["buf"],
+                st["ids_np"], *st["cols_np"], f, st["row"], st["n"], st,
+                st["starts_np"] if collect else None,
+                st["lens_np"] if collect else None, sink)
+        finally:
+            # the run sits at a frame boundary throughout; the tap drains
+            # even when a handler raised (those changes WERE delivered,
+            # so their digests are owed)
+            self._missing = 0
+            self._state = TYPE_HEADER
+            k = st["f"] - f0
+            if k:
+                self._note_change_run(st, f0, k)
+            if use_tap:
+                self._note_change_payloads(sink, k)
+        if status == 2:
+            e = st.pop("decode_error")
+            self.destroy(self._protocol_error(str(e), cause=e))
+
+    def _note_change_run(self, st: dict, f0: int, k: int) -> None:
+        """Cursor and telemetry of ``k`` change frames from ``f0`` that
+        the C loop dispatched."""
+        starts, lens, base = st["starts"], st["lens"], st["base"]
+        last = f0 + k - 1
+        self._frame_start = base + starts[last] - _header_len(lens[last])
+        self._frame_end = self._parsed = base + starts[last] + lens[last]
+        if _OBS.on:
+            _M_DEC_CHANGES.inc(k)
+            off0 = base + starts[f0] - _header_len(lens[f0])
+            # one tag for the run (the C loop cannot tag per frame),
+            # covering the run's contiguous wire range
+            _trace_instant("decoder.frame.run", offset=off0, kind="change",
+                           frames=k, wire_len=self._frame_end - off0)
+            self._lit_cost_change_run(self._frame_end - off0,
+                                      sum(lens[f0:f0 + k]), k)
 
     def _consume_chunk(self, chunk: memoryview) -> memoryview | None:
         if self._state == TYPE_HEADER:
@@ -673,7 +1038,7 @@ class Decoder:
 
     def _finish_change(self, payload) -> None:
         try:
-            change = decode_change(payload)
+            change = decode_change(payload, native=self._native)
         except ValueError as e:
             self.destroy(self._protocol_error(str(e), cause=e))
             return
@@ -873,6 +1238,11 @@ class Decoder:
     def _lit_cost_change(self, plen: int) -> None:
         _wirecost.account("change", self.cost_link, "rx", plen,
                           self._frame_framing(plen))
+
+    def _lit_cost_change_run(self, wire_total: int, payload_total: int,
+                             frames: int) -> None:
+        _wirecost.account("change", self.cost_link, "rx", payload_total,
+                          wire_total - payload_total, frames)
 
     def _lit_cost_batch(self, plen: int, saved: int) -> None:
         _wirecost.account("change_batch", self.cost_link, "rx", plen,

@@ -41,12 +41,14 @@ from collections import deque
 from time import monotonic as _now
 from typing import Callable, Optional
 
+from .._fastpath_gate import fastpath_mod as _fastpath_mod
 from ..obs import wirecost as _wirecost
 from ..obs.metrics import OBS as _OBS
 from ..obs.metrics import counter as _counter
 from ..obs.metrics import histogram as _histogram
 from ..obs.tracing import trace_instant as _trace_instant
-from ..wire.change_codec import Change, _check_uint32, encode_change
+from ..wire.change_codec import (Change, _check_uint32,
+                                 _encode_change_with, encode_change)
 from ..wire.framing import CAP_CHANGE_BATCH, CAP_RECONCILE, CAP_SNAPSHOT, \
     TYPE_BLOB, TYPE_CHANGE, TYPE_CHANGE_BATCH, TYPE_RECONCILE, \
     TYPE_SNAPSHOT, frame_header, header_len
@@ -361,7 +363,8 @@ class Encoder:
                     defer_flush=True)
             self._maybe_flush_batch()
             return not self._above_high_water()
-        payloads = [encode_change(rec) for rec in records]
+        fp = _fastpath_mod()  # the C codec, bound once for the run
+        payloads = [_encode_change_with(fp, rec) for rec in records]
         self._note_change_run(payloads)
         out = bytearray()
         obs_on = _OBS.on
@@ -449,9 +452,10 @@ class Encoder:
             for cb in cbs:
                 cb()
 
+        fp = _fastpath_mod()  # bound once for the run
         last = len(rows) - 1
         for i, (key, cg, fr, to, val, sub) in enumerate(rows):
-            payload = encode_change({
+            payload = _encode_change_with(fp, {
                 "key": key.decode("utf-8"), "change": cg, "from": fr,
                 "to": to, "value": val,
                 "subset": None if sub is None else sub.decode("utf-8")})

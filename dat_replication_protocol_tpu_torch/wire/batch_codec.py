@@ -1,7 +1,7 @@
 """Columnar ``ChangeBatch`` payload codec (frame type ``TYPE_CHANGE_BATCH``).
 
-The port's copy of ``dat_replication_protocol_tpu/wire/batch_codec.py``
-without its native C encoder.  N change records travel as ONE frame:
+The port's copy of ``dat_replication_protocol_tpu/wire/batch_codec.py``.
+N change records travel as ONE frame:
 column-major fixed-width arrays with dictionary-coded keys and subsets,
 so a replay decodes with array reinterpretation and a handful of header
 varints, and the wire stops re-spelling hot keys on every row.  The
@@ -166,18 +166,24 @@ def _dictionary(buf: np.ndarray, offs, lens) -> tuple[list[bytes], list[int]]:
     return list(entries), index
 
 
-def encode_columns(cols) -> bytes:
+def encode_columns(cols, native: bool = True) -> bytes:
     """Encode decoded change columns (a ``runtime.replay.ChangeColumns``
     or anything with its fields) as one ChangeBatch payload — the bulk
     replay encode path.  Byte for byte :func:`encode_rows` of the same
-    rows: the dictionaries are built by one dict pass over the gathered
-    key and subset bytes, every other column and the value heap by numpy
-    gathers."""
+    rows.  The native route builds the payload in one C pass
+    (``dat_encode_change_batch``, which owns the dictionary dedup);
+    ``native=False``, its plain version, builds the dictionaries by one
+    dict pass over the gathered key and subset bytes and every other
+    column and the value heap by numpy gathers."""
     n = len(cols.change)
     buf = np.ascontiguousarray(cols.buf, dtype=np.uint8)
     key_len = np.asarray(cols.key_len, dtype=np.int64)
     sub_len = np.asarray(cols.sub_len, dtype=np.int64)
     val_len = np.asarray(cols.val_len, dtype=np.int64)
+    if native:
+        from ..runtime import native as _native
+
+        return _native.encode_change_batch(buf, n, _native.columns(cols))
     keys, kidx = _dictionary(buf, cols.key_off, key_len)
     present = sub_len >= 0
     subs, at = _dictionary(buf, np.asarray(cols.sub_off)[present],

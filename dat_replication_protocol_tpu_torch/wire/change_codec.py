@@ -1,8 +1,7 @@
 """The ``Change`` record and its protobuf (proto2) wire codec.
 
-The port's own copy of the pure-Python path of
-``dat_replication_protocol_tpu/wire/change_codec.py`` (the C fast path
-is not carried).  The schema::
+The port's own copy of ``dat_replication_protocol_tpu/wire/change_codec.py``.
+The schema::
 
     message Change {
       optional string subset = 1;
@@ -16,12 +15,21 @@ is not carried).  The schema::
 Fields are emitted in ascending field-number order with absent
 optionals omitted, byte-compatible with standard protobuf encoders.
 Decoded absent optionals default to ``''`` / ``b''``.
+
+Two routes, byte for byte and error for error the same: the native one
+(the default) serializes and parses in C (``encode_change_c`` /
+``decode_change_c`` of the ``dat_fastpath`` extension, built at first
+use; a failed build raises), and ``native=False`` runs the Python loops
+below, the native route's plain version.  Inputs the C side cannot read
+as typed (a non-``str`` key, a strided or multi-byte-itemsize value
+view) keep the Python semantics on either route.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from .._fastpath_gate import fastpath_mod as _fastpath_mod
 from .varint import NeedMoreData, decode_uvarint, encode_uvarint
 
 _UINT32_MAX = 0xFFFFFFFF
@@ -70,8 +78,53 @@ def _check_uint32(name: str, v: int) -> int:
     return v
 
 
-def encode_change(change: Change | dict) -> bytes:
-    """Serialize a Change to protobuf bytes (proto2 wire format)."""
+def encode_change(change: Change | dict, native: bool = True) -> bytes:
+    """Serialize a Change to protobuf bytes (proto2 wire format);
+    ``native=False`` runs the Python serializer."""
+    if native:
+        return _encode_change_with(_fastpath_mod(), change)
+    return _encode_change_py(change)
+
+
+def _encode_change_with(fp, change: Change | dict) -> bytes:
+    """Encode with an already-bound ``dat_fastpath`` module: bulk callers
+    bind it once for a whole run of records.  A dict is read field by
+    field (no intermediate Change), with ``from_dict``'s KeyError
+    order."""
+    if isinstance(change, dict):
+        if "from" in change:
+            fr = change["from"]
+        elif "from_" in change:
+            fr = change["from_"]
+        else:
+            raise KeyError("from")  # required, as in from_dict
+        key = change["key"]
+        cg = change["change"]
+        to = change["to"]
+        value = change.get("value")
+        subset = change.get("subset")
+    else:
+        key = change.key
+        cg = change.change
+        fr = change.from_
+        to = change.to
+        value = change.value
+        subset = change.subset
+    if (isinstance(key, str)
+            and (value is None
+                 or type(value) in (bytes, bytearray)
+                 # a strided or multi-byte-itemsize view would fail the C
+                 # side's PyBUF_SIMPLE or encode its nbytes where
+                 # bytes() counts elements: only flat bytes ride C
+                 or (isinstance(value, memoryview) and value.c_contiguous
+                     and value.itemsize == 1 and value.ndim == 1))
+            and (subset is None or isinstance(subset, str))):
+        return fp.encode_change_c(key, cg, fr, to, value, subset)
+    return _encode_change_py(change)
+
+
+def _encode_change_py(change: Change | dict) -> bytes:
+    """The Python serializer: the native route's plain version."""
     if isinstance(change, dict):
         change = Change.from_dict(change)
     out = bytearray()
@@ -100,12 +153,33 @@ def encode_change(change: Change | dict) -> bytes:
     return bytes(out)
 
 
-def decode_change(buf) -> Change:
+def decode_change(buf, native: bool = True) -> Change:
     """Parse protobuf bytes into a Change.
 
     Unknown fields are skipped (proto2 semantics); missing required
-    fields raise ``ValueError``.
+    fields raise ``ValueError``.  ``native=False`` runs the Python
+    parser.  The native route is chosen by inspecting the buffer, not by
+    catching its errors: a strided numpy array raises ``ValueError``
+    from the buffer protocol, which would read as a corrupt payload, and
+    a multi-byte-itemsize view parses per element in Python; both keep
+    the Python semantics.
     """
+    if native:
+        t = type(buf)
+        if t is bytes or t is bytearray:
+            return _fastpath_mod().decode_change_c(Change, buf, NeedMoreData)
+        try:
+            mv = buf if t is memoryview else memoryview(buf)
+        except TypeError:
+            mv = None
+        if (mv is not None and mv.c_contiguous and mv.itemsize == 1
+                and mv.ndim == 1):
+            return _fastpath_mod().decode_change_c(Change, mv, NeedMoreData)
+    return _decode_change_py(buf)
+
+
+def _decode_change_py(buf) -> Change:
+    """The Python parser: the native route's plain version."""
     buf = memoryview(buf)
     n = len(buf)
     i = 0

@@ -1467,16 +1467,22 @@ WIRE_FRAMING = ("framing.py", '''
 
 
 def test_difference_bulk_index_surface_only_where_defined(tmp_path):
+    """A retired difference, kept under its name: the port's decoder has
+    its bulk-index route, so the port now requires the ``_run_indexed``
+    anchor as the reference does, and a project without it gets the
+    reference's lost-anchor finding, line for line."""
     from dat_replication_protocol_tpu_torch.analysis.rules.wire_dispatch \
         import WireDispatchParity
 
     for name, source in (WIRE_FRAMING, WIRE_NO_BULK):
         (tmp_path / name).write_text(textwrap.dedent(source))
     rules = [WireDispatchParity()]
-    assert port_paths([tmp_path], rules) == []
+    port = port_paths([tmp_path], rules)
     ref = reference_findings([tmp_path], rules)
     assert len(ref) == 1 and "_run_indexed" in ref[0].message \
         and "lost its anchor" in ref[0].message
+    assert [(f.line, f.message) for f in port] == [
+        (f.line, f.message) for f in ref]
     # losing the scanner anchor stays loud on both
     (tmp_path / "decoder.py").write_text(textwrap.dedent(
         WIRE_NO_BULK[1]).replace("_scan_header", "_scan_hdr"))
@@ -1553,9 +1559,10 @@ def test_difference_cli_and_generators_name_the_port(tmp_path, capsys):
 
 def test_parity_helper_catches_a_disagreement(tmp_path):
     # the differential check itself must bite: the same fixture as the
-    # bulk-index difference, where the analyzers part, fails run_paths
-    for name, source in (WIRE_FRAMING, WIRE_NO_BULK):
-        (tmp_path / name).write_text(textwrap.dedent(source))
+    # CUDA-sources difference, where the analyzers part, fails run_paths
+    (tmp_path / "rabin.py").write_text(GEAR_PY)
+    (tmp_path / "gear.cuh").write_text(
+        "constexpr uint32_t GEAR_C1 = 0x9E3779B3;\n")
     with pytest.raises(AssertionError, match="disagree"):
         run_paths([tmp_path])
     assert rows(port_paths([tmp_path]), [tmp_path]) != rows(

@@ -438,3 +438,28 @@ def test_python_m_obs_loads_no_jax_package_module(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "fleet-check: 1 check(s), 0 failed" in out.stdout
     assert out.stderr.strip().splitlines()[-1] == "[]"
+
+
+def test_native_sources_are_the_ports_own_copies():
+    # the host libraries build from the port's own native/ sources: no
+    # #include and no path reaches into the JAX package's native/
+    from dat_replication_protocol_tpu_torch.runtime import fastpath, native
+
+    for mod in (native, fastpath):
+        assert PORT / "native" in mod.SOURCE.parents
+    c_files = sorted((PORT / "native").glob("*.cpp")) + sorted(
+        (PORT / "csrc").glob("*.cu*"))
+    assert {p.name for p in c_files} >= {"dat_native.cpp",
+                                         "dat_fastpath.cpp"}
+    jax_native = ("dat_replication_protocol_tpu/native",
+                  "dat_replication_protocol_tpu\\native")
+    for p in c_files:
+        for line in p.read_text().splitlines():
+            if line.lstrip().startswith("#include"):
+                target = line.split("#include", 1)[1].strip()
+                assert target.startswith("<") or "/" not in target, (p, line)
+                assert ".." not in target, (p, line)
+    for p in sorted(PORT.rglob("*")):
+        if p.suffix in (".py", ".cpp", ".cu", ".cuh", ".h"):
+            text = p.read_text()
+            assert not any(j in text for j in jax_native), p
