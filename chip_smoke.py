@@ -15,7 +15,9 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    builds the two host libraries of the native codec route from
    ``native/`` (``dat_native``, ``dat_fastpath`` against this
    interpreter's ``Python.h``); their build seconds, the host's ``g++``
-   version and whether ``triton`` imports are printed;
+   version, whether ``triton`` imports and which batched syscalls the
+   wire pump finds (``dat_pump_probe``: ``recvmmsg``, ``sendmmsg``) are
+   printed;
 2. kernels against their plain PyTorch versions on the card, byte-exact:
    both variants of B1 (batched BLAKE2b: one thread or four lanes per
    item) at edge lengths across four buckets and on buckets of 1, 31, 32
@@ -37,7 +39,25 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    repeat of each session under ``torch.profiler`` gives the device time by
    kernel and the busy share (the spans' device ranges printed apart,
    not counted); then a short session through ``sidecar.run_session``
-   over an in-memory byte pair;
+   over an in-memory byte pair.  Then the wire pump (``session/pump.py``),
+   the same traffic on both routes: (a) 256 x (32 ``change()`` records +
+   one 1 MiB blob), about 256 MiB, through ``sidecar.run_session`` over
+   loopback TCP with ``rx_fd``/``tx_fd`` (the batched route:
+   ``recv_pump``, the gather writer) and with the socket's callables only
+   (the plain Python pump), five alternating turns with the obs gate
+   off: every reply digest equal to ``hashlib``'s in submit order, both
+   routes' GiB/s, medians and their ratio; then one gated turn a route
+   (the one place before phase 13 with the gate on) for the
+   ``transport.pump.*`` counters and ``transport.pump.native.seconds``
+   (the plain route's must be 0); (b) a 64 MiB wire to 8 fd peers on
+   socketpairs, each drained by a reader that hashes it, through
+   ``FanoutServer(native=True)`` and ``native=False`` in turns N P P N:
+   every peer's length and BLAKE2b the wire's, MiB/s a route, and on a
+   gated native turn ``transport.pump.gather.bytes`` ==
+   ``fanout.sent.bytes``; (c) ``io_for_socket``'s batched writer to a
+   peer that never reads, ``SO_SNDTIMEO`` 0.5 s: ``OSError(EAGAIN)``
+   within 5 s (the JAX package's writer retries forever).  Every socket
+   and fd path of the later phases runs on the batched route;
 4. ``entry()`` at BASELINE.json configs[4]'s width: 2^20 payloads hashed
    and folded to a Merkle root, held against ``root_host``;
 5. times on the device alone (a CUDA graph of the launches): B1
@@ -169,7 +189,7 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    counterpart's.  With one card the collectives run across one rank
    only; the tests run them across 2 and 4 ``gloo`` ranks on the CPU.
 13. telemetry, the only phase with the obs gate on (phases 1-12 run with
-   it off).  13a: phase 3's session at 256 blobs, five times with the
+   it off, but for phase 3's two gated pump turns).  13a: phase 3's session at 256 blobs, five times with the
    gate off and five times with it on, alternating; the medians and
    their ratio are the gate's cost on this host.  13b: one gated run
    whose span ring is widened to hold it whole: the counters must equal the session's truth (``decoder.changes``/``blobs``/
@@ -234,7 +254,8 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    of an 8 MiB wire (a change run of ~1.5% of it, then 1 MiB blobs), each
    reply held against ``hashlib``, every stats line parsed and its hub
    breakdown checked against the live connections, the wire cost ledger
-   tiling every connection; the same clients on a sidecar without
+   tiling every connection, the last record's ``pump.route`` ``native``
+   with ``transport.pump.batches`` above 0; the same clients on a sidecar without
    ``--stats-fd`` (telemetry off), each reply held against ``hashlib``
    and timed; then a ``--hub-max-sessions 2`` sidecar
    holding two clients halfway: a third must read EOF and be logged
@@ -319,8 +340,9 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    wire held halfway until a stats record's ``edge`` section holds all
    16 (by kind and class, each named in the hub's breakdown by its
    client port), ``/healthz`` 200 with its ``loop_lag`` stage, then
-   released: each reply against ``hashlib``, every stats line parsed;
-   then ``--edge --hub-max-sessions 2``: a third client reads EOF and is
+   released: each reply against ``hashlib``, every stats line parsed,
+   the sidecar's peak RSS (its ``VmRSS`` sampled every 0.1 s) printed
+   (17a prints this process's ``ru_maxrss``); then ``--edge --hub-max-sessions 2``: a third client reads EOF and is
    logged ``rejected``, the two held finish byte-exact.  17e:
    ``session_over_asyncio`` over 13a's 256-blob session into
    ``decode(backend="cuda")``, every digest against ``hashlib`` in submit
@@ -594,6 +616,8 @@ def build_host_libraries() -> dict:
                      else "found built")
     native.get_lib()
     fastpath.get()
+    caps = native.pump_probe()  # the wire pump's batched syscalls
+    out["pump"] = {"recvmmsg": bool(caps & 1), "sendmmsg": bool(caps & 2)}
     include = sysconfig.get_paths()["include"]
     out["python_h"] = os.path.isfile(os.path.join(include, "Python.h"))
     out["triton"] = importlib.util.find_spec("triton") is not None
@@ -899,6 +923,293 @@ def run_sidecar(device, n_changes=16, n_blobs=4, blob_bytes=64 << 10) -> dict:
     if launches["blake2b"] == 0:
         raise AssertionError("the sidecar session never launched B1")
     return {"digests": out["digests"], "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the wire pump: the batched route against the plain one
+# ---------------------------------------------------------------------------
+
+PUMP_BLOBS = 256  # the loopback session: phase 3's shape at 256 blobs
+PUMP_TURNS = 5  # alternating turns of each route's loopback session
+PUMP_FAN_BYTES = 64 * MIB  # the gather's wire
+PUMP_FAN_PEERS = 8
+PUMP_SNDTIMEO_S = 0.5  # the send-timeout arm's SO_SNDTIMEO
+PUMP_COUNTERS = ("batches", "msgs", "syscalls", "syscalls_saved", "bytes")
+
+
+def pump_session_wire(n_blobs=PUMP_BLOBS) -> tuple:
+    """Phase 3's shape at ``n_blobs`` (32 ``change()`` records, then one
+    1 MiB blob, each time) as one encoded wire, and its ``hashlib``
+    digests by kind in submit order."""
+    import dat_replication_protocol_tpu_torch as protocol
+
+    blobs, changes = make_session(n_blobs, BLOB_BYTES, CHANGES_PER_BLOB,
+                                  seed=SEED + 190)
+    enc = protocol.encode()
+    want = {"change": [], "blob": []}
+    parts = []
+    for b in range(n_blobs):
+        for c in changes[b * CHANGES_PER_BLOB:(b + 1) * CHANGES_PER_BLOB]:
+            enc.change(c)
+            want["change"].append(blake(protocol.encode_change(c)))
+        blob = blobs[b * BLOB_BYTES:(b + 1) * BLOB_BYTES]
+        enc.blob(BLOB_BYTES).end(blob)
+        want["blob"].append(blake(blob))
+        while chunk := enc.read(1 << 24):
+            parts.append(chunk)
+    enc.finalize()
+    while (chunk := enc.read(1 << 24)) is not None:
+        parts.append(chunk)
+    return b"".join(parts), want
+
+
+def reply_digests(raw: bytes) -> dict:
+    """The sidecar's reply stream as digests by kind, in its order, with
+    each kind's sequence numbers checked to run 0, 1, 2, ..."""
+    import dat_replication_protocol_tpu_torch as protocol
+
+    dec = protocol.decode()
+    got = {"change": [], "blob": []}
+    dec.change(lambda c, done: (got[c.subset.split(":")[1]].append(
+        (c.change, bytes(c.value))), done()))
+    dec.write(raw)
+    dec.end()
+    if not dec.finished:
+        raise AssertionError("phase 3's pump: a reply is not a whole session")
+    for kind, rows in got.items():
+        if [seq for seq, _ in rows] != list(range(len(rows))):
+            raise AssertionError(f"phase 3's pump: {kind} replies out of "
+                                 f"order")
+    return {kind: [d for _, d in rows] for kind, rows in got.items()}
+
+
+def pump_session_turn(device, wire: bytes, native: bool) -> dict:
+    """One digest session over loopback TCP: ``sidecar.run_session`` on
+    the accepted socket, with its fds (the batched route) or with its
+    callables only (the plain Python pump), against a client that sends
+    the wire and reads the reply to EOF.  Seconds from the connect to
+    the reply's EOF."""
+    import socket
+    import threading
+
+    from dat_replication_protocol_tpu_torch import sidecar
+
+    srv = socket.create_server(("127.0.0.1", 0))
+    rec = {}
+
+    def serve():
+        conn, _ = srv.accept()
+        try:
+            fds = ({"rx_fd": conn.fileno(), "tx_fd": conn.fileno()}
+                   if native else {})
+            rec.update(sidecar.run_session(
+                conn.recv, conn.sendall,
+                close_write=lambda: conn.shutdown(socket.SHUT_WR),
+                device=device, **fds))
+        finally:
+            conn.close()
+
+    reply = bytearray()
+
+    def read_reply(sock):
+        while d := sock.recv(1 << 20):
+            reply.extend(d)
+
+    server = threading.Thread(target=serve, daemon=True)
+    server.start()
+    t0 = time.perf_counter()
+    sock = socket.create_connection(srv.getsockname())
+    try:
+        reader = threading.Thread(target=read_reply, args=(sock,),
+                                  daemon=True)
+        reader.start()
+        sock.sendall(wire)
+        sock.shutdown(socket.SHUT_WR)
+        reader.join(600)
+        server.join(600)
+        seconds = time.perf_counter() - t0
+    finally:
+        sock.close()
+        srv.close()
+    if reader.is_alive() or server.is_alive() or not rec.get("ok"):
+        raise AssertionError(f"phase 3's pump: the {('plain', 'native')[native]}"
+                             f" session failed: {rec}")
+    return {"seconds": seconds, "gib_s": len(wire) / seconds / (1 << 30),
+            "digests": reply_digests(bytes(reply)), "record": rec}
+
+
+def pump_counters(snap: dict) -> dict:
+    c = snap["counters"]
+    out = {k: c.get(f"transport.pump.{k}", 0) for k in PUMP_COUNTERS}
+    h = snap["histograms"].get("transport.pump.native.seconds", {})
+    out["native_s"] = {"count": h.get("count", 0), "sum": h.get("sum", 0.0)}
+    out["gather_bytes"] = c.get("transport.pump.gather.bytes", 0)
+    out["fanout_sent"] = c.get("fanout.sent.bytes", 0)
+    return out
+
+
+def pump_fanout_turn(wire: bytes, native: bool) -> dict:
+    """``wire`` through a ``FanoutServer(native=native)`` to
+    ``PUMP_FAN_PEERS`` fd peers on socketpairs, each drained by a thread
+    that hashes what it reads: every peer's length and BLAKE2b must be
+    the wire's.  Seconds from the first publish to the last reader's
+    EOF."""
+    import socket
+    import threading
+
+    from dat_replication_protocol_tpu_torch.fanout import FanoutServer
+
+    srv = FanoutServer(retention_budget=len(wire) + MIB, stall_timeout=60.0,
+                       max_peers=PUMP_FAN_PEERS, native=native)
+    pairs, peers, readers, got = [], [], [], {}
+
+    def drain(i, sock):
+        h = hashlib.blake2b(digest_size=32)
+        n = 0
+        while d := sock.recv(1 << 20):
+            h.update(d)
+            n += len(d)
+        got[i] = (n, h.digest())
+
+    try:
+        for i in range(PUMP_FAN_PEERS):
+            a, b = socket.socketpair()
+            pairs.append((a, b))
+            peers.append(srv.attach_peer(f"p{i}", fd=a.fileno(), offset=0))
+            t = threading.Thread(target=drain, args=(i, b), daemon=True)
+            t.start()
+            readers.append(t)
+        view = memoryview(wire)
+        t0 = time.perf_counter()
+        for off in range(0, len(wire), MIB):
+            srv.publish(view[off:off + MIB])
+        srv.seal()
+        if not srv.drain(300):
+            raise AssertionError("phase 3's pump: the fan-out did not drain")
+        for peer, (a, _) in zip(peers, pairs):
+            peer.close()
+            a.close()
+        srv.close()  # its owned fd dups close: the readers see EOF
+        for t in readers:
+            t.join(120)
+        seconds = time.perf_counter() - t0
+    finally:
+        srv.close()
+        for a, b in pairs:
+            a.close()
+            b.close()
+    want = (len(wire), blake(wire))
+    if any(got.get(i) != want for i in range(PUMP_FAN_PEERS)):
+        raise AssertionError(f"phase 3's pump: a fan-out peer "
+                             f"({('plain', 'native')[native]}) did not read "
+                             f"the wire byte for byte")
+    return {"seconds": seconds,
+            "mib_s": PUMP_FAN_PEERS * len(wire) / seconds / MIB}
+
+
+def pump_send_timeout() -> dict:
+    """The batched writer of ``io_for_socket`` against a peer that never
+    reads, under ``SO_SNDTIMEO``: ``OSError(EAGAIN)`` within 5 s (the
+    JAX package's writer retries EAGAIN forever)."""
+    import errno
+    import socket
+    import struct
+
+    from dat_replication_protocol_tpu_torch.session.pump import io_for_socket
+
+    a, b = socket.socketpair()
+    try:
+        usec = int(PUMP_SNDTIMEO_S * 1e6)
+        a.setsockopt(socket.SOL_SOCKET, socket.SO_SNDTIMEO,
+                     struct.pack("ll", usec // 1_000_000, usec % 1_000_000))
+        _, wr = io_for_socket(a)
+        t0 = time.perf_counter()
+        try:
+            wr(bytes(64 * MIB))
+        except OSError as e:
+            seconds = time.perf_counter() - t0
+            if e.errno != errno.EAGAIN or seconds > 5.0:
+                raise AssertionError(f"phase 3's pump: the send timeout "
+                                     f"raised {e!r} after {seconds} s")
+            return {"seconds": seconds, "error": type(e).__name__}
+        raise AssertionError("phase 3's pump: 64 MiB reached a peer that "
+                             "never reads")
+    finally:
+        a.close()
+        b.close()
+
+
+def run_wire_pump(device) -> dict:
+    """Phase 3's wire pump: (a) the 256-blob session over loopback TCP on
+    each route in ``PUMP_TURNS`` alternating turns, gate off, then one
+    gated turn a route for the ``transport.pump.*`` counters; (b) the
+    fan-out gather, two alternating turns a route and a gated native
+    one; (c) the send timeout.  B1's launches come back under
+    ``launches``."""
+    from dat_replication_protocol_tpu_torch import obs
+
+    t0 = time.perf_counter()
+    wire, want = pump_session_wire()
+    make_s = time.perf_counter() - t0
+    reset_counters()
+    turns = {True: [], False: []}
+    for i in range(PUMP_TURNS):
+        for native in ((True, False) if i % 2 == 0 else (False, True)):
+            run = pump_session_turn(device, wire, native)
+            if run["digests"] != want:
+                raise AssertionError(f"phase 3's pump: the "
+                                     f"{('plain', 'native')[native]} "
+                                     f"route's digests differ from hashlib's")
+            turns[native].append(run["gib_s"])
+    gated = {}
+    obs_reset()
+    try:
+        for native in (True, False):
+            obs.enable()
+            run = pump_session_turn(device, wire, native)
+            obs.disable()
+            if run["digests"] != want:
+                raise AssertionError("phase 3's pump: a gated turn's "
+                                     "digests differ from hashlib's")
+            gated[native] = dict(pump_counters(obs.snapshot()),
+                                 gib_s=run["gib_s"])
+            obs_reset()
+    finally:
+        obs.disable()
+        obs_reset()
+    launches = read_counters()
+    if gated[True]["batches"] == 0 or gated[False]["batches"] != 0:
+        raise AssertionError(f"phase 3's pump: transport.pump.batches "
+                             f"{gated[True]['batches']} native, "
+                             f"{gated[False]['batches']} plain")
+    session_s = time.perf_counter() - t0
+    wire_bytes = len(wire)
+    del wire
+
+    t1 = time.perf_counter()
+    fan_wire = np.random.default_rng(SEED + 191).bytes(PUMP_FAN_BYTES)
+    fan = {True: [], False: []}
+    for native in (True, False, False, True):
+        fan[native].append(pump_fanout_turn(fan_wire, native)["mib_s"])
+    obs_reset()
+    obs.enable()
+    try:
+        pump_fanout_turn(fan_wire, True)
+        fan_gated = pump_counters(obs.snapshot())
+    finally:
+        obs.disable()
+        obs_reset()
+    sent = PUMP_FAN_PEERS * PUMP_FAN_BYTES
+    if not fan_gated["gather_bytes"] == fan_gated["fanout_sent"] == sent:
+        raise AssertionError(f"phase 3's pump: transport.pump.gather.bytes "
+                             f"{fan_gated['gather_bytes']}, fanout.sent.bytes"
+                             f" {fan_gated['fanout_sent']}, want {sent}")
+    fan_s = time.perf_counter() - t1
+    return {"wire_bytes": wire_bytes, "make_s": make_s, "turns": turns,
+            "median": {k: float(np.median(v)) for k, v in turns.items()},
+            "gated": gated, "fan": fan, "fan_gated": fan_gated,
+            "timeout": pump_send_timeout(), "session_s": session_s,
+            "fan_s": fan_s, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3553,6 +3864,7 @@ class Sidecar:
              *args], cwd=root, stdin=subprocess.DEVNULL,
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
             env={**os.environ, "PYTHONPATH": root}, pass_fds=pass_fds)
+        self.peak_rss_kib = None  # sampled by sample_rss()
         self.lines: list[str] = []
         self.cond = threading.Condition()
         self.reader = threading.Thread(target=self._read, daemon=True)
@@ -3586,6 +3898,29 @@ class Sidecar:
                         f"sidecar: no {text!r} line in {timeout} s; stderr "
                         f"{self.lines[-20:]}")
                 self.cond.wait(min(left, 1.0))
+
+    def sample_rss(self, period: float = 0.1) -> None:
+        """Sample the sidecar's resident set (``VmRSS``) every ``period``
+        seconds until it exits; the largest sample is ``peak_rss_kib``.
+        (Its ``ru_maxrss`` would count this process's pages, which the
+        fork shares with it before the exec.)"""
+        import threading
+
+        def run():
+            path = f"/proc/{self.proc.pid}/status"
+            while self.proc.poll() is None:
+                try:
+                    with open(path) as f:
+                        for line in f:
+                            if line.startswith("VmRSS:"):
+                                self.peak_rss_kib = max(
+                                    self.peak_rss_kib or 0,
+                                    int(line.split()[1]))
+                except OSError:
+                    return  # it exited between the poll and the read
+                time.sleep(period)
+
+        threading.Thread(target=run, daemon=True).start()
 
     def close(self, sig=None) -> None:
         """Stop the sidecar: SIGTERM, or ``sig`` (SIGINT runs its
@@ -4469,7 +4804,12 @@ def run_hub_sidecar(device) -> dict:
     residual = {k: v["residual_bytes"] for k, v in links.items()}
     if len(links) != 2 * sum(HUB_COUNTS) or any(residual.values()):
         raise AssertionError(f"phase 15b: wire cost links {residual}")
+    pump_batches = counters.get("transport.pump.batches", 0)
+    if final["pump"]["route"] != "native" or pump_batches == 0:
+        raise AssertionError(f"phase 15b: the stats record's pump "
+                             f"{final['pump']}, {pump_batches} batches")
     out = {"arms": arms, "b1_launches": b1, "records": len(stats.records),
+           "pump": final["pump"], "pump_batches": pump_batches,
            "counters": {k: counters[k] for k in (
                "hub.admitted", "hub.dispatch.batches", "hub.dispatch.items")},
            "emit_seq": final["emit_seq"]}
@@ -5870,6 +6210,7 @@ def run_edge_sidecar(device) -> dict:
                     "--stats-fd", str(stats.w), "--stats-interval",
                     str(HUB_STATS_S), "--obs-http", "0"],
                    pass_fds=(stats.w,))
+    side.sample_rss()
     stats.start()
     try:
         url = side.wait_for("obs endpoint on", 5).split(" on ", 1)[1]
@@ -5926,6 +6267,7 @@ def run_edge_sidecar(device) -> dict:
         stats.close()
     if stats.errors:
         raise AssertionError(f"17d: stats lines {stats.errors[:3]}")
+    out["peak_rss_kib"] = side.peak_rss_kib
     final = stats.records[-1]
     out["launches"] = sentinel_launches(final)
     # the record at shutdown comes after the loop left the stats
@@ -6715,7 +7057,7 @@ def main() -> int:
     log(f"phase 1: host libraries of the native codec route: dat_native "
         f"{host['dat_native']}, dat_fastpath {host['dat_fastpath']} "
         f"({host['gxx']}; Python.h {host['python_h']}, triton importable "
-        f"{host['triton']})")
+        f"{host['triton']}); the wire pump's probe: {host['pump']}")
     log(f"phase 1: init watchdog on {name}: stages {wd.stages} (name, s "
         f"since start), done at {wd.elapsed_s:.3f} s of a "
         f"{INIT_DEADLINE_S} s deadline, stuck {wd.fired}")
@@ -6788,6 +7130,39 @@ def main() -> int:
     side = run_sidecar(device)
     log(f"phase 3: sidecar.run_session replied {side['digests']} digests, "
         f"launches {side['launches']}")
+    pumped = run_wire_pump(device)
+    session["launches"] = merged_launches(session["launches"],
+                                          pumped["launches"])
+    med = pumped["median"]
+    log(f"phase 3, the wire pump (a): {PUMP_BLOBS} x ({CHANGES_PER_BLOB} "
+        f"change() records + one 1 MiB blob), {pumped['wire_bytes']} wire "
+        f"bytes (made in {pumped['make_s']:.2f} s), through "
+        f"sidecar.run_session over loopback TCP, gate off, "
+        f"{PUMP_TURNS} alternating turns: native (rx_fd/tx_fd) "
+        f"{pumped['turns'][True]} GiB/s, plain (callables) "
+        f"{pumped['turns'][False]} GiB/s; medians {med[True]} / {med[False]}"
+        f" GiB/s, native at {med[True] / med[False]} x; every digest == "
+        f"hashlib in submit order on both routes; on {card}")
+    for native in (True, False):
+        g = pumped["gated"][native]
+        log(f"phase 3, the wire pump (a), gated {('plain', 'native')[native]}"
+            f" turn ({g['gib_s']} GiB/s): transport.pump "
+            f"{ {k: g[k] for k in PUMP_COUNTERS} }, "
+            f"transport.pump.native.seconds {g['native_s']}")
+    fan, fg = pumped["fan"], pumped["fan_gated"]
+    log(f"phase 3, the wire pump (b): a {PUMP_FAN_BYTES} B wire to "
+        f"{PUMP_FAN_PEERS} fd peers on socketpairs, each hashed by its "
+        f"reader (length and BLAKE2b == the wire's): FanoutServer(native="
+        f"True) {fan[True]} MiB/s, native=False {fan[False]} MiB/s "
+        f"(turns N P P N); gated native turn: transport.pump.gather.bytes "
+        f"{fg['gather_bytes']} == fanout.sent.bytes {fg['fanout_sent']}, "
+        f"{fg['batches']} batches, {fg['syscalls']} syscalls; on {card}")
+    log(f"phase 3, the wire pump (c): io_for_socket's writer to a peer that "
+        f"never reads, SO_SNDTIMEO {PUMP_SNDTIMEO_S} s: "
+        f"{pumped['timeout']['error']} (EAGAIN) after "
+        f"{pumped['timeout']['seconds']} s")
+    log(f"phase 3, the wire pump: (a) {pumped['session_s']:.2f} s, (b) "
+        f"{pumped['fan_s']:.2f} s, B1 launches {pumped['launches']['blake2b']}")
 
     enter("4")
     ent = run_entry(device)
@@ -7188,7 +7563,8 @@ def main() -> int:
     log(f"phase 15b: the sidecar's kernel sentinel counted "
         f"{out['b1_launches']} B1 launches; its counters {out['counters']}; "
         f"{out['records']} stats records up to emit_seq {out['emit_seq']}, "
-        f"the wire cost ledger tiles every connection (residual 0)")
+        f"the wire cost ledger tiles every connection (residual 0); pump "
+        f"{out['pump']}, transport.pump.batches {out['pump_batches']}")
     log(f"phase 15b: --hub-max-sessions 2 with 2 clients held in the hub "
         f"(breakdown {rej['breakdown']}): the third read EOF in "
         f"{rej['eof_s']} s and the sidecar logged {rej['record']}; the held "
@@ -7315,8 +7691,11 @@ def main() -> int:
             f"{arm['turns']} turns; B1 launches {arm['b1']}; every reply one "
             f"change == hashlib ({arm['distinct_replies']} distinct); on "
             f"{card}")
-    log(f"phase 17a: B1 launches {p17a['blake2b']}; "
-        f"{time.perf_counter() - t0:.2f} s")
+    import resource
+
+    log(f"phase 17a: B1 launches {p17a['blake2b']}; this process's peak "
+        f"RSS after it {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} "
+        f"KiB (ru_maxrss); {time.perf_counter() - t0:.2f} s")
     t1 = time.perf_counter()
     reset_counters()
     enter("17b")
@@ -7367,7 +7746,9 @@ def main() -> int:
         f"every reply == hashlib; {sd['records']} stats records parsed; the "
         f"last edge section "
         f"{ {k: sd['edge'][k] for k in ('served', 'admitted', 'shed')} }; "
-        f"its sentinel: {sd['launches']}; on {card}")
+        f"its sentinel: {sd['launches']}; the sidecar's peak RSS "
+        f"{sd['peak_rss_kib']} KiB (the largest VmRSS sampled every 0.1 s); "
+        f"on {card}")
     log(f"phase 17d: --edge --hub-max-sessions 2: the third client read EOF"
         f" and the sidecar logged {sd['rejected']['record']}; "
         f"{sd['rejected']['edge']}; the held clients' replies == hashlib; "

@@ -62,11 +62,6 @@ to the AST and therefore classified by their Python-side wait loops, and
 a socket timeout set via ``settimeout``/``SO_RCVTIMEO`` is not visible
 at the recv site — such sites stay "unbounded" and carry an audited
 allow marker where the bound is real.
-
-One difference from the JAX package's certifier: :data:`ENTRY_SPECS`
-has no ``native-send-pump``/``native-recv-pump`` rows.  The port has no
-native wire pump (``session/pump.py`` ``send_pump``/``recv_pump``) yet;
-the rows come back with it.
 """
 
 from __future__ import annotations
@@ -112,6 +107,8 @@ ENTRY_SPECS = (
     ("sidecar-stats", "sidecar.py", "StatsEmitter._run", "driver"),
     ("transport-send-pump", "session/transport.py", "send_over", "pump"),
     ("transport-recv-pump", "session/transport.py", "recv_over", "pump"),
+    ("native-send-pump", "session/pump.py", "send_pump", "pump"),
+    ("native-recv-pump", "session/pump.py", "recv_pump", "pump"),
     ("gossip-driver", "cluster/live.py", "GossipDriver._run", "driver"),
 )
 

@@ -171,6 +171,9 @@ class GossipDriver:
                 int((self._dial_timeout % 1.0) * 1_000_000))
             conn.setsockopt(socket.SOL_SOCKET, socket.SO_RCVTIMEO, tv)
             conn.setsockopt(socket.SOL_SOCKET, socket.SO_SNDTIMEO, tv)
+            # the wire pump's batched reader and writer: a timeout that
+            # runs out raises BlockingIOError from either (the blocking
+            # gather-send returns EAGAIN instead of retrying it)
             rd, wr = io_for_socket(conn)
             stats = run_initiator(
                 node.replica, rd, wr,

@@ -11,12 +11,14 @@ downstream peers at independent offsets:
   B1), exactly once, whatever the peer count.
 * **Per-peer bookkeeping lives in the dispatcher.**  One thread walks
   peers with backlog and an open flow-control window and hands each a
-  scatter-gather slice run (``os.writev`` on fd peers, a ``sink``
+  scatter-gather slice run (one batched gather on fd peers, a ``sink``
   callable otherwise).  The dispatcher never touches frame payloads: it
-  moves ``memoryview`` slices the log already holds.  The port has one
-  pump route (the plain one, ``session/pump.py``), so fd peers are always
-  served by ``os.writev``; the JAX package's batched-syscall gather is
-  not carried.
+  moves ``memoryview`` slices the log already holds.  Fd peers are
+  served through the wire pump's gather (``session/pump.py``
+  :func:`send_spans_nb`: the slices go to ``sendmmsg``/``writev`` as
+  (address, length) spans with the GIL released, up to 16 x ``max_iov``
+  of them a turn); ``FanoutServer(native=False)`` serves them with one
+  ``os.writev`` of ``max_iov`` slices instead, the plain version.
 * **Per-peer flow-control windows** (``window_bytes`` of unacked
   in-flight data, ``max_iov`` slices per writev): a slow peer's window
   closes and only its own stream pauses.
@@ -53,6 +55,7 @@ from ..obs.metrics import (
 from ..obs.tracing import trace_span as _trace_span
 from ..obs.watermarks import WATERMARKS as _WATERMARKS
 from ..obs import wirecost as _wirecost
+from ..session import pump as _pump
 from .log import BroadcastLog, SnapshotNeeded
 
 __all__ = ["FanoutServer", "FanoutPeer", "FanoutBusy", "PeerShed"]
@@ -209,6 +212,7 @@ class FanoutServer:
         stall_timeout: float = 30.0,
         linger_s: float = 0.0005,
         snapshot_hint: Optional[dict] = None,
+        native: bool = True,
     ):
         self.log = log if log is not None else BroadcastLog(
             retention_budget=retention_budget)
@@ -244,6 +248,13 @@ class FanoutServer:
         self.log.set_append_hook(self._on_append)
         self._collector_fn = self._collect
         _REGISTRY.register_collector("fanout", self._collector_fn)
+        # the byte mover of fd peers: one gather batch a turn on the
+        # native route, os.writev with native=False; every window, ack
+        # and shed decision is the same on both
+        self._gather = _pump.SpanGather() if native else None
+        # one native batch carries up to 16 messages of max_iov spans, so
+        # a native turn may serve more slices than one os.writev could
+        self._serve_iov_factor = 16 if native else 1
         # the dispatcher starts NOW, not at first attach: it is also
         # the retention enforcer, and a source can publish gigabytes
         # before the first subscriber ever attaches — budget pressure
@@ -306,8 +317,9 @@ class FanoutServer:
         """Admit one downstream peer at ``offset`` (default: earliest
         retained byte).
 
-        Exactly one transport must be given: ``fd`` (streamed with
-        non-blocking ``os.writev`` — the scatter-gather zero-copy path)
+        Exactly one transport must be given: ``fd`` (streamed with the
+        non-blocking gather, or ``os.writev`` on a ``native=False``
+        server — the scatter-gather zero-copy path)
         or ``sink`` (a callable ``sink(views) -> accepted_bytes``; 0
         means would-block).  ``explicit_ack`` defers log trimming to
         app-level :meth:`FanoutPeer.ack` calls instead of transport
@@ -612,8 +624,12 @@ class FanoutServer:
         """One windowed scatter-gather push to one peer — runs outside
         the server lock; only the dispatcher thread calls transports.
         Returns the bytes the transport accepted."""
+        # only fd peers on the native route take the longer slice run
+        # (one batch); sink peers keep their declared max_iov bound
+        factor = self._serve_iov_factor if st.sink is None else 1
         try:
-            views = self.log.read_slices(st.sent, want, st.max_iov)
+            views = self.log.read_slices(st.sent, want,
+                                         st.max_iov * factor)
         except SnapshotNeeded:
             with self._lock:
                 self._shed_locked(st, "retention")
@@ -628,14 +644,29 @@ class FanoutServer:
             if st.sink is None:
                 if fd is None:
                     return 0  # parked between compose and serve
-                try:
-                    # wire-peer fds are O_NONBLOCK (attach dups the fd
-                    # and set_blocking(False)s it): EAGAIN comes
-                    # straight back as a short turn, never a stall
-                    # datlint: allow-blocking-reachable(os-io)
-                    accepted = os.writev(fd, views[:st.max_iov])
-                except (BlockingIOError, InterruptedError):
-                    accepted = 0
+                if self._gather is not None:
+                    # the gather: log-segment addresses go to the kernel
+                    # with the GIL released; would-block comes back as a
+                    # short accept and a dead peer as OSError, the
+                    # os.writev contract the bookkeeping below is
+                    # written against
+                    n_spans = self._gather.fill(views)
+                    try:
+                        accepted = _pump.send_spans_nb(
+                            fd, self._gather, n_spans)
+                    finally:
+                        # drop the span pins BEFORE the views are
+                        # released below (a pinned view cannot be)
+                        self._gather.release()
+                else:
+                    try:
+                        # wire-peer fds are O_NONBLOCK (attach dups the
+                        # fd and set_blocking(False)s it): EAGAIN comes
+                        # straight back as a short turn, never a stall
+                        # datlint: allow-blocking-reachable(os-io)
+                        accepted = os.writev(fd, views[:st.max_iov])
+                    except (BlockingIOError, InterruptedError):
+                        accepted = 0
             else:
                 # sink peers are the in-process delivery surface (tests,
                 # local taps); the attach contract puts the sink's

@@ -893,23 +893,40 @@ class ReplicationHub:
         """``{key: per-session stats}`` for every live session: the
         ``sessions`` breakdown of the sidecar's ``--stats-fd`` lines."""
         with self._lock:
-            return {key: self._session_stats_locked(self._session_state(key))
-                    for key in self._sessions}
+            return self._sessions_snapshot_locked()
+
+    def _sessions_snapshot_locked(self) -> dict:
+        return {key: self._session_stats_locked(self._session_state(key))
+                for key in self._sessions}
 
     def snapshot(self) -> dict:
         from ..session.pump import effective_pump_route
 
         pump_route = effective_pump_route()
         with self._lock:
-            return {
-                "sessions": len(self._sessions),
-                "parked_bytes": self._parked_bytes,
-                "queued_items": self._q_items,
-                "pump_route": pump_route,
-                "failed": (None if self._failed is None
-                           else f"{type(self._failed).__name__}: "
-                                f"{self._failed}"),
-            }
+            return self._snapshot_locked(pump_route)
+
+    def _snapshot_locked(self, pump_route: str) -> dict:
+        return {
+            "sessions": len(self._sessions),
+            "parked_bytes": self._parked_bytes,
+            "queued_items": self._q_items,
+            "pump_route": pump_route,
+            "failed": (None if self._failed is None
+                       else f"{type(self._failed).__name__}: "
+                            f"{self._failed}"),
+        }
+
+    def stats_sections(self) -> tuple:
+        """``(snapshot(), sessions_snapshot())`` from ONE hold of the hub
+        lock, so a stats record's session count and its breakdown agree
+        (taken apart, a session can register or close between them)."""
+        from ..session.pump import effective_pump_route
+
+        pump_route = effective_pump_route()
+        with self._lock:
+            return (self._snapshot_locked(pump_route),
+                    self._sessions_snapshot_locked())
 
     def admission_state(self) -> dict:
         """Lock-free admission view for ``/healthz``: plain attribute

@@ -2,10 +2,10 @@
 // loaded with ctypes by runtime/native.py).
 //
 // A trimmed copy of the JAX package's native/dat_native.cpp: the frame
-// splitter, the greedy CDC cut pass and the columnar Change codec.  The
-// hash, sketch, rateless, gear and socket-pump engines of that file are
-// not here: the port runs that work on the card (kernels B1-B6) or in
-// the Python pump.
+// splitter, the greedy CDC cut pass, the columnar Change codec and the
+// batched-syscall wire pump.  The hash, sketch, rateless and gear
+// engines of that file are not here: the port runs that work on the
+// card (kernels B1-B6).
 //
 //   dat_split_frames          multibuffer framing: varint(len+1) | id | payload
 //   dat_greedy_select         min/max cut pass over sorted CDC candidates
@@ -13,11 +13,16 @@
 //                             (strings/bytes as (offset, len) views)
 //   dat_encode_changes[_mt]   columnar arrays -> framed `Change` records
 //   dat_encode_change_batch   columnar arrays -> one ChangeBatch payload
+//   dat_pump_probe            which batched syscalls the kernel serves
+//   dat_pump_recv_scan        batched receive + frame index of the slab
+//   dat_pump_send[_nb]        gather-send of (address, length) spans
 //
-// One difference from the JAX package's copy: the columnar decoder
+// Two differences from the JAX package's copy: the columnar decoder
 // checks that every key and subset occurrence is UTF-8, as the port's
 // per-record codec does, so a record the Python route rejects is
-// rejected here too (the JAX package's dat_decode_changes accepts it).
+// rejected here too (the JAX package's dat_decode_changes accepts it);
+// and a blocking gather-send returns -EAGAIN when the fd's SO_SNDTIMEO
+// runs out, where the JAX package's retries forever.
 //
 // Build: g++ -O3 -std=c++17 -shared -fPIC -pthread (runtime/native.py,
 // at first use, into build/torch_host/).
@@ -709,6 +714,344 @@ int64_t dat_encode_change_batch(const uint8_t* src, int64_t n,
     }
   }
   return w;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The wire pump: batched-syscall socket loops (session/pump.py).
+//
+// The Python pumps (session/transport.py) make one interpreter round
+// trip per read or write.  These entry points move whole batches of wire
+// bytes per ctypes call, with the GIL released for the call's whole
+// duration, so the interpreter sees one wakeup per multi-megabyte slab:
+//
+//   dat_pump_probe      which batched syscalls this kernel serves
+//   dat_pump_recv_scan  blocking first read + MSG_DONTWAIT recvmmsg
+//                       drain + frame index over the received prefix
+//                       (dat_split_frames above: one scanner, so the
+//                       pump cannot fork the framing)
+//   dat_pump_send       gather-send spans to a blocking fd
+//                       (sendmmsg batches; writev on fds without them)
+//   dat_pump_send_nb    gather-send until EAGAIN on a non-blocking fd
+//                       (the fan-out's path: the spans are BroadcastLog
+//                       segment memory, never copies)
+//
+// Each call degrades per fd: ENOSYS / ENOTSOCK / EOPNOTSUPP / EINVAL
+// take plain read/writev batches, so pipes (the sidecar's --stdio) and
+// kernels without the mmsg syscalls carry the same byte stream.
+//
+// One difference from the JAX package's copy: on a BLOCKING fd, EAGAIN
+// means SO_SNDTIMEO ran out (a peer that stopped reading), so the
+// blocking send returns -EAGAIN, as a timed-out send(2) does, where the
+// JAX package's retries it forever.
+
+#include <errno.h>
+#include <sys/socket.h>
+#include <sys/uio.h>
+#include <unistd.h>
+
+namespace {
+
+// geometry of one batched syscall: messages per mmsg call x iovecs per
+// message.  16 x 64 = up to 1,024 spans (or 16 receive slices) a call.
+constexpr int PUMP_MSGS = 16;
+constexpr int PUMP_IOV = 64;
+
+// errno says this fd or kernel cannot serve the mmsg syscall at all (the
+// degrade decision, distinct from a transient EAGAIN / EINTR)
+inline bool mmsg_unsupported(int e) {
+  return e == ENOSYS || e == ENOTSOCK || e == EOPNOTSUPP || e == EINVAL;
+}
+
+struct SpanCursor {
+  const int64_t* addrs;
+  const int64_t* lens;
+  int64_t n;
+  int64_t si = 0;   // current span
+  int64_t off = 0;  // bytes of span si already sent
+  bool done() const { return si >= n; }
+  // fill up to `cap` iovecs from the cursor; returns the count
+  int fill(struct iovec* iov, int cap) const {
+    int k = 0;
+    int64_t s = si, o = off;
+    while (k < cap && s < n) {
+      if (lens[s] <= o) {
+        ++s;
+        o = 0;
+        continue;
+      }
+      iov[k].iov_base =
+          reinterpret_cast<void*>(static_cast<uintptr_t>(addrs[s]) + o);
+      iov[k].iov_len = static_cast<size_t>(lens[s] - o);
+      ++k;
+      ++s;
+      o = 0;
+    }
+    return k;
+  }
+  void advance(int64_t nbytes) {
+    while (nbytes > 0 && si < n) {
+      int64_t left = lens[si] - off;
+      if (nbytes < left) {
+        off += nbytes;
+        return;
+      }
+      nbytes -= left;
+      ++si;
+      off = 0;
+    }
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// Runtime probe: bit 0 = recvmmsg served, bit 1 = sendmmsg served.  A
+// call on fd -1 tells "the syscall exists" (EBADF) from "the kernel does
+// not serve it" (ENOSYS) without touching a real descriptor.
+int64_t dat_pump_probe(void) {
+  int64_t caps = 0;
+  errno = 0;
+  if (recvmmsg(-1, nullptr, 0, 0, nullptr) < 0 && errno != ENOSYS)
+    caps |= 1;
+  errno = 0;
+  if (sendmmsg(-1, nullptr, 0, 0) < 0 && errno != ENOSYS) caps |= 2;
+  return caps;
+}
+
+// Batched receive + frame scan, one GIL-released call:
+//
+//   1. ONE read() (the wakeup; blocks on a blocking fd, -EAGAIN on a
+//      non-blocking one; works on sockets and pipes);
+//   2. drain what the kernel already buffered with MSG_DONTWAIT
+//      recvmmsg batches (never blocks; pipes and old kernels skip it);
+//   3. index the received prefix's complete frames with
+//      dat_split_frames (the decoder's bulk entry takes the index).
+//
+// Returns the bytes received (0 = EOF before any byte; after an EOF
+// mid-batch the next call sees it), or -errno.  nframes / consumed / err
+// are dat_split_frames' outputs over the prefix (a malformed header
+// leaves nframes 0, so the decoder's streaming scanner meets it and
+// raises its own error); stats[0] counts syscalls made, stats[1]
+// messages (reads) landed: stats[1] - stats[0] is what batching saved.
+//
+// cap must hold at least one maximal frame header or the scan could
+// never make progress:  // wire: MAX_HEADER_LEN = 11
+int64_t dat_pump_recv_scan(int64_t fd, uint8_t* dst, int64_t cap,
+                           int64_t slice, int64_t* starts, int64_t* lens,
+                           uint8_t* ids, int64_t icap, int64_t* nframes,
+                           int64_t* consumed, int64_t* err,
+                           int64_t* stats) {
+  *nframes = 0;
+  *consumed = 0;
+  *err = 0;
+  stats[0] = 0;
+  stats[1] = 0;
+  if (cap < 11 || slice < 1) return DAT_ERR_CAPACITY;
+  if (slice > cap) slice = cap;
+  int64_t total = 0;
+  for (;;) {  // the wakeup read
+    ssize_t r = read(static_cast<int>(fd), dst, static_cast<size_t>(slice));
+    ++stats[0];
+    if (r < 0) {
+      if (errno == EINTR) continue;
+      return -static_cast<int64_t>(errno);
+    }
+    total = r;
+    break;
+  }
+  if (total == 0) return 0;  // EOF
+  ++stats[1];
+  // drain only when the wakeup read filled its slice: a short first read
+  // means the kernel buffer is (for now) empty, and a recvmmsg would only
+  // buy an EAGAIN, the very syscall this pump exists to save
+  bool more = total >= slice;
+  while (more && cap - total > 0) {
+    struct mmsghdr hdrs[PUMP_MSGS];
+    struct iovec iov[PUMP_MSGS];
+    int k = 0;
+    int64_t off = total;
+    while (k < PUMP_MSGS && off < cap) {
+      int64_t take = cap - off < slice ? cap - off : slice;
+      iov[k].iov_base = dst + off;
+      iov[k].iov_len = static_cast<size_t>(take);
+      std::memset(&hdrs[k].msg_hdr, 0, sizeof(hdrs[k].msg_hdr));
+      hdrs[k].msg_hdr.msg_iov = &iov[k];
+      hdrs[k].msg_hdr.msg_iovlen = 1;
+      hdrs[k].msg_len = 0;
+      off += take;
+      ++k;
+    }
+    int r = recvmmsg(static_cast<int>(fd), hdrs, static_cast<unsigned>(k),
+                     MSG_DONTWAIT, nullptr);
+    ++stats[0];
+    // EAGAIN: drained.  Unsupported (a pipe, an old kernel): the wakeup
+    // read stands alone.  EINTR and hard errors: deliver what came; the
+    // bytes already received reach the decoder before the next call can
+    // surface anything
+    if (r < 0) break;
+    // STREAM semantics: each message is its own recvmsg into a fixed
+    // offset, so a short message followed by a non-empty one (bytes that
+    // landed between the two) leaves a HOLE at the layout offsets.
+    // Compact every message down to the running cursor: the wire must be
+    // contiguous in dst
+    int64_t w = total;
+    for (int m2 = 0; m2 < r; ++m2) {
+      int64_t got = hdrs[m2].msg_len;
+      if (got == 0) {  // EOF: deliver the prefix
+        more = false;
+        break;
+      }
+      if (dst + w != static_cast<uint8_t*>(iov[m2].iov_base))
+        std::memmove(dst + w, iov[m2].iov_base, static_cast<size_t>(got));
+      w += got;
+      ++stats[1];
+      if (got < static_cast<int64_t>(iov[m2].iov_len))
+        more = false;  // a short message: the kernel buffer is drained
+    }
+    total = w;
+    if (r < k) more = false;
+  }
+  int64_t nf = dat_split_frames(dst, total, starts, lens, ids, icap,
+                                consumed, err);
+  if (nf == DAT_ERR_CAPACITY) {
+    // the filled prefix is a whole, valid index (frames [0, icap), with
+    // `consumed` one past the last stored frame): the unindexed tail
+    // re-enters the decoder's queue, so callers size the index for the
+    // typical frame density, not the 2-byte worst case
+    nf = icap;
+    *err = 0;
+  } else if (nf < 0) {
+    nf = 0;
+    *consumed = 0;
+    *err = 0;
+  }
+  *nframes = nf;
+  return total;
+}
+
+}  // extern "C"
+
+namespace {
+
+// The gather-send core.  Walks the span cursor with sendmmsg batches
+// (PUMP_MSGS messages x PUMP_IOV iovecs a syscall; a stream socket
+// concatenates them in order) and takes writev batches when the fd or
+// kernel cannot serve sendmmsg.  A partial acceptance (short msg_len,
+// short writev) resumes mid-span.  `stop_on_block`: return the accepted
+// total at EAGAIN (a non-blocking fan-out peer).  Without it EAGAIN is
+// an error: on a blocking fd it means SO_SNDTIMEO ran out.  Returns the
+// bytes the kernel accepted, or -errno on an error (bytes accepted
+// before it are gone either way, as with a failed os.writev).
+int64_t pump_send_core(const int64_t* addrs, const int64_t* lens, int64_t n,
+                       int fd, bool stop_on_block, int64_t* stats) {
+  SpanCursor cur{addrs, lens, n};
+  int64_t total = 0;
+  bool use_mmsg = true;
+  while (!cur.done()) {
+    if (use_mmsg) {
+      struct mmsghdr hdrs[PUMP_MSGS];
+      struct iovec iov[PUMP_MSGS * PUMP_IOV];
+      SpanCursor peek = cur;
+      int m = 0;
+      int filled = 0;
+      while (m < PUMP_MSGS && !peek.done()) {
+        int k = peek.fill(iov + filled, PUMP_IOV);
+        if (k == 0) break;
+        std::memset(&hdrs[m].msg_hdr, 0, sizeof(hdrs[m].msg_hdr));
+        hdrs[m].msg_hdr.msg_iov = iov + filled;
+        hdrs[m].msg_hdr.msg_iovlen = static_cast<size_t>(k);
+        hdrs[m].msg_len = 0;
+        int64_t span_bytes = 0;
+        for (int i = 0; i < k; ++i)
+          span_bytes += static_cast<int64_t>(iov[filled + i].iov_len);
+        peek.advance(span_bytes);
+        filled += k;
+        ++m;
+      }
+      if (m == 0) break;
+      int r = sendmmsg(fd, hdrs, static_cast<unsigned>(m),
+                       stop_on_block ? MSG_DONTWAIT : 0);
+      ++stats[0];
+      if (r < 0) {
+        if (errno == EINTR) continue;
+        if (errno == EAGAIN || errno == EWOULDBLOCK) {
+          if (stop_on_block) return total;
+          return -static_cast<int64_t>(errno);  // SO_SNDTIMEO ran out
+        }
+        if (mmsg_unsupported(errno)) {
+          use_mmsg = false;  // degrade to the writev loop
+          continue;
+        }
+        return -static_cast<int64_t>(errno);
+      }
+      bool partial = false;
+      for (int i = 0; i < r; ++i) {
+        int64_t sent = hdrs[i].msg_len;
+        total += sent;
+        cur.advance(sent);
+        ++stats[1];
+        int64_t msg_total = 0;
+        for (size_t v = 0; v < hdrs[i].msg_hdr.msg_iovlen; ++v)
+          msg_total +=
+              static_cast<int64_t>(hdrs[i].msg_hdr.msg_iov[v].iov_len);
+        if (sent < msg_total) {
+          partial = true;
+          break;
+        }
+      }
+      // a partial message (or fewer messages than asked) means the kernel
+      // stopped accepting: non-blocking callers return the accepted total,
+      // blocking ones re-enter from the cursor
+      if ((partial || r < m) && stop_on_block) return total;
+      continue;
+    }
+    struct iovec iov[PUMP_IOV];
+    int k = cur.fill(iov, PUMP_IOV);
+    if (k == 0) break;
+    ssize_t w = writev(fd, iov, k);
+    ++stats[0];
+    if (w < 0) {
+      if (errno == EINTR) continue;
+      if (errno == EAGAIN || errno == EWOULDBLOCK) {
+        if (stop_on_block) return total;
+        return -static_cast<int64_t>(errno);  // SO_SNDTIMEO ran out
+      }
+      return -static_cast<int64_t>(errno);
+    }
+    ++stats[1];
+    total += w;
+    cur.advance(w);
+  }
+  return total;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Gather-send `n` (address, length) spans to a BLOCKING fd.  Returns the
+// bytes written (the sum of lens on success) or -errno; -EAGAIN when the
+// fd's SO_SNDTIMEO ran out.  stats[0] = syscalls, stats[1] = messages /
+// writevs accepted.
+int64_t dat_pump_send(const int64_t* addrs, const int64_t* lens, int64_t n,
+                      int64_t fd, int64_t* stats) {
+  stats[0] = 0;
+  stats[1] = 0;
+  return pump_send_core(addrs, lens, n, static_cast<int>(fd), false, stats);
+}
+
+// Gather-send to a NON-BLOCKING fd: push batches until the kernel stops
+// accepting (EAGAIN, a partial acceptance) and return the bytes accepted
+// so far (>= 0), as a short os.writev does.  Hard errors are -errno
+// (EPIPE, EBADF: the caller sheds the peer as a disconnect).
+int64_t dat_pump_send_nb(const int64_t* addrs, const int64_t* lens,
+                         int64_t n, int64_t fd, int64_t* stats) {
+  stats[0] = 0;
+  stats[1] = 0;
+  return pump_send_core(addrs, lens, n, static_cast<int>(fd), true, stats);
 }
 
 }  // extern "C"

@@ -16,12 +16,16 @@ an explicit ``native=False`` at that entry point.  ``g++`` is bounded by
 :data:`BUILD_TIMEOUT_S` (the first load may sit on the edge loop's
 path, through the decoder), and killed past it.
 
-Entry points (the JAX package's ``runtime/native.py``, the codec half):
-:func:`split_frames`, :func:`greedy_select`, :func:`decode_changes`,
-:func:`encode_changes` and :func:`encode_change_batch`.  The threaded
+Entry points (the JAX package's ``runtime/native.py``, the codec and
+pump halves): :func:`split_frames`, :func:`greedy_select`,
+:func:`decode_changes`, :func:`encode_changes`,
+:func:`encode_change_batch`, and the wire pump's :func:`pump_probe`,
+:func:`pump_recv_scan` and :func:`pump_send_spans`.  The threaded
 entries run on the hardware's count of threads, as the JAX package's do
 with ``DAT_NTHREADS`` unset; :func:`decode_changes_serial` is the serial
-decode the session decoder runs on its own thread.
+decode the session decoder runs on its own thread.  The pump's wrappers
+are thin: the route, the decoder feeding, flow control and telemetry
+live in ``session/pump.py``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from ..wire.framing import MAX_HEADER_LEN
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "native" / "dat_native.cpp"
@@ -73,6 +79,12 @@ SIGNATURES = {
     "dat_encode_changes_mt": (_I64, [_U8P, _I64, *_COLS, _U8P, _I64,
                                      _I64]),
     "dat_encode_change_batch": (_I64, [_U8P, _I64, *_COLS, _U8P, _I64]),
+    "dat_pump_probe": (_I64, []),
+    "dat_pump_recv_scan": (_I64, [_I64, _U8P, _I64, _I64, _I64P, _I64P,
+                                  _U8P, _I64, _I64REF, _I64REF, _I64REF,
+                                  _I64P]),
+    "dat_pump_send": (_I64, [_I64P, _I64P, _I64, _I64, _I64P]),
+    "dat_pump_send_nb": (_I64, [_I64P, _I64P, _I64, _I64, _I64P]),
 }
 
 _lock = threading.Lock()
@@ -287,3 +299,50 @@ def encode_change_batch(src: np.ndarray, n: int, cols) -> bytes:
     if w < 0:
         raise RuntimeError(f"dat_encode_change_batch failed (code {w})")
     return dst[:w].tobytes()
+
+
+# -- the wire pump ------------------------------------------------------------
+
+
+def pump_probe() -> int:
+    """Bitmask of the batched syscalls this kernel serves (bit 0
+    ``recvmmsg``, bit 1 ``sendmmsg``).  The pump degrades per call on an
+    fd that cannot take them (a pipe: plain ``read``/``writev``
+    batches); the probe only reports."""
+    return int(get_lib().dat_pump_probe())
+
+
+def pump_recv_scan(fd: int, buf: np.ndarray, slice_bytes: int,
+                   starts: np.ndarray, lens: np.ndarray, ids: np.ndarray,
+                   stats: np.ndarray) -> tuple:
+    """One batched receive into ``buf`` (uint8) and a frame index of the
+    received prefix (``dat_pump_recv_scan``): ``(nbytes, nframes,
+    consumed, err)``, ``nbytes`` 0 at EOF and ``-errno`` on a transport
+    error; ``nframes`` and ``consumed`` are :func:`split_frames`'s over
+    the prefix, written into ``starts``/``lens``/``ids`` (as many as
+    they hold).  ``stats`` (int64[2]) gets [syscalls, messages]."""
+    if len(buf) < MAX_HEADER_LEN or slice_bytes < 1:
+        # the C side's DAT_ERR_CAPACITY, which would read as -ENOENT
+        raise ValueError(f"dat_pump_recv_scan: a {len(buf)} B buffer in "
+                         f"{slice_bytes} B slices cannot take a frame "
+                         f"header")
+    nf = ctypes.c_int64(0)
+    consumed = ctypes.c_int64(0)
+    err = ctypes.c_int64(0)
+    n = get_lib().dat_pump_recv_scan(
+        fd, buf, len(buf), slice_bytes, starts, lens, ids, len(starts),
+        ctypes.byref(nf), ctypes.byref(consumed), ctypes.byref(err), stats)
+    return int(n), int(nf.value), int(consumed.value), int(err.value)
+
+
+def pump_send_spans(fd: int, addrs: np.ndarray, lens: np.ndarray, n: int,
+                    stats: np.ndarray, nonblocking: bool = False) -> int:
+    """Gather-send ``n`` (address, length) spans (``dat_pump_send``, or
+    ``dat_pump_send_nb`` with ``nonblocking``): the bytes the kernel
+    accepted (all of them on a blocking fd; up to the first would-block
+    with ``nonblocking``) or ``-errno``.  A blocking send whose fd's
+    ``SO_SNDTIMEO`` ran out is ``-EAGAIN``.  The caller keeps every
+    span's buffer alive across the call."""
+    lib = get_lib()
+    fn = lib.dat_pump_send_nb if nonblocking else lib.dat_pump_send
+    return int(fn(addrs, lens, n, fd, stats))

@@ -43,9 +43,10 @@ the buffer's change payloads in one ``dat_decode_changes`` call, and
 dispatches runs of change frames from the ``dat_fastpath`` C loop (one
 ``decoder.frame.run`` instant a run, where the streaming scanner tags
 each frame); the byte-at-a-time scanner takes split headers, partial
-frames and small writes.  ``Decoder(native=False)`` is the plain
-version: the streaming scanner alone.  A failed build of either host
-library raises.
+frames and small writes.  The wire pump's receive indexes its slab in C
+already and installs that index through :meth:`write_indexed`.
+``Decoder(native=False)`` is the plain version: the streaming scanner
+alone.  A failed build of either host library raises.
 Subclasses tap payloads through :meth:`_deliver_change`,
 :meth:`_note_change_batch` and the blob hooks
 (:meth:`_open_blob_if_ready`, :meth:`_note_blob_bytes`,
@@ -391,6 +392,47 @@ class Decoder:
             return entry not in self._write_cbs  # fired <=> consumed
         return not (self._overflow or self._bulk is not None
                     or self._stalled())
+
+    def write_indexed(self, data, starts, lens, ids, n: int,
+                      consumed: int) -> bool:
+        """Feed wire bytes with their frame index, made by the wire pump's
+        GIL-released receive (``session/pump.py``, ``dat_pump_recv_scan``
+        runs ``dat_split_frames`` over ``data``): the index installs as
+        the bulk cursor without a second scan.  Returns what
+        :meth:`write` returns.
+
+        Only at a clean frame boundary with nothing queued or parked, and
+        only on the native route; anything else, and an empty index, takes
+        :meth:`write`, which gives the same deliveries.  The cursor keeps
+        views of ``starts``/``lens``/``ids`` while it is parked, so the
+        caller must not refill them until :meth:`writable` (the pumps wait
+        for it before their next receive)."""
+        if (not self._native or n <= 0 or self._overflow
+                or self._bulk is not None or self._pbatch is not None
+                or self._state != TYPE_HEADER or self._header
+                or self._consuming or self._stalled()):
+            return self.write(data)
+        if self.destroyed:
+            raise DecoderDestroyedError("write after destroy")
+        if self.finished or self._end_queued:
+            raise DecoderDestroyedError("write after end")
+        import numpy as np
+
+        buf = memoryview(data)
+        self.bytes += len(buf)
+        self._install_index(buf, np.frombuffer(buf, dtype=np.uint8),
+                            starts, lens, ids, n, consumed)
+        if _OBS.on:
+            _M_DEC_BYTES.inc(len(buf))
+            t0 = _perf()
+            try:
+                self._consume()
+            finally:
+                _H_DEC_DISPATCH.observe(_perf() - t0)
+        else:
+            self._consume()
+        return not (self._overflow or self._bulk is not None
+                    or self._pbatch is not None or self._stalled())
 
     def end(self, on_finished: OnDone = None) -> None:
         """Graceful end: after all prior frames are consumed, the finalize

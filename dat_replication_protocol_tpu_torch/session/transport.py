@@ -16,9 +16,10 @@ or file descriptor while honoring both sides' flow control:
   fills meanwhile and the peer's sends block: the reference's end-to-end
   valve, with the OS socket buffers as the pipe.
 
-The pumps block by design (one thread per end).  The JAX package's
-batched-syscall twins (its ``session/pump.py`` native route) are not
-carried: :mod:`.pump` here binds the plain route only.
+The pumps block by design (one thread per end).  They are the plain
+version of the wire pump: :mod:`.pump` holds the batched-syscall twins
+(``recv_pump``, ``send_pump``, ``io_for_socket``), the route every
+socket and fd path takes unless a caller passes ``native=False``.
 
 Telemetry: ``transport.{send,recv}.wake.{event,poll}`` count waits ended
 by the event plumbing and by the ``WAKE_FALLBACK`` poll.

@@ -102,9 +102,9 @@ source slot is the broadcast source: it is served as a digest session
 sends is also published into the broadcast log; its EOF seals the log.
 A claimant that closes without publishing a byte gives the claim back.
 Every other connection is a subscriber streamed the source's raw wire
-bytes by the fan-out's ``os.writev`` dispatcher (it never hashes).  A
-subscriber gets one JSON line and EOF instead of the stream when it
-asks below what the log retains (``{"snapshot_needed": true,
+bytes by the fan-out's dispatcher through the wire pump's gather (it
+never hashes).  A subscriber gets one JSON line and EOF instead of the
+stream when it asks below what the log retains (``{"snapshot_needed": true,
 "retained": [start, end]}``), when the fan-out is full (``"rejected"``)
 or when it sends bytes (``"not_source"``).  With ``--snapshot
 DATAFILE`` the bootstrap is served on its own port (``--snapshot-port``,
@@ -162,7 +162,6 @@ from .obs.watermarks import WATERMARKS as _WATERMARKS
 from .obs.wirecost import WIRECOST as _WIRECOST
 from .session import pump as session_pump
 from .session.transport import once
-from .session.transport import write_all as _write_all
 
 DIGEST_SUBSET_CHANGE = "digest:change"
 DIGEST_SUBSET_BLOB = "digest:blob"
@@ -240,7 +239,8 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
                 chunk_size: int = DEFAULT_CHUNK,
                 drain_timeout: float | None = DEFAULT_DRAIN_TIMEOUT,
                 hub=None, session_key: str | None = None,
-                publish=None) -> dict:
+                publish=None, rx_fd: int | None = None,
+                tx_fd: int | None = None) -> dict:
     """Serve one wire session over a blocking byte pair.
 
     ``read_bytes(n)`` returns up to n bytes (``b''`` at EOF);
@@ -268,6 +268,14 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
 
     ``publish`` (the fan-out's ``FanoutServer.publish``) observes every
     received chunk before the decoder takes it: the broadcast source.
+
+    ``rx_fd`` / ``tx_fd``: the blocking descriptors behind ``read_bytes``
+    and ``write_bytes`` (a socket's, or stdin's and stdout's).  Given
+    one, that direction runs on the wire pump's batched route
+    (``session/pump.py``): the request through ``recv_pump`` (the frame
+    index made in C goes straight to the decoder), the reply through the
+    gather writer; the callable is then unused.  Without them the
+    callables carry the session, the plain Python pump.
 
     The decoder's wire cursors (``accepted``, ``parsed``,
     ``checkpoint``) are on the fleet plane under the link ``session_key``
@@ -303,6 +311,12 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
     dec.watermark(link)
     read_bytes = session_pump._metered_reader(
         dec, session_pump._tapped_reader(read_bytes, publish))
+    pull = chunk_size
+    if tx_fd is not None:
+        # the batched reply writer, in megabyte pulls; the sender keeps
+        # its lock around the encoder, which the digest hook also drives
+        write_bytes = session_pump.pump_writer(tx_fd)
+        pull = session_pump.PUMP_SEND_CHUNK
     lock = threading.Lock()  # the encoder is shared by both threads
     readable = threading.Event()
     enc._attach_readable(readable.set)
@@ -374,7 +388,7 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
         try:
             while True:
                 with lock:
-                    data = None if enc.destroyed else enc.read(chunk_size)
+                    data = None if enc.destroyed else enc.read(pull)
                 if data is None:
                     break
                 if not data:
@@ -402,18 +416,22 @@ def run_session(read_bytes, write_bytes, close_write=None, device="cuda",
     dec._add_drain_watcher(wake.set)
     try:
         with obs_tracing.trace_span("sidecar.session.recv"):
-            while not dec.destroyed:
-                data = read_bytes(chunk_size)
-                if not data:
-                    if not dec.finished:
-                        dec.end()
-                    break
-                wake.clear()
-                if not dec.write(data):
-                    while not (dec.writable() or dec.destroyed
-                               or dec.finished):
-                        wake.wait(_WAKE)
-                        wake.clear()
+            if rx_fd is not None:
+                # the batched receive: EOF ends the decoder in there
+                session_pump.recv_pump(dec, rx_fd, tap=publish)
+            else:
+                while not dec.destroyed:
+                    data = read_bytes(chunk_size)
+                    if not data:
+                        if not dec.finished:
+                            dec.end()
+                        break
+                    wake.clear()
+                    if not dec.write(data):
+                        while not (dec.writable() or dec.destroyed
+                                   or dec.finished):
+                            wake.wait(_WAKE)
+                            wake.clear()
     except Exception as e:  # noqa: BLE001 — session-fatal either way
         # the transport died mid-read, or (in hub mode) a SessionShed or
         # HubError rose from the decoder's digest submits
@@ -749,9 +767,11 @@ def _swap_stdout_for_devnull() -> None:
 def serve_stdio(device="cuda",
                 drain_timeout: float | None = DEFAULT_DRAIN_TIMEOUT,
                 reconcile_replica=None, snapshot_source=None) -> dict:
-    """One session over stdin/stdout (logs go to stderr only)."""
-    rd = lambda n: os.read(0, n)  # noqa: E731
-    wr = lambda d: _write_all(1, d)  # noqa: E731
+    """One session over stdin/stdout (logs go to stderr only), on the
+    wire pump's batched route: pipes take its plain ``read``/``writev``
+    batches."""
+    rd = session_pump.pump_reader(0)
+    wr = session_pump.pump_writer(1)
     close = once(_swap_stdout_for_devnull)
     if snapshot_source is not None:
         stats = run_snapshot_session(rd, wr, close, snapshot_source,
@@ -761,7 +781,7 @@ def serve_stdio(device="cuda",
                                       peer="stdio")
     else:
         stats = run_session(rd, wr, close_write=close, device=device,
-                            drain_timeout=drain_timeout)
+                            drain_timeout=drain_timeout, rx_fd=0, tx_fd=1)
     log_line(f"sidecar: stdio session {stats}")
     return stats
 
@@ -834,7 +854,8 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
                 conn.recv, conn.sendall,
                 close_write=lambda: conn.shutdown(socket.SHUT_WR),
                 device=device, drain_timeout=drain_timeout, hub=hub,
-                session_key=f"c{n}:{name}", publish=fanout.publish)
+                session_key=f"c{n}:{name}", publish=fanout.publish,
+                rx_fd=conn.fileno(), tx_fd=conn.fileno())
         finally:
             if fanout.log.end > fanout.log.start:
                 fanout.seal()
@@ -881,7 +902,8 @@ def serve_tcp(host: str, port: int, max_sessions: int | None = None,
                         stats = run_session(
                             conn.recv, conn.sendall, close_write=close_write,
                             device=device, drain_timeout=drain_timeout,
-                            hub=hub, session_key=f"c{n}:{name}")
+                            hub=hub, session_key=f"c{n}:{name}",
+                            rx_fd=conn.fileno(), tx_fd=conn.fileno())
                     log_line(f"sidecar: {peer} {stats}")
                 finally:
                     conn.close()
@@ -1005,8 +1027,8 @@ def snapshot_stats() -> dict:
         "pump": session_pump.probe_caps(),
     }
     if _ACTIVE_HUB is not None:
-        out["hub"] = _ACTIVE_HUB.snapshot()
-        out["sessions"] = _ACTIVE_HUB.sessions_snapshot()
+        # one hold of the hub lock: the count and the breakdown agree
+        out["hub"], out["sessions"] = _ACTIVE_HUB.stats_sections()
     if _ACTIVE_FANOUT is not None:
         out["fanout"] = _ACTIVE_FANOUT.snapshot()
         out["peers"] = _ACTIVE_FANOUT.peers_snapshot()

@@ -239,15 +239,17 @@ def test_port_lock_graph_of_the_jax_package_matches_its_artifact(jax_run):
 
 
 def test_port_surface_of_the_jax_package_matches_its_artifact(jax_run):
+    """The port's certifier renders the JAX package's surface as the
+    reference's artifact has it, every entry point included (the native
+    pumps' specs came back with the port's wire pump)."""
     doc = render_event_loop_surface(ReadinessIndex.get(jax_run[0]))
     ref = json.loads((REF_ARTIFACTS / "event_loop_surface.json")
                      .read_text("utf-8"))
     assert doc["missing_entry_points"] == []
     ref_entries = {e["entry"]: e for e in ref["entry_points"]}
     names = [e["entry"] for e in doc["entry_points"]]
-    # every entry but the native pumps, which the port does not list
-    assert set(ref_entries) - set(names) == {"native-send-pump",
-                                             "native-recv-pump"}
+    # every entry, the native pumps' included, as in the reference
+    assert set(names) == set(ref_entries)
     for e in doc["entry_points"]:
         assert e == ref_entries[e["entry"]], e["entry"]
     for key in ("levels", "summary", "unbounded_functions"):

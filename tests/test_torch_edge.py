@@ -5,9 +5,9 @@ JAX ``EdgeLoop`` and the port's over the same wires
 (``test_wire_fixtures.SESSION_1``, ``SESSION_4``, broadcast and
 reconcile legs): the raw reply bytes, the ``sidecar.session`` records
 (peer ports masked), the ``HubBusy`` rejection record, ``snapshot()``
-and ``admission_state()`` are equal.  The JAX loop runs its Python pump
-arm (``DAT_PUMP=python``), the route the port carries; the port's hubs
-run B1's plain version on the CPU.
+and ``admission_state()`` are equal.  Both loops run their batched pump
+arm (the JAX one with ``DAT_PUMP`` unset), the route the port's loop
+takes; the port's hubs run B1's plain version on the CPU.
 
 Then the port alone:
 
@@ -82,9 +82,9 @@ WAIT = 30.0
 
 
 @pytest.fixture(autouse=True)
-def _python_arm(monkeypatch):
-    # the JAX loop's Python pump arm: the route the port carries
-    monkeypatch.setenv("DAT_PUMP", "python")
+def _native_arm(monkeypatch):
+    # the JAX loop's batched pump arm: the route the port's loop runs
+    monkeypatch.delenv("DAT_PUMP", raising=False)
 
 
 @pytest.fixture
@@ -643,7 +643,7 @@ def test_edge_stats_fd_snapshot_carries_edge_aggregate(both_obs):
     got, want = _stats_edge(PORT), _stats_edge(JAX)
     assert got == want
     assert got["edge"]["sessions"] == 0 and got["edge"]["by_class"] == {}
-    assert got["edge"]["pump_route"] == "python"
+    assert got["edge"]["pump_route"] == "native"
     assert got["edge"]["loop"]["name"] == "stats"
     assert got["admission"]["stage"] == "edge"
     assert got["admission"]["ok"] is True
@@ -1149,7 +1149,7 @@ def test_tcp_edge_sidecar_subprocess_serves_and_reports():
                           lambda x: x.get("edge", {}).get("sessions") == 4)
         assert rec["edge"]["by_kind"] == {"hub": 4}
         assert rec["edge"]["by_class"] == {"throughput": 4}
-        assert rec["edge"]["pump_route"] == "python"
+        assert rec["edge"]["pump_route"] == "native"
         assert rec["edge"]["loop"]["name"].startswith("edge:127.0.0.1:")
         assert len(rec["sessions"]) == 4  # the hub's breakdown
         assert rec["healthz"]["stages"]["admission"]["stage"] == "edge"

@@ -9,7 +9,9 @@ a time, one with a 64 KiB blob, one with a 3 MiB blob, and a frame cut
 by EOF.  The port's receive turn never reads past ``cap`` (the JAX
 package's reads a whole slice, so it can); a slow reader behind a tiny
 send buffer gets the reply whole and in order with no send turn
-blocking.
+blocking.  The port's side runs its plain arm (``EdgePump(native=False)``),
+the arm these sequences pin; ``tests/test_torch_pump.py`` holds the
+batched arm.
 """
 
 import hashlib
@@ -65,6 +67,12 @@ def _collecting(dec) -> list:
     return got
 
 
+def _plain_arm(mod) -> dict:
+    """The port's EdgePump keyword for its plain arm (the JAX package's
+    takes its arm from DAT_PUMP)."""
+    return {"native": False} if mod is pump else {}
+
+
 class _Side:
     """One implementation's receive end: a socketpair, its pump and a
     collecting host decoder."""
@@ -72,8 +80,9 @@ class _Side:
     def __init__(self, mod, dec, cap=None):
         self.cli, self.srv = socket.socketpair()
         self.srv.setblocking(False)
-        self.pump = (mod.EdgePump(self.srv.fileno()) if cap is None
-                     else mod.EdgePump(self.srv.fileno(), cap=cap))
+        kw = _plain_arm(mod)
+        self.pump = (mod.EdgePump(self.srv.fileno(), **kw) if cap is None
+                     else mod.EdgePump(self.srv.fileno(), cap=cap, **kw))
         self.mod = mod
         self.dec = dec
         self.got = _collecting(dec)
@@ -199,7 +208,7 @@ def test_send_step_sequences_equal_the_jax_python_arm(name):
         a.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 64 << 10)
         a.setblocking(False)
         b.setblocking(False)
-        p = mod.EdgePump(a.fileno())
+        p = mod.EdgePump(a.fileno(), **_plain_arm(mod))
         enc = _enc_with(enc_factory, name)
         steps, got = [], bytearray()
         try:
