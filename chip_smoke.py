@@ -5,7 +5,12 @@
 
 Run from the root of a checkout on a machine with one CUDA card, ``nvcc``
 under ``/usr/local/cuda`` and PyTorch built for CUDA.  It imports nothing
-of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
+of JAX or of the JAX package.  Before its first CUDA call it takes the
+port's card mutex (``utils/chiplock.py``: ``chip_lock(max_wait=60)``) and
+holds it for the whole run, printing ``chip_lock: {...}`` (its
+``as_fields()``); a lock still held by another process after 60 s is
+recorded there and the run goes on.  Phases (any failure raises; exit
+code 1):
 
 1. build: compile every kernel of ``dat_replication_protocol_tpu_torch``
    from ``csrc/`` with ``nvcc`` (one process per source, all started
@@ -96,10 +101,17 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    whose cuts must be equal;
 8. ``chunk_stream`` over BASELINE.json configs[3]'s 10 GiB blob (phase
    7's blob is its first 1.5 GiB) in 1 GiB slabs: the same cut checks,
-   and its cuts below 1.5 GiB - 32 KiB equal phase 7's;
+   and its cuts below 1.5 GiB - 32 KiB equal phase 7's; then
+   ``content_address`` over the blob's first ``RESIDENCY_CAP`` + 64 MiB
+   (2 GiB), which must take the slabbed route (its ``cdc.hash`` engine
+   note ``two-pass-cuda``: ``chunk_stream``, ``hash_extents`` from the
+   host buffer past 2^31 - 2^26, ``root_host``): every chunk digest
+   against ``hashlib`` (on threads), the root against ``root_host``, the
+   same cut checks, and its cuts below 1.5 GiB - 32 KiB equal phase 7's;
 9. times: B1 at phase 7's largest chunk bucket (each variant, as in
    phase 5), B1's main-path launches by bucket (blob, change, sidecar,
-   ``entry()``, chunk), and B3-B6 on a 1 GiB slab, each held byte-exact
+   ``entry()``, chunk, phase 8's slabbed chunks and each later phase's),
+   and B3-B6 on a 1 GiB slab, each held byte-exact
    against its plain version there (B6 with viol 0), timed in turns
    beside the plain versions' times, the bounds and their registers.
    The operation bounds walk the SASS of the built libraries
@@ -247,7 +259,8 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    session's order; aggregate GiB/s and fairness (the slowest session's
    GiB/s over the median's) with the gate off, then once more with it on,
    over 4 of the 16 sessions (cut for time), for the ``hub.*`` counters
-   and the dispatcher's turn latency.  15b
+   and the dispatcher's turn latency; items per dispatch of both runs.
+   15b
    (config 13's hub arm, uncut): ``python -m
    dat_replication_protocol_tpu_torch.sidecar --tcp 127.0.0.1:0 --hub
    --stats-fd FD`` in a subprocess serves 1, 4 and 16 concurrent clients
@@ -259,7 +272,9 @@ of JAX or of the JAX package.  Phases (any failure raises; exit code 1):
    ``--stats-fd`` (telemetry off), each reply held against ``hashlib``
    and timed; then a ``--hub-max-sessions 2`` sidecar
    holding two clients halfway: a third must read EOF and be logged
-   ``rejected``, the two finish byte-exact.  15c: a ``nowait`` session
+   ``rejected``, the two finish byte-exact; the telemetry-on sidecar's
+   items per dispatch (``hub.dispatch.items`` / ``hub.dispatch.batches``).
+   15c: a ``nowait`` session
    that never polls floods 1 MiB blobs past a 64 MiB parked budget while
    three neighbours run whole sessions: one ``SessionShed
    ("parked-budget")`` for it, one ``hub.shed`` event naming it,
@@ -546,7 +561,8 @@ def b1_buckets(session, side, ent, cdc, streamed) -> dict:
     """B1's main-path launches by bucket, from each phase's launches by
     block count: phase 3's blob buckets (1 MiB blobs) and change buckets,
     the sidecar's, ``entry()``'s, phase 7's chunk buckets and phase 8's
-    (none: ``chunk_stream`` hashes nothing)."""
+    under ``slabbed`` (the slabbed ``content_address``'s chunks;
+    ``chunk_stream`` hashes nothing)."""
     blob = BLOB_BYTES // 128
     by = session["b1_blocks"]
     return {"blob": by.get(blob, 0),
@@ -554,7 +570,7 @@ def b1_buckets(session, side, ent, cdc, streamed) -> dict:
             "sidecar": sum(side["b1_blocks"].values()),
             "entry": sum(ent["b1_blocks"].values()),
             "chunk": sum(cdc["b1_blocks"].values()),
-            "chunk_stream": sum(streamed["b1_blocks"].values())}
+            "slabbed": sum(streamed["b1_blocks"].values())}
 
 
 def merged_launches(a: dict, b: dict) -> dict:
@@ -1922,6 +1938,76 @@ def run_chunk_stream(device, blob: np.ndarray, content_cuts) -> dict:
     return {"cuts": len(cuts), "seconds": seconds, "greedy_s":
             greedy.seconds, "checked": checked, "shared": len(head),
             "gib_per_s": len(blob) / seconds / (1 << 30)}
+
+
+SLABBED_EXTRA = 64 << 20  # phase 8's slabbed blob: RESIDENCY_CAP + this
+SLAB_HASH_THREADS = 8
+
+
+def run_slabbed(device, blob: np.ndarray, content_cuts) -> dict:
+    """Phase 8: ``content_address`` over the blob's first ``RESIDENCY_CAP``
+    + ``SLABBED_EXTRA`` bytes, which must take the slabbed route (its
+    ``cdc.hash`` engine note, read with the gate on for the call); every
+    chunk digest against ``hashlib`` on threads (``hashlib`` releases the
+    GIL), the root against ``root_host``, the cut checks, and its cuts
+    below phase 7's blob end, less one max chunk, phase 7's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import dat_replication_protocol_tpu_torch as protocol
+    from dat_replication_protocol_tpu_torch import obs
+    from dat_replication_protocol_tpu_torch.ops import merkle
+    from dat_replication_protocol_tpu_torch.ops.fused_cdc_hash import (
+        RESIDENCY_CAP)
+
+    view = blob[:RESIDENCY_CAP + SLABBED_EXTRA]
+    obs_reset()
+    obs.enable()
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        s = protocol.content_address(view, CDC_AVG_BITS, CDC_MIN, CDC_MAX,
+                                     device=device)
+        seconds = time.perf_counter() - t0
+        engines = [e["fields"]["engine"]
+                   for e in obs.EVENTS.events("device.engine.select")
+                   if e["fields"]["component"] == "cdc.hash"]
+    finally:
+        obs.disable()
+        obs_reset()
+    if engines != [f"two-pass-{torch.device(device).type}"]:
+        raise AssertionError(f"phase 8: content_address over {len(view)} B "
+                             f"took {engines}, not the slabbed route")
+    t1 = time.perf_counter()
+    offs, lens = s.extents()
+    got = bytearray(32 * s.nchunks)
+
+    def hash_range(lo: int) -> None:
+        for i in range(lo, min(lo + (1 << 14), s.nchunks)):
+            o = int(offs[i])
+            got[32 * i:32 * i + 32] = blake(view[o:o + int(lens[i])])
+
+    with ThreadPoolExecutor(SLAB_HASH_THREADS) as pool:
+        list(pool.map(hash_range, range(0, s.nchunks, 1 << 14)))
+    hashed = time.perf_counter() - t1
+    if bytes(got) != s.digests.tobytes():
+        raise AssertionError("phase 8: a slabbed chunk digest differs from "
+                             "hashlib")
+    if s.root != merkle.root_host(s.digests):
+        raise AssertionError("phase 8: the slabbed root differs from "
+                             "root_host")
+    checked = check_cuts(view, s.cuts, "phase 8's slabbed content_address")
+    limit = CONTENT_BYTES - CDC_MAX
+    head = [c for c in s.cuts if c < limit]
+    if head != [c for c in content_cuts if c < limit]:
+        raise AssertionError("phase 8: the slabbed cuts differ from phase "
+                             "7's")
+    return {"bytes": len(view), "engines": engines, "chunks": s.nchunks,
+            "last_offset": int(offs[-1]), "root": s.root.hex(),
+            "seconds": seconds, "gib_per_s": len(view) / seconds / (1 << 30),
+            "hashlib_s": hashed, "checked": checked, "shared": len(head),
+            "check_s": time.perf_counter() - t1}
 
 
 # ---------------------------------------------------------------------------
@@ -3492,6 +3578,7 @@ def run_mesh(device, mesh_in: dict) -> dict:
 # the bring-up and build's deadline: the records show builds of ~3 s and
 # runs of 220-440 s, so only a wedged init reaches it
 INIT_DEADLINE_S = 300.0
+CHIP_LOCK_WAIT_S = 60.0
 P13_BLOBS = 256  # phase 3's profiled session
 P13_REPS = 5
 # span records a gated P13_BLOBS session leaves: two frame tags a frame
@@ -7025,10 +7112,26 @@ def run_doctors(sink: str, conv16: dict, mesh: dict) -> dict:
 def main() -> int:
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "needs one CUDA card", file=sys.stderr)
+    try:
+        from dat_replication_protocol_tpu_torch.utils.chiplock import (
+            chip_lock)
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a checkout ({e})",
+              file=sys.stderr)
         return 2
+    # the card's mutex before the first CUDA call, held for the whole run
+    with chip_lock(max_wait=CHIP_LOCK_WAIT_S) as lease:
+        if not torch.cuda.is_available():
+            print("chip_smoke: torch.cuda.is_available() is False; this "
+                  "script needs one CUDA card", file=sys.stderr)
+            return 2
+        return run(lease)
+
+
+def run(lease) -> int:
+    """Every phase, with the card's mutex ``lease`` held."""
+    import torch
+
     from dat_replication_protocol_tpu_torch.obs import BackendInitWatchdog
     from dat_replication_protocol_tpu_torch.ops import _build
 
@@ -7038,6 +7141,9 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    log(f"chip_lock: {lease.as_fields()} at {lease.path}"
+        + ("" if lease.held else "; NOT held: another process may share "
+           "the card, so this run's times may be polluted"))
 
     from concurrent.futures import ThreadPoolExecutor
 
@@ -7213,15 +7319,29 @@ def main() -> int:
     reset_counters()
     enter("8")
     stream = run_chunk_stream(device, blob, s.cuts)
+    slabbed = run_slabbed(device, blob, s.cuts)
     streamed = read_counters()
     log(f"phase 8: chunk_stream over {STREAM_BYTES} B (BASELINE configs[3], "
         f"uncut) in 1 GiB slabs, route bitmask: {stream['cuts']} cuts in "
         f"{stream['seconds']} s = {stream['gib_per_s']} GiB/s end to end; "
         f"greedy pass {stream['greedy_s']} s; {stream['checked']} candidate "
-        f"cuts checked; first {stream['shared']} cuts == phase 7's; "
-        f"launches {streamed}")
+        f"cuts checked; first {stream['shared']} cuts == phase 7's")
+    log(f"phase 8: content_address over the blob's first {slabbed['bytes']} "
+        f"B (RESIDENCY_CAP + 64 MiB), engine {slabbed['engines']}: "
+        f"{slabbed['chunks']} chunks (last offset {slabbed['last_offset']}),"
+        f" root {slabbed['root']}, in {slabbed['seconds']} s (gate on) = "
+        f"{slabbed['gib_per_s']} GiB/s; every digest == hashlib "
+        f"({slabbed['hashlib_s']:.2f} s on {SLAB_HASH_THREADS} threads), "
+        f"root == root_host, {slabbed['checked']} candidate cuts checked, "
+        f"sizes in [{CDC_MIN}, {CDC_MAX}], first {slabbed['shared']} cuts "
+        f"== phase 7's; the whole check {slabbed['check_s']:.2f} s; on "
+        f"{card}")
+    log(f"phase 8: launches {streamed} (chunk_stream and the slabbed "
+        f"content_address)")
     if streamed["gear_candidates"] == 0:
         raise AssertionError("phase 8 never launched B3")
+    if streamed["blake2b"] == 0:
+        raise AssertionError("phase 8's slabbed route never launched B1")
 
     launches = {k: session["launches"][k] + side["launches"][k]
                 + ent["launches"][k] + cdc[k] + streamed[k]
@@ -7540,6 +7660,9 @@ def main() -> int:
             f"({r['seconds']} s), fairness min/median {r['fairness']} "
             f"(session GiB/s min, median {r['session_gib_s']}), "
             f"{r['dispatches']} dispatches; on {card}")
+    log(f"phase 15a: items per dispatch, gate off / on: "
+        f"{[r['digests'] / r['dispatches'] for r in soak['runs']]}; on "
+        f"{card}")
     log(f"phase 15a: B1 launches {p15a['blake2b']} (by block count "
         f"{p15a['b1_blocks']}); counters of the gated run {soak['counters']}; "
         f"its dispatch turns (hub.dispatch.latency) {soak['turns']}")
@@ -7560,6 +7683,11 @@ def main() -> int:
             f"{arm['gib_s']} GiB/s aggregate ({arm['seconds']} s, "
             f"{arm['bytes']} B); on {card}")
     rej = out["rejected"]
+    c = out["counters"]
+    log(f"phase 15b: items per dispatch (hub.dispatch.items / "
+        f"hub.dispatch.batches) {c['hub.dispatch.items']} / "
+        f"{c['hub.dispatch.batches']} = "
+        f"{c['hub.dispatch.items'] / c['hub.dispatch.batches']}; on {card}")
     log(f"phase 15b: the sidecar's kernel sentinel counted "
         f"{out['b1_launches']} B1 launches; its counters {out['counters']}; "
         f"{out['records']} stats records up to emit_seq {out['emit_seq']}, "

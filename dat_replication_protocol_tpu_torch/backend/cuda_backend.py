@@ -289,11 +289,18 @@ class CudaDecoder(_DigestTaps, Decoder):
 
     def _note_change_payloads(self, payloads, count: int) -> None:
         # one C run's payloads in delivery order: submitted in seq order,
-        # so digests keep the order the per-frame route gives them
+        # so digests keep the order the per-frame route gives them.  A
+        # pipeline with a run surface (the hub's session) takes the whole
+        # run in one call: one window check, one lock round trip
         if payloads:
-            submit, emit = self._pipeline.submit, self._emit_change_digest
-            for seq, payload in enumerate(payloads, self._change_seq):
-                submit(payload, emit, seq)
+            emit = self._emit_change_digest
+            submit_many = getattr(self._pipeline, "submit_many", None)
+            if submit_many is not None:
+                submit_many(payloads, emit, self._change_seq)
+            else:
+                submit = self._pipeline.submit
+                for seq, payload in enumerate(payloads, self._change_seq):
+                    submit(payload, emit, seq)
         self._change_seq += count
 
     def _note_change_batch(self, cols, n: int) -> None:

@@ -213,6 +213,18 @@ class HubSession:
             (("payload", payload, on_digest, tag, len(payload)),),
             len(payload))
 
+    def submit_many(self, payloads, on_digest: Callable,
+                    tag_base: int = 0) -> None:
+        """Submit a run of payloads (tags ``tag_base .. tag_base + n - 1``)
+        with one window check and one lock round trip.  The run is
+        admitted whole once the window has any room, as one oversized
+        item is; an empty run does nothing."""
+        entries = [("payload", p, on_digest, tag_base + k, len(p))
+                   for k, p in enumerate(payloads)]
+        if entries:
+            self._hub._submit_run(self._state, entries,
+                                  sum(e[4] for e in entries))
+
     def submit_stream(self, stream, on_digest: Callable, tag=None) -> None:
         nbytes = int(getattr(stream, "length", 0))
         self._hub._submit_run(

@@ -83,6 +83,7 @@ from .tracing import (
     trace_instant,
     trace_span,
 )
+from .watermarks import WATERMARKS, WatermarkBoard, link_lag
 
 __all__ = [
     "OBS",
@@ -124,4 +125,7 @@ __all__ = [
     "note_engine",
     "reset_engine_notes",
     "sample_device_gauges",
+    "WATERMARKS",
+    "WatermarkBoard",
+    "link_lag",
 ]

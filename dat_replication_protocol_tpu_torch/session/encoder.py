@@ -729,6 +729,12 @@ class Encoder:
             self._fire_finish()
         return data
 
+    @property
+    def buffered_bytes(self) -> int:
+        """Framed bytes queued for :meth:`read`; writes parked behind an
+        open blob are not counted until they are framed."""
+        return self._queued_bytes
+
     def writable(self) -> bool:
         return not self._above_high_water()
 

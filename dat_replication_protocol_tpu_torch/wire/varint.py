@@ -53,3 +53,8 @@ def decode_uvarint(buf, offset: int = 0) -> tuple[int, int]:
         shift += 7
         if i - offset >= MAX_VARINT_LEN:
             raise ValueError("varint too long (corrupt frame header)")
+
+
+def uvarint_length(value: int) -> int:
+    """Number of bytes :func:`encode_uvarint` would produce."""
+    return max(1, (value.bit_length() + 6) // 7)

@@ -394,7 +394,11 @@ def test_session_watermark_link_is_on_the_snapshot_endpoint(monkeypatch):
                 links = _get_json(srv.url + "/snapshot")["watermarks"][
                     "links"]
                 offs = links.get("wm-link", {}).get("offsets", {})
-                if offs.get("accepted") == half or \
+                # the snapshot reads accepted, then parsed: wait until
+                # the parse of the first half shows too, not only its
+                # receipt
+                if (offs.get("accepted") == half
+                        and offs.get("parsed") == half) or \
                         time.monotonic() > deadline:
                     break
                 time.sleep(0.02)
