@@ -26,18 +26,23 @@ Telemetry: ``decoder.digests`` / ``encoder.digests`` per delivery,
 ``device.submit.items|bytes`` per submit, ``device.dispatch.batches``
 per dispatch, and each dispatch and delivery inside a
 ``device.dispatch`` / ``device.deliver`` obs span joined with a
-``digest.dispatch`` / ``digest.collect`` profiler span.
+``digest.dispatch`` / ``digest.collect`` profiler span.  Each batch
+observes ``device.batch.fill.seconds``, from its first submit to its
+dispatch.  The decoder joins and submits each blob inside a
+``decoder.blob`` span.
 """
 
 from __future__ import annotations
 
 import functools
 import hashlib
+import time
 from typing import Callable
 
 from ..obs.device import note_engine as _note_engine
 from ..obs.metrics import OBS as _OBS
 from ..obs.metrics import counter as _counter
+from ..obs.metrics import histogram as _histogram
 from ..obs.tracing import trace_span as _trace_span
 from ..ops.blake2b import DIGEST_SIZE, blake2b_batch_begin
 from ..session.decoder import Decoder
@@ -58,6 +63,7 @@ _M_ENC_DIGESTS = _counter("encoder.digests")
 _M_SUBMIT_ITEMS = _counter("device.submit.items")
 _M_SUBMIT_BYTES = _counter("device.submit.bytes")
 _M_DISPATCHES = _counter("device.dispatch.batches")
+_M_FILL = _histogram("device.batch.fill.seconds")
 
 
 class _HostStream:
@@ -102,6 +108,8 @@ class DigestPipeline:
         # ordered ("payload", bytes, cb, tag) | ("stream", stream, cb, tag)
         self._entries: list[tuple] = []
         self._pending_bytes = 0
+        # monotonic time of the queued batch's first submit, gate on
+        self._fill_t0: float | None = None
         self._inflight: list[tuple[list[tuple], Callable[[], list[bytes]]]] = []
         self.dispatches = 0
         self.hashed_bytes = 0
@@ -115,6 +123,8 @@ class DigestPipeline:
         if _OBS.on:
             _M_SUBMIT_ITEMS.inc()
             _M_SUBMIT_BYTES.inc(len(payload))
+            if not self._entries:
+                self._fill_t0 = time.monotonic()
         self._entries.append(("payload", payload, on_digest, tag))
         self._pending_bytes += len(payload)
         if (len(self._entries) >= self._max_batch
@@ -127,6 +137,8 @@ class DigestPipeline:
         if _OBS.on:
             _M_SUBMIT_ITEMS.inc()
             _M_SUBMIT_BYTES.inc(int(getattr(stream, "length", 0)))
+            if not self._entries:
+                self._fill_t0 = time.monotonic()
         self._entries.append(("stream", stream, on_digest, tag))
         if len(self._entries) >= self._max_batch:
             self.dispatch()
@@ -148,6 +160,9 @@ class DigestPipeline:
         self.dispatches += 1
         if _OBS.on:
             _M_DISPATCHES.inc()
+            if self._fill_t0 is not None:
+                _M_FILL.observe(time.monotonic() - self._fill_t0)
+        self._fill_t0 = None
         payloads = [e[1] for e in entries if e[0] == "payload"]
         with _trace_span("device.dispatch", items=len(entries),
                          bytes=pending), span("digest.dispatch"):
@@ -338,12 +353,15 @@ class CudaDecoder(_DigestTaps, Decoder):
 
     def _end_blob(self) -> None:
         seq = self._blob_seq - 1
-        parts = self._blob_parts.pop(seq, None)
-        stream = self._blob_streams.pop(seq, None)
-        if stream is not None:
-            self._pipeline.submit_stream(stream, self._emit_blob_digest, seq)
-        elif parts is not None:
-            self._pipeline.submit(b"".join(parts), self._emit_blob_digest, seq)
+        with span("decoder.blob"):
+            parts = self._blob_parts.pop(seq, None)
+            stream = self._blob_streams.pop(seq, None)
+            if stream is not None:
+                self._pipeline.submit_stream(stream, self._emit_blob_digest,
+                                             seq)
+            elif parts is not None:
+                self._pipeline.submit(b"".join(parts), self._emit_blob_digest,
+                                      seq)
         super()._end_blob()
 
     def _maybe_finalize(self) -> None:

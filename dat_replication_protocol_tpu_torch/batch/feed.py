@@ -11,7 +11,9 @@ records become Merkle leaves here: a leaf is the BLAKE2b-256 of the
 record's per-record payload, whatever framing carried it.
 
 Telemetry: each B1 chunk's pack and launch is a ``device.dispatch`` span
-(field ``site``); ``device.h2d.bytes`` counts the staged words and
+(field ``site``), and ``hash_extents``' host pack of a chunk an
+``extents.pack`` span and its digest readback an ``extents.collect``
+span; ``device.h2d.bytes`` counts the staged words and
 lengths, ``device.h2d.overlap`` those staged after an earlier chunk of
 the same call was launched (packed while it runs), ``device.d2h.bytes``
 the digests read back; ``decode_batch_device`` counts its columns' H2D
@@ -32,6 +34,7 @@ from ..obs.metrics import counter as _counter
 from ..obs.tracing import trace_span as _trace_span
 from ..ops import blake2b
 from ..utils.device import resolve_device
+from ..utils.trace import span
 from ..wire.batch_codec import ragged_copy
 
 BLOCK_BYTES = blake2b.BLOCK_BYTES
@@ -95,8 +98,9 @@ def hash_extents_device(buf: np.ndarray, offs, lens, device="cuda",
     staged = []  # chunks staged by this call; later ones overlap B1
 
     def pack(idx, nb):
-        mh, ml, blens = _stage(pack_ragged(buf, offs[idx], lens[idx], nb),
-                               dev)
+        with span("extents.pack"):
+            mh, ml, blens = _stage(
+                pack_ragged(buf, offs[idx], lens[idx], nb), dev)
         if _OBS.on:
             _M_H2D.inc(mh.nbytes + ml.nbytes + blens.nbytes)
             if staged:
@@ -160,7 +164,8 @@ def hash_extents(buf: np.ndarray, offs, lens, device="cuda",
     hh, hl = hash_extents_device(buf, offs, lens, device, pipeline_bytes)
     if _OBS.on:
         _M_D2H.inc(32 * len(offs))  # (N, 4) hi + lo halves read back
-    return digest_matrix(hh, hl)
+    with span("extents.collect"):
+        return digest_matrix(hh, hl)
 
 
 @dataclasses.dataclass

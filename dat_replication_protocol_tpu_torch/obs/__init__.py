@@ -21,24 +21,21 @@ The counterpart of ``dat_replication_protocol_tpu/obs/`` (its core):
 * :mod:`.propagation` — the gossip mesh's convergence plane: one
   ``gossip.exchange`` span an exchange and direction, per-link
   divergence watermarks and the frontier gauges (:data:`PROPAGATION`).
-* :mod:`.perf` — the perf-budget gate: one bench artifact against a
-  budget file, verdict rows; ``perf-check`` exits 1 on regression.
 * :mod:`.fleet` — the fleet aggregator: N targets (``--obs-http``
   endpoints, ``--stats-fd`` JSONL files, callables) joined into per-link
   lag, gossip convergence, the mesh matrix, wire cost and loop lag; the
   dashboard and the declarative SLO gate.
 
 Offline CLI: ``python -m dat_replication_protocol_tpu_torch.obs``
-(:mod:`.__main__`) runs ``fleet``, ``perf-check``, ``timeline``,
-``export-trace``, ``dump``, ``loopdoctor``, ``meshdoctor`` and
-``costdoctor`` over logs, bundles and endpoints.  ``perf``, ``fleet``
-and the CLI are imported as submodules, so importing this package does
-not load them.
+(:mod:`.__main__`) runs ``fleet``, ``timeline``, ``export-trace``,
+``dump``, ``loopdoctor``, ``meshdoctor`` and ``costdoctor`` over logs,
+bundles and endpoints.  ``fleet`` and the CLI are imported as
+submodules, so importing this package does not load them.
 
 Names of counters, events and spans are the reference's
 (``OBSERVABILITY.md``), so either package's offline tools read the
 other's logs.  ``metrics``, ``events``, ``tracing``, ``flight``,
-``loopprof``, ``propagation``, ``perf`` and ``fleet`` use the standard
+``loopprof``, ``propagation`` and ``fleet`` use the standard
 library only; ``device`` reads ``torch`` only if the process already
 loaded it.
 """

@@ -4,12 +4,11 @@ A copy of ``dat_replication_protocol_tpu/obs/__main__.py``; it reads
 files and HTTP and launches no kernel::
 
     python -m dat_replication_protocol_tpu_torch.obs timeline SENDER.jsonl RECEIVER.jsonl [PEER.jsonl ...]
-    python -m dat_replication_protocol_tpu_torch.obs export-trace LOG.jsonl|BUNDLE_DIR [-o OUT]
+    python -m dat_replication_protocol_tpu_torch.obs export-trace LOG.jsonl|BUNDLE_DIR [-o OUT] [--like PROFILER_TRACE.json]
     python -m dat_replication_protocol_tpu_torch.obs dump BUNDLE_DIR [--json]
     python -m dat_replication_protocol_tpu_torch.obs loopdoctor LOG.jsonl|BUNDLE_DIR [--threshold S] [--json]
     python -m dat_replication_protocol_tpu_torch.obs meshdoctor LOG... [--json]
     python -m dat_replication_protocol_tpu_torch.obs costdoctor LOG... [--max-overhead R] [--json]
-    python -m dat_replication_protocol_tpu_torch.obs perf-check BENCH.json --budgets PATH [--host-only]
     python -m dat_replication_protocol_tpu_torch.obs fleet TARGET... [--check SLO.json | --watch]
 
 ``timeline`` merges N peers' JSONL logs (``obs.tracing.attach_jsonl_sink``)
@@ -20,7 +19,11 @@ peer (by ``link`` label, else by coverage).  Flags: ``gap``,
 ``reorder``, ``duplicate``, ``peer-divergence``; exit 1 on any.
 
 ``export-trace`` writes a log or a flight bundle as Chrome trace-event
-JSON; ``dump`` renders a flight bundle (``--json`` for tools).
+JSON, in the records' monotonic microseconds; ``--like`` moves them onto
+a ``torch.profiler`` trace's axis (its ``baseTimeNanoseconds``) through
+the ``obs.clock`` anchors of the log or the bundle's manifest, so the
+two files share one time axis, and refuses records with no anchor (exit
+2).  ``dump`` renders a flight bundle (``--json`` for tools).
 
 ``loopdoctor`` reads the edge loop's ``edge.turn`` spans: it checks that
 the recorded turns tile the loop's wall time (``tile-gap`` /
@@ -39,10 +42,9 @@ splits framing from payload by inverting the framing arithmetic, and
 flags ``unattributed-bytes``, ``overhead-anomaly`` and
 ``amplification-regression`` (from ``--stats-fd`` records in the logs).
 
-``perf-check`` is the budget gate of :mod:`.perf`; it needs
-``--budgets`` (the port has no default budget file).  ``fleet`` polls
-targets through :mod:`.fleet`: one joined sample as JSON, ``--watch`` for
-the dashboard, ``--check SLO.json`` for the gate (exit 1 on breach).
+``fleet`` polls targets through :mod:`.fleet`: one joined sample as
+JSON, ``--watch`` for the dashboard, ``--check SLO.json`` for the gate
+(exit 1 on breach).
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ import sys
 from typing import Optional
 
 from .flight import read_bundle
-from .tracing import export_chrome_trace
+from .tracing import export_chrome_trace, rebase
 
 # span names that tag one frame (or one native-dispatch run of frames)
 # with its wire start offset; "action" distinguishes the two roles
@@ -364,16 +366,28 @@ def cmd_timeline(args) -> int:
 
 
 def cmd_export_trace(args) -> int:
+    clock = None
     if os.path.isdir(args.log):
         bundle = read_bundle(args.log)
-        spans, events = bundle["spans"], bundle["events"]
+        records = bundle["spans"] + bundle["events"]
+        clock = bundle["manifest"].get("clock")
         default_out = os.path.join(args.log, "trace.json")
     else:
         records = _load_jsonl(args.log)
-        spans = [r for r in records if "span" in r]
-        events = [r for r in records if "event" in r]
         default_out = args.log + ".trace.json"
-    out = export_chrome_trace(args.out or default_out, spans, events)
+    base_ns = None
+    if args.like:
+        with open(args.like, encoding="utf-8") as f:
+            base_ns = int(json.load(f).get("baseTimeNanoseconds", 0))
+        try:
+            records = rebase(records, base_ns, clock)
+        except ValueError as e:
+            print(f"export-trace: {args.log}: {e}", file=sys.stderr)
+            return 2
+    spans = [r for r in records if "span" in r]
+    events = [r for r in records if "event" in r]
+    out = export_chrome_trace(args.out or default_out, spans, events,
+                              base_ns)
     with open(out, encoding="utf-8") as f:
         n = len(json.load(f)["traceEvents"])
     print(f"{out}: {n} trace event(s)")
@@ -1110,19 +1124,6 @@ def cmd_costdoctor(args) -> int:
     return 1 if report["flags"] else 0
 
 
-def cmd_perf_check(args) -> int:
-    from .perf import run_check
-
-    if args.budgets is None:
-        # no default: the budgets beside the reference are for the CPU
-        # fallback and the TPU, not for this port
-        print("perf-check: --budgets PATH is required (the port has no "
-              "default budget file)", file=sys.stderr)
-        return 2
-    return run_check(args.snapshot, budgets_path=args.budgets,
-                     host_only=args.host_only)
-
-
 def cmd_fleet(args) -> int:
     from .fleet import FleetView, run_dashboard, run_fleet_check
 
@@ -1179,6 +1180,10 @@ def main(argv=None) -> int:
     ex.add_argument("log", help="JSONL log file, or a bundle directory")
     ex.add_argument("-o", "--out", default=None,
                     help="output path (default: <log>.trace.json)")
+    ex.add_argument("--like", default=None, metavar="TRACE",
+                    help="a torch.profiler Chrome trace: write times on "
+                         "its axis, through the log's obs.clock anchors "
+                         "(default: monotonic microseconds)")
     ex.set_defaults(fn=cmd_export_trace)
 
     dp = sub.add_parser(
@@ -1238,18 +1243,6 @@ def main(argv=None) -> int:
                     help="machine-readable output")
     cd.set_defaults(fn=cmd_costdoctor)
 
-    pc = sub.add_parser(
-        "perf-check",
-        help="compare a bench artifact against a budget file; exit 1 on "
-             "regression")
-    pc.add_argument("snapshot", help="bench artifact JSON (the one-line "
-                                     "object a bench script prints)")
-    pc.add_argument("--budgets", default=None, metavar="PATH",
-                    help="budget file (required: the port has no default)")
-    pc.add_argument("--host-only", action="store_true",
-                    help="evaluate only host-group configs (CPU-safe)")
-    pc.set_defaults(fn=cmd_perf_check)
-
     fl = sub.add_parser(
         "fleet",
         help="poll N replica targets (http:// endpoints and/or "
@@ -1261,8 +1254,7 @@ def main(argv=None) -> int:
                          "--stats-fd JSONL file")
     fl.add_argument("--check", metavar="SLO.json", default=None,
                     help="evaluate the fleet against a declarative SLO "
-                         "file and exit 1 on breach (the perf-check "
-                         "contract for fleet health; see "
+                         "file and exit 1 on breach (see "
                          "OBSERVABILITY.md for the schema)")
     fl.add_argument("--watch", action="store_true",
                     help="live TTY dashboard (plain ANSI, one screen "

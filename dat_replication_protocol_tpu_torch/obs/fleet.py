@@ -20,7 +20,7 @@ in-process callables — and joins their sections:
 
 :func:`render_dashboard` draws one plain-ANSI screen;
 :func:`run_fleet_check` evaluates a declarative SLO file over the last
-poll into ``perf-check``-shaped rows and exits 1 on breach.
+poll into verdict rows and exits 1 on breach.
 
 SLO file schema (a JSON object; an empty one is refused, since it would
 pass vacuously):
@@ -553,7 +553,7 @@ def load_slo(path: str) -> dict:
     """Parse + validate an SLO file.  Malformed input (not an object,
     unknown keys, non-numeric bounds, or NO evaluable keys) raises
     ``ValueError`` — a gate that silently evaluates nothing is not a
-    gate (the perf-budget precedent)."""
+    gate."""
     with open(path, encoding="utf-8") as f:
         slo = json.load(f)
     if not isinstance(slo, dict):
@@ -696,9 +696,9 @@ def _evaluate_mesh_slo(g: dict, mesh: dict, row) -> None:
 
 
 def evaluate_slo(slo: dict, sample: dict) -> list[dict]:
-    """One fleet sample against one SLO: verdict rows in the
-    ``perf-check`` shape (``{"check", "subject", "status", "detail"}``;
-    callers gate on ``any(r["status"] == "fail")``)."""
+    """One fleet sample against one SLO: verdict rows
+    (``{"check", "subject", "status", "detail"}``; callers gate on
+    ``any(r["status"] == "fail")``)."""
     rows: list[dict] = []
 
     def row(check: str, subject: str, ok: bool, detail: str) -> None:
@@ -893,9 +893,9 @@ def evaluate_slo(slo: dict, sample: dict) -> list[dict]:
 def run_fleet_check(targets, slo_path: str, polls: int = 3,
                     interval: float = 0.5, out=None) -> int:
     """The CI gate: poll, evaluate the FINAL sample, report one line
-    per check, exit 1 on breach (the ``perf-check`` contract for fleet
-    health).  A malformed SLO is itself a failure row — a gate must
-    fail loudly, never pass on an unreadable contract."""
+    per check, exit 1 on breach.  A malformed SLO is itself a failure
+    row — a gate must fail loudly, never pass on an unreadable
+    contract."""
     out = out if out is not None else sys.stdout
     try:
         slo = load_slo(slo_path)

@@ -9,7 +9,8 @@ offline ``dump`` command reads it; so does a resumable session that
 absorbed transport faults (``recovered``) or failed (``session-failed``)::
 
     bundle-<pid>-c<capture>-<seq>-<reason>/
-        manifest.json   reason, wall and monotonic time, the structured
+        manifest.json   reason, wall and monotonic time, the process's
+                        ``obs.clock`` anchor (``clock``), the structured
                         error (type/message/frame/offset/cause), the
                         session checkpoint, the fault plans noted,
                         extra fields, ring-drop accounting
@@ -165,6 +166,7 @@ class FlightRecorder:
             "reason": reason,
             "ts": time.time(),
             "monotonic": time.monotonic(),
+            "clock": _tracing.CLOCK,
             "pid": os.getpid(),
             "fault_plans": plans,
             "events_dropped": _events.EVENTS.dropped,

@@ -17,8 +17,17 @@ tags every frame the encoder emits and the decoder dispatches.
 * :func:`to_chrome_trace` / :func:`export_chrome_trace` — Chrome
   trace-event JSON (Perfetto, chrome://tracing).  Spans recorded through
   :mod:`..utils.trace` ride in with ``src="torch"``.
-* :func:`attach_jsonl_sink` — events and spans into one JSONL file; the
-  JAX package's offline timeline tool reads these files unchanged.
+* :func:`attach_jsonl_sink` — events and spans into one JSONL file,
+  headed by an ``obs.clock`` event; the JAX package's offline timeline
+  tool reads these files unchanged.
+
+Records stamp ``ts`` in ``time.monotonic()`` seconds, and the Chrome
+export writes them as they are.  :func:`rebase` moves records onto a
+``torch.profiler`` export's axis (Unix-epoch time less its
+``baseTimeNanoseconds``) through ``(monotonic seconds, Unix ns)``
+anchors: :data:`CLOCK` is this process's, and a JSONL log and a flight
+bundle carry the one of the process that wrote them.  An export of
+rebased records given that base lines up with the profiler capture.
 
 Span record shape (one JSON object per line on a sink)::
 
@@ -46,6 +55,7 @@ from .events import EVENTS, EventLog
 from .metrics import OBS
 
 __all__ = [
+    "CLOCK",
     "SPANS",
     "SpanLog",
     "trace_span",
@@ -53,9 +63,24 @@ __all__ = [
     "to_chrome_trace",
     "export_chrome_trace",
     "attach_jsonl_sink",
+    "rebase",
 ]
 
 DEFAULT_SPAN_CAPACITY = 4096
+CLOCK_EVENT = "obs.clock"
+
+
+def _anchor() -> dict:
+    """One instant as ``obs.clock`` fields: ``unix_ns``, the wall clock
+    read between two monotonic reads, and ``mono``, their midpoint."""
+    m0 = time.monotonic()
+    unix_ns = time.time_ns()
+    m1 = time.monotonic()
+    return {"mono": (m0 + m1) / 2, "unix_ns": unix_ns}
+
+
+# this process's anchor
+CLOCK = _anchor()
 
 
 class SpanLog(EventLog):
@@ -144,12 +169,37 @@ def trace_instant(name: str, **fields) -> None:
 # -- Chrome trace-event export ------------------------------------------------
 
 
+def rebase(records, base_ns: int, clock: Optional[dict] = None) -> list:
+    """``records`` (spans and events in the order written) with ``ts`` in
+    seconds since ``base_ns`` on the Unix clock.  Each record converts
+    through the ``obs.clock`` event last before it, so every part of a
+    log appended to by several processes through its own anchor, and the
+    records before any such event through ``clock`` (a bundle's
+    manifest's, or :data:`CLOCK` for the live rings).  Raises
+    ``ValueError`` for a record with no anchor."""
+    out = []
+    for r in records:
+        if r.get("event") == CLOCK_EVENT:
+            clock = r.get("fields")
+        if "ts" in r:
+            if clock is None:
+                raise ValueError(
+                    f"record seq={r.get('seq')} has no obs.clock anchor")
+            r = dict(r, ts=r["ts"] - clock["mono"]
+                     + (clock["unix_ns"] - base_ns) / 1e9)
+        out.append(r)
+    return out
+
+
 def to_chrome_trace(spans: Optional[list] = None,
-                    events: Optional[list] = None) -> dict:
+                    events: Optional[list] = None,
+                    base_ns: Optional[int] = None) -> dict:
     """Chrome trace-event JSON from span and event records (default: the
     live rings).  Spans with a duration become complete events (``ph:
     "X"``), frame instants and events become instants (``ph: "i"``);
-    times in microseconds."""
+    times in microseconds.  For records that :func:`rebase` moved onto
+    ``base_ns``, pass it: the document carries it as
+    ``baseTimeNanoseconds``, as ``torch.profiler`` writes it."""
     if spans is None:
         spans = SPANS.spans()
     if events is None:
@@ -190,18 +240,22 @@ def to_chrome_trace(spans: Optional[list] = None,
             "args": dict(e.get("fields") or {}, seq=e.get("seq", 0)),
         })
     trace_events.sort(key=lambda ev: ev["ts"])
-    return {
+    doc = {
         "traceEvents": trace_events,
         "displayTimeUnit": "ms",
         "metadata": {"pid": pid},
     }
+    if base_ns is not None:
+        doc["baseTimeNanoseconds"] = base_ns
+    return doc
 
 
 def export_chrome_trace(path: str, spans: Optional[list] = None,
-                        events: Optional[list] = None) -> str:
+                        events: Optional[list] = None,
+                        base_ns: Optional[int] = None) -> str:
     """Write :func:`to_chrome_trace` to ``path`` atomically (tmp +
     rename); returns the path."""
-    doc = to_chrome_trace(spans, events)
+    doc = to_chrome_trace(spans, events, base_ns)
     parent = os.path.dirname(os.path.abspath(path))
     os.makedirs(parent, exist_ok=True)
     tmp = f"{path}.tmp-{os.getpid()}"
@@ -239,9 +293,12 @@ class _LockedLineFile:
 
 def attach_jsonl_sink(path: str) -> _LockedLineFile:
     """Mirror every later event and span as JSONL into ``path`` (append)
-    through one shared lock.  Returns the sink: detach both logs, then
-    ``close()`` it."""
+    through one shared lock, after one ``obs.clock`` event that carries
+    :data:`CLOCK` for :func:`rebase` in another process.  Returns the
+    sink: detach both logs, then ``close()`` it."""
     sink = _LockedLineFile(open(path, "a", encoding="utf-8"))
+    sink.write(json.dumps({"seq": 0, "ts": CLOCK["mono"],
+                           "event": CLOCK_EVENT, "fields": CLOCK}) + "\n")
     EVENTS.attach_sink(sink)
     SPANS.attach_sink(sink)
     return sink

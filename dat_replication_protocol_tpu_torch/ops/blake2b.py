@@ -37,6 +37,9 @@ Telemetry: the batch API counts ``device.h2d.bytes`` (each bucket's
 padded message words and lengths) and ``device.d2h.bytes`` (64 bytes of
 digest halves an item) and notes the ``blake2b.batch`` engine per
 block-count bucket: B1's ``quad`` or ``thread`` variant, or ``plain``.
+Spans: ``digest.stage`` a bucket (its pinned allocation, zero fill and
+per-item copy) and, on CUDA, ``digest.wait`` a batch (the host blocked
+on the digest readback).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from ..obs.device import note_engine as _note_engine
 from ..obs.metrics import OBS as _OBS
 from ..obs.metrics import counter as _counter
 from ..utils.device import resolve_device
+from ..utils.trace import span
 
 DIGEST_SIZE = 32  # BLAKE2b-256, dat's content-hash size
 BLOCK_BYTES = 128
@@ -350,7 +354,8 @@ def stage_batch(payloads, nblocks: int, dev: torch.device):
     CUDA staged in pinned host memory, copied without blocking and split
     into hi/lo halves on the card."""
     on_cuda = dev.type == "cuda"
-    raw, lengths = _stage_bytes(payloads, nblocks, pin=on_cuda)
+    with span("digest.stage"):
+        raw, lengths = _stage_bytes(payloads, nblocks, pin=on_cuda)
     if on_cuda:
         raw = raw.to(dev, non_blocking=True)
         lengths = lengths.to(dev, non_blocking=True)
@@ -384,8 +389,9 @@ def digest_collector(n: int, handles, digest_size: int, dev: torch.device):
 
     def collect() -> list[bytes]:
         if on_cuda:
-            start_d2h()
-            readback[-1].synchronize()
+            with span("digest.wait"):
+                start_d2h()
+                readback[-1].synchronize()
             ready = readback[:-1]
         else:
             ready = handles

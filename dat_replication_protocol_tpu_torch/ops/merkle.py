@@ -20,7 +20,8 @@ sibling path on the device.  The mask combines and gathers are torch
 ops, as the reference leaves them to XLA.
 
 ``host_parent``/``host_tree``/``root_host``/``host_diff`` and
-:func:`verify_proof` are hashlib references.
+:func:`verify_proof` are hashlib references; ``root_host``, the slabbed
+content route's fold, is one ``merkle.fold`` span.
 
 :func:`build_tree`, :func:`diff_root_guided`,
 :func:`diff_root_guided_packed` and :func:`update_leaves` are
@@ -36,6 +37,7 @@ import torch
 
 from ..obs.device import kernel_site
 from ..utils.device import resolve_device
+from ..utils.trace import span
 from .blake2b import _compress_words, initial_state, join_words, split_words
 
 DIGEST_SIZE = 32
@@ -337,12 +339,13 @@ def root_host(digests) -> bytes:
     """Merkle root of (N, 32) uint8 leaf digests (or a list of 32-byte
     digests), zero-digest padded to a power of two, as the reference's
     ``root_host`` pads."""
-    leaves = [bytes(d) for d in digests]
-    if not leaves:
-        return b"\0" * DIGEST_SIZE
-    p = 1 << (len(leaves) - 1).bit_length()
-    leaves += [b"\0" * DIGEST_SIZE] * (p - len(leaves))
-    return host_tree(leaves)[-1][0]
+    with span("merkle.fold"):
+        leaves = [bytes(d) for d in digests]
+        if not leaves:
+            return b"\0" * DIGEST_SIZE
+        p = 1 << (len(leaves) - 1).bit_length()
+        leaves += [b"\0" * DIGEST_SIZE] * (p - len(leaves))
+        return host_tree(leaves)[-1][0]
 
 
 def host_diff(a: list[bytes], b: list[bytes]) -> list[int]:

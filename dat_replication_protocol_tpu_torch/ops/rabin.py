@@ -28,7 +28,8 @@ layout (byte j of a row is byte ``j % 4`` of word ``j // 4``, little
 endian).
 
 Telemetry: the scan's dispatch, collect and greedy pass run inside the
-reference's ``cdc.dispatch`` / ``cdc.collect`` / ``cdc.greedy`` spans;
+reference's ``cdc.dispatch`` / ``cdc.collect`` / ``cdc.greedy`` spans,
+and ``chunk_stream`` stages each slab inside a ``cdc.stage`` span;
 a refused ``fused1p`` extraction counts in
 ``cdc.fused.crosscheck.refused``; ``chunk_stream`` notes its route as
 the ``cdc.chunk`` engine; the two extraction functions are
@@ -616,7 +617,8 @@ def _device_candidates(buf: np.ndarray, avg_bits: int, tile_bytes: int,
         end = min(begin + slab_bytes, length)
         nb = end - begin
         T = -(-nb // tile_bytes)
-        words = stage_words(buf[begin:end], T * tile_bytes // 4, dev)
+        with span("cdc.stage"):
+            words = stage_words(buf[begin:end], T * tile_bytes // 4, dev)
         prefix = None
         if begin:
             prefix = np.ascontiguousarray(buf[begin - WINDOW:begin]).view(

@@ -30,7 +30,8 @@ from dat_replication_protocol_tpu_torch.wire.framing import (ProtocolError,
 
 SIDES = {"port": (protocol, pflight, pfaults, preconnect, pmetrics),
          "jax": (jax_protocol, jflight, jfaults, jreconnect, jmetrics)}
-_CLOCK = ("ts", "monotonic", "pid", "events_dropped", "spans_dropped")
+_CLOCK = ("ts", "monotonic", "clock", "pid", "events_dropped",
+          "spans_dropped")
 
 
 @pytest.fixture(autouse=True)

@@ -408,17 +408,17 @@ def test_hub_sessions_load_no_jax_package_module():
 def test_obs_cli_modules_are_in_the_scan():
     names = {p.relative_to(PORT).as_posix() for p in _port_files()
              if PORT in p.parents}
-    assert {"obs/perf.py", "obs/fleet.py", "obs/__main__.py"} <= names
+    assert {"obs/fleet.py", "obs/__main__.py"} <= names
 
 
 def test_python_m_obs_loads_no_jax_package_module(tmp_path):
     # every subcommand's module imports at the CLI's start, so one run
-    # covers them all: the CLI, fleet (imported by fleet) and perf
+    # covers them all: the CLI and fleet (imported by fleet)
     slo = tmp_path / "slo.json"
     slo.write_text('{"max_shed": 0}')
     code = (
         "import runpy, sys\n"
-        "from dat_replication_protocol_tpu_torch.obs import fleet, perf\n"
+        "from dat_replication_protocol_tpu_torch.obs import fleet\n"
         "sys.argv = ['obs', 'fleet', sys.argv[1], '--check', sys.argv[2],\n"
         "            '--polls', '1']\n"
         "try:\n"

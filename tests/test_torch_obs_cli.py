@@ -18,8 +18,7 @@ with the same code:
   asymmetric, orphaned and over-the-bound cases;
 * ``costdoctor``: a lit session of the port's encoder, and seeded frames
   with ``--stats-fd`` records (amplification series, residuals);
-* ``fleet`` and ``perf-check`` have their own files
-  (``test_torch_obs_fleet.py``, ``test_torch_obs_perf.py``).
+* ``fleet`` has its own file (``test_torch_obs_fleet.py``).
 """
 
 import json

@@ -125,9 +125,11 @@ def test_export_chrome_trace_and_jsonl_sink(port_obs, tmp_path):
         tracing.SPANS.detach_sink()
         sink.close()
     lines = [json.loads(ln) for ln in path.read_text().splitlines()]
+    # the sink's head: this process's clock anchor, an ordinary event
     assert [r.get("span", r.get("event")) for r in lines] == [
-        "encoder.frame", "t.ev", "t.inner", "t.fails", "t.outer",
-        "decoder.frame"]
+        "obs.clock", "encoder.frame", "t.ev", "t.inner", "t.fails",
+        "t.outer", "decoder.frame"]
+    assert lines[0]["fields"] == tracing.CLOCK
     out = tracing.export_chrome_trace(str(tmp_path / "x" / "t.json"))
     doc = json.loads(open(out).read())
     assert {e["ph"] for e in doc["traceEvents"]} == {"X", "i"}

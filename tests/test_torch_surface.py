@@ -34,6 +34,9 @@ MODULES_NOT_PORTED = {
     "native/__init__.py": (
         "renamed", "the C sources' package marker: the port's native/ "
         "holds the sources alone, built by runtime/native.py"),
+    "obs/perf.py": (
+        "item 2", "the benchmark's ledger (PERF_LEDGER.jsonl) gates the "
+        "port, which has no budgets"),
     "ops/blake2b_pallas.py": (
         "renamed", "B1 in csrc/blake2b.cu, bound by ops/blake2b_cuda.py"),
     "ops/merkle_pallas.py": (
@@ -65,8 +68,9 @@ RENAMED = {
 
 # (JAX module, name) -> why the port lacks it
 NOT_PORTED = {
-    ("obs/perf.py", "DEFAULT_BUDGETS_PATH"): (
-        "item 2", "the port's perf budgets come with its benchmark"),
+    ("obs/__main__.py", "cmd_perf_check"): (
+        "item 2", "perf-check went with obs/perf.py: the benchmark's "
+        "ledger gates the port"),
     ("obs/wirecost.py", "OBS"): (
         "renamed", "obs.metrics.OBS: the port's sites import the gate "
         "from its owner"),
