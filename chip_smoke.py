@@ -104,10 +104,11 @@ code 1):
    and its cuts below 1.5 GiB - 32 KiB equal phase 7's; then
    ``content_address`` over the blob's first ``RESIDENCY_CAP`` + 64 MiB
    (2 GiB), which must take the slabbed route (its ``cdc.hash`` engine
-   note ``two-pass-cuda``: ``chunk_stream``, ``hash_extents`` from the
-   host buffer past 2^31 - 2^26, ``root_host``): every chunk digest
-   against ``hashlib`` (on threads), the root against ``root_host``, the
-   same cut checks, and its cuts below 1.5 GiB - 32 KiB equal phase 7's;
+   note ``two-pass-cuda``: ``chunk_stream``, ``hash_extents`` from
+   256 MiB windows of the host buffer past 2^31 - 2^26, ``root_host``):
+   every chunk digest against ``hashlib`` (on threads), the root against
+   ``root_host``, the same cut checks, and its cuts below 1.5 GiB - 32
+   KiB equal phase 7's;
 9. times: B1 at phase 7's largest chunk bucket (each variant, as in
    phase 5), B1's main-path launches by bucket (blob, change, sidecar,
    ``entry()``, chunk, phase 8's slabbed chunks and each later phase's),

@@ -4,20 +4,24 @@ The counterpart of ``dat_replication_protocol_tpu/batch/feed.py``
 (``pack_ragged`` :51, ``bucketed_extents`` :104, ``hash_extents`` /
 ``hash_extents_device`` :115-244, ``DeviceChangeBatch`` /
 ``decode_batch_device`` :248-297, ``leaves_from_change_columns`` /
-``leaves_from_columns`` :300-344).  Every bucket goes to kernel B1's
-wrapper, staged in pinned host memory and copied without blocking on
-CUDA; there is no item floor and no buffer donation.  Replayed change
-records become Merkle leaves here: a leaf is the BLAKE2b-256 of the
-record's per-record payload, whatever framing carried it.
+``leaves_from_columns`` :300-344).  ``hash_extents`` uploads the
+buffer in windows, staged in pinned host memory and copied without
+blocking on CUDA, and packs every bucket for kernel B1 on the device,
+where the reference packs on the host; there is no item floor and no
+buffer donation.  ``pack_ragged`` is the reference's host pack, on no
+hash path.  Replayed change records become Merkle leaves here: a leaf
+is the BLAKE2b-256 of the record's per-record payload, whatever framing
+carried it.
 
 Telemetry: each B1 chunk's pack and launch is a ``device.dispatch`` span
-(field ``site``), and ``hash_extents``' host pack of a chunk an
-``extents.pack`` span and its digest readback an ``extents.collect``
-span; ``device.h2d.bytes`` counts the staged words and
-lengths, ``device.h2d.overlap`` those staged after an earlier chunk of
-the same call was launched (packed while it runs), ``device.d2h.bytes``
-the digests read back; ``decode_batch_device`` counts its columns' H2D
-bytes and notes the ``feed.decode_batch`` engine.
+(field ``site``), ``hash_extents``' staging of a window an
+``extents.window`` span and its digest readback an ``extents.collect``
+span; ``extents.windows`` counts the windows, ``device.h2d.bytes``
+their staged words, ``device.h2d.overlap`` those staged after the
+call's first window (copied while earlier windows upload or hash),
+``device.d2h.bytes`` the digests read back; ``decode_batch_device``
+counts its columns' H2D bytes and notes the ``feed.decode_batch``
+engine.
 """
 
 from __future__ import annotations
@@ -39,11 +43,13 @@ from ..wire.batch_codec import ragged_copy
 
 BLOCK_BYTES = blake2b.BLOCK_BYTES
 PIPELINE_BYTES = 64 << 20  # padded message bytes per B1 launch, at most
+WINDOW_BYTES = 256 << 20  # buffer bytes uploaded at a time, at most
 
 # host <-> device traffic (OBSERVABILITY.md catalog)
 _M_H2D = _counter("device.h2d.bytes")
 _M_D2H = _counter("device.d2h.bytes")
 _M_H2D_OVERLAP = _counter("device.h2d.overlap")
+_M_WINDOWS = _counter("extents.windows")
 
 
 def pack_ragged(buf: np.ndarray, offs, lens, nblocks: int | None = None):
@@ -87,38 +93,67 @@ def hash_extents_device(buf: np.ndarray, offs, lens, device="cuda",
     """BLAKE2b-256 of extents of a host buffer, as ``(hh, hl)`` tensors
     on ``device``, each (N, 4) int32, in extent order.
 
-    Each bucket is packed on the host in chunks of at most
-    ``pipeline_bytes`` of padded messages; on CUDA each chunk is staged
-    in pinned memory and copied without blocking, so the host packs
-    chunk k+1 while B1 hashes chunk k.
+    The extents, in offset order, are grouped into windows of the buffer
+    of at most ``WINDOW_BYTES`` that end where an extent ends (an extent
+    longer than that gets a window of its own).  Each window's bytes,
+    with any gaps between its extents, are staged once in pinned memory
+    and copied without blocking on CUDA; torch's caching host allocator
+    rounds a pinned request up to a power of two, so every full window
+    reuses one cached block.  The window's extents are gathered into
+    B1's padded rows on the device (``pack_extents_device``) and hashed
+    bucket by bucket, in chunks of at most ``pipeline_bytes`` of padded
+    messages.  Window k+1 is staged before window k is hashed.  An
+    extent over 1 GiB is refused: its padded row would pass the gather's
+    int32 positions.
     """
+    from ..ops.fused_cdc_hash import pack_extents_device
+    from ..ops.rabin import stage_words
+
     dev = resolve_device(device)
     offs = np.asarray(offs, dtype=np.int64)
     lens = np.asarray(lens, dtype=np.int64)
-    staged = []  # chunks staged by this call; later ones overlap B1
+    n = len(offs)
+    out_hh = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+    out_hl = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+    if not n:
+        return out_hh, out_hl
+    order = np.argsort(offs, kind="stable")
+    starts = offs[order]
+    # the window of extents order[i:j] spans starts[i] .. reach[j - 1]
+    reach = np.maximum.accumulate(starts + lens[order])
+    firsts = [0]
+    while firsts[-1] < n:
+        i = firsts[-1]
+        j = int(np.searchsorted(reach, starts[i] + WINDOW_BYTES, "right"))
+        firsts.append(max(j, i + 1))
 
-    def pack(idx, nb):
-        with span("extents.pack"):
-            mh, ml, blens = _stage(
-                pack_ragged(buf, offs[idx], lens[idx], nb), dev)
+    def stage(k: int) -> torch.Tensor:
+        w0, w1 = int(starts[firsts[k]]), int(reach[firsts[k + 1] - 1])
+        with span("extents.window"):
+            words = stage_words(buf[w0:w1], max(1, -(-(w1 - w0) // 4)), dev)
         if _OBS.on:
-            _M_H2D.inc(mh.nbytes + ml.nbytes + blens.nbytes)
-            if staged:
-                _M_H2D_OVERLAP.inc(mh.nbytes + ml.nbytes)
-        staged.append(nb)
-        return mh, ml, blens
+            _M_WINDOWS.inc()
+            _M_H2D.inc(words.nbytes)
+            if k:
+                _M_H2D_OVERLAP.inc(words.nbytes)
+        return words
 
-    return _hash_buckets(lens, dev, pipeline_bytes, pack)
-
-
-def _stage(packed, dev: torch.device):
-    on_cuda = dev.type == "cuda"
-    out = []
-    for arr in packed:
-        t = torch.empty(arr.shape, dtype=torch.int32, pin_memory=on_cuda)
-        t.numpy()[...] = arr.view(np.int32)
-        out.append(t.to(dev, non_blocking=True) if on_cuda else t)
-    return out
+    nwin = len(firsts) - 1
+    ahead = stage(0)
+    for k in range(nwin):
+        data = ahead.view(torch.uint8)
+        if k + 1 < nwin:
+            ahead = stage(k + 1)
+        i, j = firsts[k], firsts[k + 1]
+        w_offs, w_lens = starts[i:j] - starts[i], lens[order[i:j]]
+        hh, hl = _hash_buckets(
+            w_lens, dev, pipeline_bytes,
+            lambda idx, nb: pack_extents_device(data, w_offs[idx],
+                                                w_lens[idx], nb))
+        at = torch.as_tensor(order[i:j], device=dev)
+        out_hh[at] = hh
+        out_hl[at] = hl
+    return out_hh, out_hl
 
 
 def _hash_buckets(lens: np.ndarray, dev: torch.device, pipeline_bytes: int,
@@ -143,8 +178,8 @@ def _hash_buckets(lens: np.ndarray, dev: torch.device, pipeline_bytes: int,
             sub = idx[c0:c0 + chunk_b]
             with _trace_span("device.dispatch", site=site, items=len(sub),
                              nblocks=nb):
-                # pack is one of this module's two packers (host extents
-                # or device chunks), passed in by its callers: it stages
+                # pack is the device gather of a window's extents or of
+                # resident chunks, passed in by the two callers: it packs
                 # the chunk's padded messages and returns, no user code
                 # datlint: allow-callback-escape
                 hh, hl = blake2b_packed_kernel(*pack(sub, nb))

@@ -7,9 +7,10 @@ Merkle root; :func:`delta` and :func:`reassemble` are dat's dedup
 exchange on top.  A blob under ``RESIDENCY_CAP`` takes the
 single-residency route (:func:`..ops.fused_cdc_hash.content_begin`, root
 folded on the device by B2); a larger one is chunked in slabs
-(:func:`..ops.rabin.chunk_stream`), hashed from the host buffer
-(:func:`..batch.feed.hash_extents`) and folded by ``root_host``, as the
-reference routes it on a device.
+(:func:`..ops.rabin.chunk_stream`), its chunks hashed by
+:func:`..batch.feed.hash_extents` from windows of the host buffer
+uploaded once and gathered on the device, and folded by ``root_host``,
+as the reference routes it on a device.
 
 Telemetry: :func:`content_address` runs inside a
 ``device.content.address`` span and counts the digests and root it
@@ -85,7 +86,8 @@ def content_digests(data, avg_bits: int = 13, min_size: int | None = None,
     with the checked extraction kernel B6 (for blobs under
     ``RESIDENCY_CAP``; larger ones take the two-pass route), or
     ``"2p"``, the two-pass route: :func:`..ops.rabin.chunk_stream`, then
-    :func:`..batch.feed.hash_extents` from the host buffer.
+    :func:`..batch.feed.hash_extents` from uploaded windows of the host
+    buffer.
     """
     from ..batch.feed import hash_extents
     from ..ops.fused_cdc_hash import RESIDENCY_CAP, content_begin
@@ -124,8 +126,9 @@ def content_address(data, avg_bits: int = 13, min_size: int | None = None,
     ``first``, ``fused``, ``fused1p``); every route gives the same cuts.
     Below ``RESIDENCY_CAP`` the blob is uploaded once and the digests
     stay on the device through the Merkle fold (``pad_leaves`` + ``root``
-    on B2); above it the slabbed route feeds ``root_host``.  Empty input
-    has no chunks and the all-zero root.
+    on B2); above it the slabbed route hashes the chunks from uploaded
+    windows of the blob (``hash_extents``) and feeds ``root_host``.
+    Empty input has no chunks and the all-zero root.
     """
     from ..batch.feed import hash_extents
     from ..ops import merkle

@@ -373,10 +373,11 @@ def test_reconcile_spans_and_counters(port_obs):
     c = metrics.snapshot()["counters"]
     assert c["reconcile.symbols"] == 32  # 16 sent + 16 local
     assert c["reconcile.peeled"] == 1
-    # records and keys of one block each, staged as 16 + 16 words and a
-    # length: 132 bytes an item, 128 items for a, 126 for b, one chunk each
-    assert c["device.h2d.bytes"] == 132 * (128 + 126)
+    # records of 5 bytes and keys of 4, one window each, staged whole in
+    # words: 64 * 9 bytes for a, 63 * 9 rounded up to a word for b
+    assert c["device.h2d.bytes"] == 64 * 9 + 63 * 9 + 1
     assert c["device.h2d.overlap"] == 0
+    assert c["extents.windows"] == 2
 
 
 @pytest.mark.parametrize("garbage", [False, True], ids=["clean", "garbage"])
@@ -409,12 +410,13 @@ def test_sidecar_trace_jsonl_and_flight_dir(garbage, tmp_path):
         assert names.count("encoder.frame") == 2
 
 
-def test_feed_counts_its_staging_and_readback(port_obs):
-    """Four B1 chunks of 16 one-block extents: every chunk's words and
-    lengths count as H2D, the three staged after the first launch as
+def test_feed_counts_its_staging_and_readback(port_obs, monkeypatch):
+    """Four windows of 16 one-block extents, one B1 chunk each: every
+    window's words count as H2D, the three staged after the first as
     overlap, the digests as D2H; one ``device.dispatch`` span a chunk."""
     from dat_replication_protocol_tpu_torch.batch import feed
 
+    monkeypatch.setattr(feed, "WINDOW_BYTES", 1024)
     buf = np.random.default_rng(5).integers(0, 256, 4096, dtype=np.uint8)
     offs = np.arange(0, 4096, 64)
     lens = np.full(64, 64)
@@ -422,8 +424,9 @@ def test_feed_counts_its_staging_and_readback(port_obs):
                                 pipeline_bytes=16 * 128)
     assert digests.shape == (64, 32)
     c = metrics.snapshot()["counters"]
-    assert c["device.h2d.bytes"] == 64 * 132
-    assert c["device.h2d.overlap"] == 48 * 128
+    assert c["extents.windows"] == 4
+    assert c["device.h2d.bytes"] == 4096
+    assert c["device.h2d.overlap"] == 3 * 1024
     assert c["device.d2h.bytes"] == 64 * 32
     spans = tracing.SPANS.spans("device.dispatch")
     assert [(r["fields"]["site"], r["fields"]["items"]) for r in spans] == \

@@ -5,7 +5,7 @@ Each span is counted in a CPU ``torch.profiler`` capture: one
 ``decoder.blob`` a blob of a digest session, one ``digest.stage`` a
 bucket of a batch, one ``digest.collect`` a dispatched batch (paired in
 order with the ``digest.dispatch`` ranges), one ``cdc.stage`` a slab of
-``chunk_stream``, one ``extents.pack`` a pipeline chunk and one
+``chunk_stream``, one ``extents.window`` a window and one
 ``extents.collect`` a call of ``hash_extents``, one ``merkle.fold`` a
 ``root_host``.  ``digest.wait`` is on the CUDA branch only.  With the
 gate on, ``DigestPipeline`` observes ``device.batch.fill.seconds`` once
@@ -161,29 +161,30 @@ def test_one_cdc_stage_a_slab(nbytes, slab_tiles, slabs, gate_off):
     assert len(_ranges(prof, "cdc.stage")) == slabs
 
 
-# extent lengths and the pipeline's padded bytes, in 128-byte blocks: a
-# chunk holds pipeline_blocks // nb extents of an nb-block bucket (64,
-# 200, 300 and 1,000 bytes: nb 1, 2, 4 and 8), and every bucket packs
-# its own chunks
-@pytest.mark.parametrize("lens,pipeline_blocks,chunks", [
-    ([64] * 64, 64, 1),
-    ([64] * 64, 16, 4),
-    ([64] * 32 + [200] * 16, 16, 2 + 2),
-    ([64, 300, 1000] * 8, 16, 1 + 2 + 4),
+# extent lengths (tiling the buffer), the window's bytes and the windows
+# they make: a window takes every extent that ends within its bytes
+# (64, 200, 300 and 1,000 bytes: B1 buckets of 1, 2, 4 and 8 blocks, in
+# chunks of 16 blocks)
+@pytest.mark.parametrize("lens,window,windows", [
+    ([64] * 64, 4096, 1),
+    ([64] * 64, 1024, 4),
+    ([64] * 32 + [200] * 16, 2048, 1 + 2),
+    ([64, 300, 1000] * 8, 2 * 1364, 4),
 ], ids=["one-chunk", "four-chunks", "two-buckets", "three-buckets"])
-def test_hash_extents_packs_a_chunk_and_collects_once(lens, pipeline_blocks,
-                                                      chunks, gate_off):
+def test_hash_extents_packs_a_chunk_and_collects_once(lens, window, windows,
+                                                      gate_off, monkeypatch):
+    monkeypatch.setattr(feed, "WINDOW_BYTES", window)
     lens = np.asarray(lens)
     offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
     buf = np.random.default_rng(5).integers(0, 256, int(lens.sum()),
                                             dtype=np.uint8)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         digests = feed.hash_extents(buf, offs, lens, device="cpu",
-                                    pipeline_bytes=pipeline_blocks * 128)
+                                    pipeline_bytes=16 * 128)
     assert digests.tolist() == [
         list(hashlib.blake2b(buf[o:o + n].tobytes(), digest_size=32).digest())
         for o, n in zip(offs, lens)]
-    assert len(_ranges(prof, "extents.pack")) == chunks
+    assert len(_ranges(prof, "extents.window")) == windows
     assert len(_ranges(prof, "extents.collect")) == 1
 
 
