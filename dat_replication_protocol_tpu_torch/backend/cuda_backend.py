@@ -29,7 +29,9 @@ per dispatch, and each dispatch and delivery inside a
 ``digest.dispatch`` / ``digest.collect`` profiler span.  Each batch
 observes ``device.batch.fill.seconds``, from its first submit to its
 dispatch.  The decoder joins and submits each blob inside a
-``decoder.blob`` span.
+``decoder.blob`` span, and each run of the C change loop's payloads
+inside a ``digest.submit`` span (the dispatches and deliveries the
+submits set off nest in it).
 """
 
 from __future__ import annotations
@@ -310,12 +312,14 @@ class CudaDecoder(_DigestTaps, Decoder):
         if payloads:
             emit = self._emit_change_digest
             submit_many = getattr(self._pipeline, "submit_many", None)
-            if submit_many is not None:
-                submit_many(payloads, emit, self._change_seq)
-            else:
-                submit = self._pipeline.submit
-                for seq, payload in enumerate(payloads, self._change_seq):
-                    submit(payload, emit, seq)
+            with span("digest.submit"):
+                if submit_many is not None:
+                    submit_many(payloads, emit, self._change_seq)
+                else:
+                    submit = self._pipeline.submit
+                    for seq, payload in enumerate(payloads,
+                                                  self._change_seq):
+                        submit(payload, emit, seq)
         self._change_seq += count
 
     def _note_change_batch(self, cols, n: int) -> None:

@@ -30,7 +30,10 @@ Telemetry (behind :data:`..obs.metrics.OBS`): the reference's session
 counters, ``decoder.frame`` instants that tile the wire (offset,
 wire_len, kind; ``rows`` on a batch frame), ``decoder.requeue`` and
 ``protocol.error`` events, and a flight bundle on a protocol error when
-the recorder is armed.
+the recorder is armed.  Each run of the C change loop is a
+``decoder.change_run`` span (``utils/trace.py``: a profiler range while
+a profiler runs, an obs span with the gate on), and ``change_runs``
+counts the runs whatever the gate.
 
 :meth:`checkpoint` exports the resume point (``session/resume.py``) and
 :meth:`watermark` the wire cursors on the fleet plane.
@@ -69,6 +72,7 @@ from ..obs.metrics import counter as _counter
 from ..obs.metrics import histogram as _histogram
 from ..obs.tracing import trace_instant as _trace_instant
 from ..obs.watermarks import WATERMARKS as _WATERMARKS
+from ..utils.trace import span as _span
 from ..wire.change_codec import Change, decode_change
 from ..wire.framing import (LOCAL_CAPS, MAX_HEADER_LEN, TYPE_BLOB,
                             TYPE_CHANGE, TYPE_CHANGE_BATCH, TYPE_HEADER,
@@ -297,6 +301,8 @@ class Decoder:
         # the C loop's outstanding-ack counter (dat_fastpath.AckBoard),
         # made the first time the C loop runs
         self._ack_board = None
+        # runs of change frames the C loop dispatched
+        self.change_runs = 0
 
     # -- handler registration -------------------------------------------------
 
@@ -933,7 +939,9 @@ class Decoder:
         writes both cursors into ``st``.  Handler exceptions propagate as
         themselves; a payload that fails UTF-8 comes back as status 2 and
         destroys the session with its error as the cause.  The run gets
-        one ``decoder.frame.run`` instant and one wire-cost entry."""
+        one ``decoder.frame.run`` instant and one wire-cost entry, and
+        the C call one ``decoder.change_run`` span; ``change_runs``
+        counts the runs."""
         use_tap = type(self).__dict__.get("_bulk_payload_sink", False)
         collect = use_tap and self._payload_sink_active()
         f0 = f
@@ -942,12 +950,14 @@ class Decoder:
             self._ack_board = fp.AckBoard()
         sink = [] if collect else None
         status = 0
+        self.change_runs += 1
         try:
-            _, _, status = fp.dispatch_changes(
-                self, self._ack_board, self._on_change, Change, st["buf"],
-                st["ids_np"], *st["cols_np"], f, st["row"], st["n"], st,
-                st["starts_np"] if collect else None,
-                st["lens_np"] if collect else None, sink)
+            with _span("decoder.change_run"):
+                _, _, status = fp.dispatch_changes(
+                    self, self._ack_board, self._on_change, Change,
+                    st["buf"], st["ids_np"], *st["cols_np"], f, st["row"],
+                    st["n"], st, st["starts_np"] if collect else None,
+                    st["lens_np"] if collect else None, sink)
         finally:
             # the run sits at a frame boundary throughout; the tap drains
             # even when a handler raised (those changes WERE delivered,
